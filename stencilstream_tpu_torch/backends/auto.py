@@ -1,0 +1,76 @@
+"""Automatic backend selection.
+
+Counterpart of ``stencilstream_tpu/backends/auto.py`` for one device: a
+runtime dispatch per grid,
+
+* the grid fits the monotile capacity law (:func:`.monotile.monotile_plan`,
+  from the device's SM count and shared memory per block) -> ``monotile``;
+* otherwise -> ``tiling``.
+
+A CPU grid is judged by an H100 SXM's limits, so it resolves as it would on
+that card. Construction kwargs are forwarded to whichever backend is chosen,
+filtered to the parameters its constructor accepts.
+"""
+
+from __future__ import annotations
+
+import inspect
+from typing import Any
+
+from ..core.grid import Grid
+from . import monotile, tiling
+from .base import StencilUpdateBase
+from .cuda_lib import cell_smem_bytes, device_limits
+
+__all__ = ["StencilUpdate", "choose_backend"]
+
+
+def choose_backend(grid: Grid, tf: Any) -> str:
+    """Resolve the backend name for a grid (see module docstring)."""
+    H, W = grid.shape
+    plan = monotile.monotile_plan(
+        H, W, tf.stencil_radius, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device)
+    )
+    return "monotile" if plan is not None else "tiling"
+
+
+class StencilUpdate(StencilUpdateBase):
+    """Auto-dispatching stencil updater.
+
+    Delegates are cached per backend name; ``resolved_backend`` exposes the
+    last choice and ``resolved_config`` the chosen backend's own (``None``
+    for ``monotile``, which has no options).
+    """
+
+    def __init__(self, params, **backend_kwargs):
+        super().__init__(params)
+        self._backend_kwargs = backend_kwargs
+        self._delegates: dict[str, StencilUpdateBase] = {}
+        self.resolved_backend: str | None = None
+        self.resolved_config: dict | None = None
+
+    def _delegate_for(self, name: str) -> StencilUpdateBase:
+        delegate = self._delegates.get(name)
+        if delegate is None:
+            cls = {"monotile": monotile.StencilUpdate, "tiling": tiling.StencilUpdate}[name]
+            accepted = set(inspect.signature(cls.__init__).parameters)
+            kwargs = {k: v for k, v in self._backend_kwargs.items() if k in accepted}
+            delegate = cls(self.params, **kwargs)
+            self._delegates[name] = delegate
+        delegate.params = self.params
+        return delegate
+
+    def __call__(self, grid):
+        if not isinstance(grid, Grid):
+            grid = Grid(grid)
+        name = choose_backend(grid, self.params.transition_function)
+        self.resolved_backend = name
+        delegate = self._delegate_for(name)
+        out = delegate(grid)
+        self.resolved_config = getattr(delegate, "resolved_config", None)
+        self._walltime = sum(d.get_walltime() for d in self._delegates.values())
+        self._n_processed_cells = sum(d.get_n_processed_cells() for d in self._delegates.values())
+        return out
+
+    def _update(self, grid: Grid) -> Grid:  # pragma: no cover - routed above
+        return self._delegate_for(choose_backend(grid, self.params.transition_function))._update(grid)

@@ -1,0 +1,320 @@
+"""Build and load the package's CUDA kernels.
+
+The kernels are CUDA C++ under ``stencilstream_tpu_torch/csrc/``, compiled by
+``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
+interface, and loaded with ``ctypes``. The library is built at first use into
+``stencilstream_tpu_torch/_build/`` and rebuilt whenever a source file or the
+compiler flags change (the file name carries their hash). Without ``nvcc``
+the build raises; nothing falls back.
+
+Each kernel entry point takes raw device pointers, ints and doubles, launches
+on the stream it is given, allocates nothing, and returns the CUDA error code
+of the launch (0 on success); :func:`check` turns a non-zero code into an
+exception.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Any
+
+import torch
+
+from ..core.cell import cell_field_names, cell_leaves, cell_unflatten
+
+__all__ = [
+    "CSRC",
+    "BUILD_DIR",
+    "KernelFields",
+    "build",
+    "check",
+    "kernel_fields",
+    "library",
+    "op_info",
+    "pointer_array",
+    "with_variant",
+]
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+SOURCES = ("tile_pass.cu", "monotile.cu")
+
+#: No FMA contraction: the kernels then round exactly like their plain
+#: PyTorch versions, which evaluate one elementwise operation at a time.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_PP = ctypes.POINTER(ctypes.c_void_p)
+_PD = ctypes.POINTER(ctypes.c_double)
+_I = ctypes.c_int
+
+#: C signatures by entry-point prefix (the functor's name is appended).
+_SIGNATURES = {
+    "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
+    "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
+    "ss_op_info_": [ctypes.POINTER(ctypes.c_int)],
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceLimits:
+    """What the capacity laws of ``tiling`` and ``monotile`` read."""
+
+    sm_count: int
+    #: dynamic shared memory one block may opt into, in bytes
+    smem_per_block: int
+
+
+#: NVIDIA H100 SXM: 132 SMs, 227 KB of shared memory per block. A CPU grid is
+#: planned as if for this card, so that ``auto`` and the tile choice come out
+#: on the CPU as they would on the card.
+H100_SXM = DeviceLimits(sm_count=132, smem_per_block=232448)
+
+
+def device_limits(device) -> DeviceLimits:
+    """The limits of a CUDA device, read from its properties; H100 SXM's
+    for a CPU device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return H100_SXM
+    props = torch.cuda.get_device_properties(device)
+    return DeviceLimits(props.multi_processor_count, props.shared_memory_per_block_optin)
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on the
+    ``PATH``, else ``/usr/local/cuda/bin/nvcc``. Raises if there is none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(Path(on_path))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the CUDA kernels "
+        "of stencilstream_tpu_torch are built from source at first use"
+    )
+
+
+def source_hash() -> str:
+    """Hash of every kernel source and header plus the compiler flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(p for p in CSRC.rglob("*") if p.suffix in (".cu", ".cuh")):
+        h.update(str(path.relative_to(CSRC)).encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libstencil_kernels_{source_hash()}.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels unless the current sources are already built.
+
+    Returns ``(library path, seconds spent compiling, ptxas report)``; the
+    seconds are 0 when the library was already there.
+    """
+    target = library_path()
+    log = target.with_suffix(".log")
+    if target.exists():
+        return target, 0.0, log.read_text() if log.exists() else ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
+        )
+    report = proc.stdout + proc.stderr
+    log.write_text(report)
+    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return target, seconds, report
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    lib.ss_error_string.argtypes = [ctypes.c_int]
+    lib.ss_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def entry(prefix: str, op: str):
+    """The C entry point ``<prefix><op>`` with its signature declared."""
+    fn = getattr(library(), prefix + op, None)
+    if fn is None:
+        raise NotImplementedError(
+            f"no CUDA kernel instantiated for device functor {op!r} ({prefix}{op}); "
+            f"add it to the csrc/*.cu entry lists"
+        )
+    fn.argtypes = _SIGNATURES[prefix]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_DTYPES = {(4, 1): torch.float32, (8, 1): torch.float64, (4, 0): torch.int32}
+
+
+@functools.cache
+def op_info(op: str) -> dict:
+    """The functor's shape as compiled: radius, sub-iterations, field
+    counts, parameter count and element dtype."""
+    info = (ctypes.c_int * 7)()
+    entry("ss_op_info_", op)(info)
+    keys = ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params")
+    out = dict(zip(keys, info))
+    out["dtype"] = _DTYPES[(info[5], info[6])]
+    return out
+
+
+@dataclasses.dataclass
+class KernelFields:
+    """A grid cell and its transition function, checked and split the way a
+    device functor takes them."""
+
+    op: str
+    variant: list[torch.Tensor]
+    invariant: list[torch.Tensor]
+    params: ctypes.Array
+    halo: ctypes.Array
+    #: position of each variant field among the cell's fields
+    variant_index: list[int]
+
+
+def require_device_op(tf: Any, offset: int = 0) -> str:
+    """The name of ``tf``'s device functor. Raises ``NotImplementedError``,
+    naming the transition function, when it has none or when it has a
+    time-dependent value (the kernels take none yet)."""
+    op = getattr(tf, "cuda_op", None)
+    if not isinstance(op, str) or not callable(getattr(tf, "cuda_params", None)):
+        raise NotImplementedError(
+            f"transition function {type(tf).__name__} names no device functor "
+            f"(cuda_op / cuda_variant / cuda_params), so it cannot run on the "
+            f"CUDA kernels; use the 'reference' backend for it"
+        )
+    if tf.get_time_dependent_value(int(offset)) is not None:
+        raise NotImplementedError(
+            f"transition function {type(tf).__name__} has a time-dependent value; "
+            f"the CUDA kernels take none yet"
+        )
+    return op
+
+
+def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFields:
+    """Check that ``tf`` and the CUDA grid cell ``arrays`` fit a compiled
+    functor and split the cell into variant and invariant fields.
+
+    Raises ``NotImplementedError`` for a transition function without a
+    device functor or with a time-dependent value (the kernels take none
+    yet), and ``TypeError``/``ValueError`` for fields the functor does not
+    take.
+    """
+    op = require_device_op(tf, offset)
+    info = op_info(op)
+    leaves = cell_leaves(arrays)
+    names = cell_field_names(arrays)
+    variant_names = tuple(getattr(tf, "cuda_variant", ()))
+    if names:
+        unknown = set(variant_names) - set(names)
+        if unknown:
+            raise ValueError(f"cuda_variant names fields the cell lacks: {sorted(unknown)}")
+        variant_index = [names.index(n) for n in variant_names]
+    else:
+        variant_index = [0]
+    invariant_index = [j for j in range(len(leaves)) if j not in variant_index]
+    params = [float(v) for v in tf.cuda_params()]
+    expect = (tf.stencil_radius, tf.n_subiterations, len(variant_index), len(invariant_index), len(params))
+    got = tuple(info[k] for k in ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params"))
+    if expect != got:
+        raise ValueError(
+            f"{type(tf).__name__} (radius, sub-iterations, variant fields, invariant "
+            f"fields, params) = {expect}, but functor {op!r} is compiled for {got}"
+        )
+    shape = tuple(leaves[0].shape)
+    device = leaves[0].device
+    for t in leaves:
+        if t.device != device or t.device.type != "cuda":
+            raise ValueError(f"every field must lie on one CUDA device (got {t.device})")
+        if t.dtype != info["dtype"]:
+            raise TypeError(f"functor {op!r} takes {info['dtype']} fields, got {t.dtype}")
+        if tuple(t.shape) != shape or t.dim() != 2:
+            raise ValueError(f"fields must be 2D of one shape (got {tuple(t.shape)} vs {shape})")
+        if not t.is_contiguous():
+            raise ValueError("fields must be contiguous")
+    halo = cell_leaves(halo_cell)
+    return KernelFields(
+        op=op,
+        variant=[leaves[j] for j in variant_index],
+        invariant=[leaves[j] for j in invariant_index],
+        params=double_array(params),
+        halo=double_array([halo[j] for j in variant_index + invariant_index]),
+        variant_index=variant_index,
+    )
+
+
+def cell_smem_bytes(arrays: Any, tf: Any) -> int:
+    """Shared-memory bytes one cell takes in either kernel: two ping-pong
+    copies of each variant field, one staged copy of each invariant field
+    (``csrc/common.cuh:cell_smem_bytes``). Without a device functor every
+    field counts as variant."""
+    names = cell_field_names(arrays)
+    variant = getattr(tf, "cuda_variant", names)
+    total = 0
+    for j, t in enumerate(cell_leaves(arrays)):
+        copies = 1 if names and names[j] not in variant else 2
+        total += copies * t.element_size()
+    return total
+
+
+def with_variant(arrays: Any, fields: KernelFields, new_variant: list[torch.Tensor]) -> Any:
+    """``arrays`` with its variant fields replaced; invariant fields are the
+    very tensors of ``arrays``."""
+    leaves = cell_leaves(arrays)
+    for j, t in zip(fields.variant_index, new_variant):
+        leaves[j] = t
+    return cell_unflatten(arrays, leaves)
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a kernel entry point returned a CUDA error."""
+    if code != 0:
+        msg = library().ss_error_string(code).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {code} ({msg})")
+
+
+def pointer_array(tensors) -> ctypes.Array:
+    """A C array of the tensors' device pointers (a NULL for an empty list)."""
+    ptrs = [t.data_ptr() for t in tensors] or [0]
+    return (ctypes.c_void_p * len(ptrs))(*ptrs)
+
+
+def double_array(values) -> ctypes.Array:
+    vals = [float(v) for v in values] or [0.0]
+    return (ctypes.c_double * len(vals))(*vals)

@@ -1,0 +1,114 @@
+"""One fused pass of ``iters_per_pass`` iterations over the whole grid.
+
+Wrapper of the tile-pass CUDA kernel (``csrc/tile_pass.cu``), which replaces
+the TPU strip-pass kernel (``stencilstream_tpu/backends/strip_pass.py``,
+``StripPass.run``), and its plain PyTorch version.
+
+* On CPU tensors :func:`tile_pass` runs :func:`tile_pass_plain`: the same
+  function, one whole-grid sub-step at a time, built on :mod:`.fused`.
+* On CUDA tensors it launches the kernel, or raises: for a transition
+  function without a device functor, for one with a time-dependent value,
+  and for fields the functor does not take.
+
+Both compute ``iters_per_pass`` iterations starting at absolute iteration
+``i_start``; iterations at or past ``offset + n_iterations`` leave the grid
+unchanged (the last, partial pass of a call).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import torch
+
+from ..core.cell import cell_leaves
+from .cuda_lib import check, entry, kernel_fields, pointer_array, with_variant
+from .fused import fused_substep
+
+__all__ = ["tile_pass", "tile_pass_plain", "launches"]
+
+#: Kernel launches made by :func:`tile_pass` (CUDA tensors only).
+launches = 0
+
+
+def tile_pass_plain(
+    arrays: Any,
+    tf: Any,
+    halo_cell: Any,
+    *,
+    i_start: int,
+    offset: int,
+    n_iterations: int,
+    iters_per_pass: int,
+    tdv_lookup: Callable[[int, int], Any] | None = None,
+) -> Any:
+    """The plain PyTorch version of one pass."""
+    H, W = cell_leaves(arrays)[0].shape
+    for step in range(iters_per_pass):
+        i_abs = i_start + step
+        if i_abs >= offset + n_iterations:
+            break  # pass-through for the rest of the pass
+        tdv = (
+            tdv_lookup(i_abs - offset, i_abs)
+            if tdv_lookup is not None
+            else tf.get_time_dependent_value(i_abs)
+        )
+        arrays = fused_substep(
+            arrays, tf, halo_cell, 0, 0, (H, W), i_abs, tdv, True,
+            radius=tf.stencil_radius, n_subiterations=tf.n_subiterations,
+        )
+    return arrays
+
+
+@torch.no_grad()
+def tile_pass(
+    arrays: Any,
+    tf: Any,
+    halo_cell: Any,
+    *,
+    i_start: int,
+    offset: int,
+    n_iterations: int,
+    iters_per_pass: int,
+    tile: tuple[int, int] = (64, 64),
+    out: Any = None,
+    tdv_lookup: Callable[[int, int], Any] | None = None,
+) -> Any:
+    """One pass; returns the new grid cell.
+
+    On the card the variant fields of the result are new tensors, or those
+    of ``out`` (a cell from an earlier pass of the same chain, written in
+    place; it must not be ``arrays``). The invariant fields of the result
+    ARE the tensors of ``arrays``, so no caller may later write in place
+    into a returned cell's fields without cloning them first.
+    """
+    global launches
+    device = cell_leaves(arrays)[0].device
+    if device.type == "cpu":
+        return tile_pass_plain(
+            arrays, tf, halo_cell, i_start=i_start, offset=offset,
+            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv_lookup=tdv_lookup,
+        )
+    fields = kernel_fields(arrays, tf, halo_cell, offset)
+    H, W = fields.variant[0].shape
+    if out is None:
+        dst = [torch.empty_like(t) for t in fields.variant]
+    else:
+        out_leaves = cell_leaves(out)
+        dst = [out_leaves[j] for j in fields.variant_index]
+        for d, s in zip(dst, fields.variant):
+            if d.shape != s.shape or d.dtype != s.dtype or d.device != s.device:
+                raise ValueError("out must match the grid's fields")
+            if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
+                raise ValueError("out must be contiguous and must not be the input")
+    tile_h, tile_w = tile
+    fn = entry("ss_tile_pass_", fields.op)
+    with torch.cuda.device(device):
+        code = fn(
+            pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
+            H, W, tile_h, tile_w, iters_per_pass, i_start, offset, n_iterations,
+            fields.params, fields.halo, torch.cuda.current_stream(device).cuda_stream,
+        )
+    check(code, "tile-pass kernel")
+    launches += 1
+    return with_variant(arrays, fields, dst)

@@ -6,19 +6,40 @@
 Phases, each of which ends the run with a non-zero exit code when it fails:
 
 1. require a CUDA card; print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``stencilstream_tpu_torch/csrc`` and print
-   how long the build took and what ptxas reports;
-3. hold each kernel against its plain PyTorch version on the card: odd
-   shapes, a grid smaller than a tile, ``n % p != 0``, a non-zero iteration
-   offset and a non-zero halo value;
-4. drive the main path, ``hotspot.run(grid, n, backend="auto")``, at 1024^2
-   (resolves to ``monotile``) and at 8192^2 (resolves to ``tiling``), with
-   the kernels' launch counters reset just before and read just after; then
-   hold the path against the plain ``reference`` backend at a reduced n;
-5. time each kernel and its plain version with CUDA events at the main
-   path's shapes.
+2. build the CUDA kernels from ``stencilstream_tpu_torch/csrc`` (one nvcc
+   per source, all at once) and print how long the build took and what
+   ptxas reports;
+3. hold each kernel against its plain PyTorch version on the card: HotSpot
+   on the tile-pass and resident-grid kernels; every other functor (eight
+   Jacobi variants, Conway, the probe) on all three; the line-cache kernel
+   with HotSpot, Jacobi5, Conway and the probe. Odd shapes, grids smaller than a
+   tile or strip, segment boundaries off the strip grid, 8192^2 at p=8,
+   passes with 1 of p steps active, non-zero iteration offsets and halo
+   values; every probe cell must stay Normal;
+4. drive the main paths through the entry points a user calls, each with
+   the kernels' launch counters set to 0 just before it and read just
+   after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
+   8192^2 (tiling); ``jacobi.run`` of Jacobi5 at 8192^2 with
+   ``backend="tiling", window_mode="linecache"`` (only the line-cache
+   kernel) and through ``auto`` (tiling); Jacobi5 at 1024^2 through
+   ``auto`` (monotile); Conway on a random 8192^2 soup through ``auto``.
+   Then hold each path against the plain ``reference`` backend at a
+   reduced n;
+5. time the kernels, their plain versions and, where one exists, the
+   PyTorch call that computes the same function, with CUDA events at the
+   main paths' shapes: the tile pass at HotSpot 8192^2, p=8; one Jacobi5
+   8192^2 pass of p=8 through the tile-pass and the line-cache kernels in
+   turns, against p successive ``conv2d`` calls (cuDNN tuned by
+   ``cudnn.benchmark``); the resident grid at HotSpot 1024^2, n=1000, and
+   Jacobi5's 1024^2 run beside it. Also log how many line-cache CTAs the
+   CUDA runtime keeps resident per SM against what the config law counted.
 
-The line before the last is a JSON object describing each kernel; the last
+The line before the last is a JSON object describing each kernel at one
+workload that stays the same from run to run (tile pass: HotSpot 8192^2;
+resident grid: HotSpot 1024^2; line cache: Jacobi5 8192^2), with its bound:
+the larger of the bytes it must move over 3.35 TB/s and its float32
+operations (the transition function's ``n_operations``, a fused
+multiply-add counted as two) over 67 TFLOP/s (H100 SXM at 700 W). The last
 line is ``{"ok": true, "device": {...}}``. The port imports no JAX.
 """
 
@@ -27,17 +48,37 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 
-#: Kernel against plain version, temperatures in [70, 90]: both evaluate the
-#: same float32 operations in the same order (the kernels are built without
-#: FMA contraction, and the one fused multiply-add is exact in the plain
-#: version up to a float64 double rounding), so they agree to a few ulps
-#: (an ulp at 80 is 7.6e-6). 1e-4 admits that and nothing else: with the
-#: strong coefficients below, one missing or extra iteration moves
-#: temperatures by ~1e-1, and a wrong halo or coordinate by more.
+#: HotSpot kernel against plain version, temperatures in [70, 90]: both
+#: evaluate the same float32 operations in the same order, with the same
+#: fused multiply-adds (explicit in both; the kernels are otherwise built
+#: without FMA contraction), so they agree to a few ulps (an ulp at 80 is
+#: 7.6e-6). 1e-4 admits that and nothing else: with the strong coefficients
+#: below, one missing or extra iteration moves temperatures by ~1e-1, and a
+#: wrong halo or coordinate by more.
 ATOL = 1e-4
+#: Jacobi, values in [0, 5] (random in [0, 1], halo 5.0): the same argument,
+#: an ulp at 5 is 4.8e-7.
+JACOBI_ATOL = 1e-5
+#: The conv2d yardstick sums its five products in another order than the
+#: kernels (and without their fused multiply-adds): a few ulps per step at
+#: values in [0, 1] after p=8 steps.
+LIBRARY_ATOL = 1e-5
+
+#: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and float32
+#: FLOP/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+
+JACOBI_COEFS = {
+    "jacobi1_general": [0.9],
+    "jacobi4_general": [0.1, 0.2, 0.3, 0.4],
+    "jacobi5_general": [0.15, 0.2, 0.25, 0.1, 0.3],
+    "jacobi9_general": [0.05, 0.1, 0.15, 0.2, 0.02, 0.13, 0.07, 0.11, 0.17],
+}
 
 
 def log(*args) -> None:
@@ -63,8 +104,36 @@ def hotspot_cell(shape, seed, device):
     )
 
 
+def op_case(op, shape, seed, device, iteration=0):
+    """(cell, transition function, halo cell, tolerance) for a device
+    functor: non-zero halos (HotSpot 5.0 and 0.25 for the power, Jacobi
+    5.0); the probe's cells sit at ``iteration``."""
+    import torch
+
+    from stencilstream_tpu_torch import probe
+    from stencilstream_tpu_torch.models import conway, hotspot, jacobi
+
+    rng = np.random.default_rng(seed)
+    if op == "hotspot":
+        strong = hotspot.HotspotKernel(
+            Rx_1=np.float32(0.1), Ry_1=np.float32(0.1), Rz_1=np.float32(0.05), Cap_1=np.float32(0.5)
+        )
+        return hotspot_cell(shape, seed, device), strong, hotspot.HotspotCell(temp=5.0, power=0.25), ATOL
+    if op in jacobi.VARIANTS:
+        x = torch.tensor(rng.random(shape, np.float32), device=device)
+        return x, jacobi.make_kernel(op, JACOBI_COEFS.get(op, [])), 5.0, JACOBI_ATOL
+    if op == "conway":
+        return torch.tensor(rng.random(shape) < 0.4, device=device), conway.ConwayKernel(), False, 0.0
+    grid = probe.make_probe_grid(*shape, iteration, device=device)
+    return grid.arrays, probe.ProbeKernel(), probe.probe_halo_cell(), 0.0
+
+
 def max_err(a, b) -> float:
-    return float((a.temp.double() - b.temp.double()).abs().max())
+    from stencilstream_tpu_torch.core.cell import cell_leaves
+
+    return max(
+        float((x.double() - y.double()).abs().max()) for x, y in zip(cell_leaves(a), cell_leaves(b))
+    )
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -82,16 +151,34 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def check_kernels(device, strong, halo) -> dict:
+def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    """The least time, in ms, the card could take: the larger of the bytes
+    over HBM's rate and the operations over float32's."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check(errs, kernel, what, got, want, tol, moved=None) -> None:
+    e = max_err(got, want)
+    errs[kernel] = max(errs[kernel], e)
+    note = f"; the run moved cells by up to {moved:.3g}" if moved is not None else ""
+    log(f"  {kernel} {what}: max_abs_err={e:.3g} (tol {tol}{note})")
+    assert e <= tol, f"{kernel} kernel disagrees with its plain version ({what}): {e}"
+
+
+def check_kernels(device) -> dict:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
 
+    from stencilstream_tpu_torch import probe
+    from stencilstream_tpu_torch.backends import line_cache as lc
     from stencilstream_tpu_torch.backends.monotile import monotile, monotile_plain
     from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+    from stencilstream_tpu_torch.models import jacobi
 
-    errs = {"tile_pass": 0.0, "monotile": 0.0}
-    # (shape, tile, iters_per_pass, i_start, offset, n): partial passes,
-    # non-zero offsets, odd shapes and a grid smaller than one tile.
+    errs = {"tile_pass": 0.0, "monotile": 0.0, "line_cache": 0.0}
+    # HotSpot, (shape, tile, iters_per_pass, i_start, offset, n): partial
+    # passes, non-zero offsets, odd shapes and a grid smaller than one tile.
     tile_cases = [
         ((37, 53), (16, 32), 3, 3, 3, 5),
         ((37, 53), (64, 64), 4, 7, 3, 5),     # second pass: 1 of 4 steps
@@ -101,30 +188,71 @@ def check_kernels(device, strong, halo) -> dict:
         ((8192, 8192), (64, 64), 8, 0, 0, 1000),
     ]
     for seed, (shape, tile, p, i_start, offset, n) in enumerate(tile_cases):
-        cell = hotspot_cell(shape, seed, device)
+        cell, tf, halo, tol = op_case("hotspot", shape, seed, device)
         kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
-        got = tile_pass(cell, strong, halo, tile=tile, **kw)
-        want = tile_pass_plain(cell, strong, halo, **kw)
+        got = tile_pass(cell, tf, halo, tile=tile, **kw)
+        want = tile_pass_plain(cell, tf, halo, **kw)
         torch.cuda.synchronize()
-        e = max_err(got, want)
-        moved = max_err(want, cell)
-        errs["tile_pass"] = max(errs["tile_pass"], e)
-        log(f"  tile_pass {shape} tile={tile} p={p} i_start={i_start} offset={offset} n={n}: "
-            f"max_abs_err={e:.3g} (tol {ATOL}; the pass moved cells by up to {moved:.3g})")
-        assert e <= ATOL, f"tile-pass kernel disagrees with its plain version: {e}"
+        check(errs, "tile_pass", f"hotspot {shape} tile={tile} p={p} i_start={i_start} offset={offset} "
+              f"n={n}", got, want, tol, max_err(want, cell))
         assert got.power is cell.power, "invariant field must be passed through"
     mono_cases = [((37, 53), 3, 7), ((20, 24), 0, 1), ((1000, 1000), 5, 64), ((1024, 1024), 2, 200)]
     for seed, (shape, offset, n) in enumerate(mono_cases, start=100):
-        cell = hotspot_cell(shape, seed, device)
-        got = monotile(cell, strong, halo, offset=offset, n_iterations=n)
-        want = monotile_plain(cell, strong, halo, offset=offset, n_iterations=n)
+        cell, tf, halo, tol = op_case("hotspot", shape, seed, device)
+        got = monotile(cell, tf, halo, offset=offset, n_iterations=n)
+        want = monotile_plain(cell, tf, halo, offset=offset, n_iterations=n)
         torch.cuda.synchronize()
-        e = max_err(got, want)
-        moved = max_err(want, cell)
-        errs["monotile"] = max(errs["monotile"], e)
-        log(f"  monotile {shape} offset={offset} n={n}: max_abs_err={e:.3g} "
-            f"(tol {ATOL}; the run moved cells by up to {moved:.3g})")
-        assert e <= ATOL, f"resident-grid kernel disagrees with its plain version: {e}"
+        check(errs, "monotile", f"hotspot {shape} offset={offset} n={n}", got, want, tol, max_err(want, cell))
+
+    # Every other functor on every kernel.
+    others = [*sorted(jacobi.VARIANTS), "conway", "probe"]
+    for seed, op in enumerate(others, start=200):
+        # 600^2: the probe's 40 B a cell still fit the resident grid there.
+        for shape in ((45, 70), (600, 600)):
+            cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=1)
+            kw = dict(i_start=1, offset=1, n_iterations=5, iters_per_pass=3)
+            got = tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+            want = tile_pass_plain(cell, tf, halo, **kw)
+            torch.cuda.synchronize()
+            check(errs, "tile_pass", f"{op} {shape} tile=(16, 32) p=3 i_start=1 offset=1 n=5",
+                  got, want, tol)
+            got = lc.line_cache_pass(cell, tf, halo, strip_rows=8, panel_cols=32, segment_rows=20, **kw)
+            torch.cuda.synchronize()
+            check(errs, "line_cache", f"{op} {shape} strip=8 panel=32 segment=20 p=3 i_start=1 "
+                  f"offset=1 n=5", got, want, tol)
+            got = monotile(cell, tf, halo, offset=1, n_iterations=4)
+            want = monotile_plain(cell, tf, halo, offset=1, n_iterations=4)
+            torch.cuda.synchronize()
+            check(errs, "monotile", f"{op} {shape} offset=1 n=4", got, want, tol)
+            if op == "probe":
+                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+
+    # The line-cache kernel, (shape, strip, panel, segment, iters_per_pass,
+    # i_start, offset, n).
+    line_cases = [
+        ((37, 53), 8, 32, 16, 3, 3, 3, 5),
+        ((37, 53), 32, 64, 64, 4, 7, 3, 5),        # 1 of 4 steps active
+        ((20, 24), 32, 64, 32, 8, 0, 0, 8),        # smaller than a strip and a panel
+        ((1000, 1000), 32, 64, 100, 8, 11, 10, 13),  # segments off the strip grid
+        ((1000, 1000), 32, 64, 128, 8, 5, 5, 100),
+        ((8192, 8192), 32, 64, 1024, 8, 0, 0, 1000),
+    ]
+    for op in ("hotspot", "jacobi5_general", "conway", "probe"):
+        for seed, (shape, strip, panel, segment, p, i_start, offset, n) in enumerate(line_cases, start=300):
+            cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
+            kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+            got = lc.line_cache_pass(
+                cell, tf, halo, strip_rows=strip, panel_cols=panel, segment_rows=segment, **kw
+            )
+            want = lc.line_cache_pass_plain(cell, tf, halo, **kw)
+            torch.cuda.synchronize()
+            check(errs, "line_cache", f"{op} {shape} strip={strip} panel={panel} segment={segment} "
+                  f"p={p} i_start={i_start} offset={offset} n={n}", got, want, tol)
+            if op == "hotspot":
+                assert got.power is cell.power, "invariant field must be passed through"
+            if op == "probe":
+                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+            del cell, got, want
     return errs
 
 
@@ -136,16 +264,21 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     log(card)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    t_start = time.perf_counter()
 
     from stencilstream_tpu_torch import Grid
     from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends import line_cache as lc
     from stencilstream_tpu_torch.backends import monotile as mt
     from stencilstream_tpu_torch.backends import tile_pass as tp
-    from stencilstream_tpu_torch.models import hotspot
+    from stencilstream_tpu_torch.models import hotspot, jacobi
+    from stencilstream_tpu_torch.trace_cells import JACOBI5_COEFS, main_paths
 
     limits = cuda_lib.device_limits(device)
     log(f"device limits: {limits}")
@@ -159,79 +292,182 @@ def main() -> int:
             log("  ptxas:", line.strip())
 
     # Phase 3: kernels against their plain versions.
-    f32 = np.float32
-    strong = hotspot.HotspotKernel(Rx_1=f32(0.1), Ry_1=f32(0.1), Rz_1=f32(0.05), Cap_1=f32(0.5))
-    halo = hotspot.HotspotCell(temp=5.0, power=0.25)
     log("kernel checks:")
-    errs = check_kernels(device, strong, halo)
+    errs = check_kernels(device)
+    log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
-    # Phase 4: the main path, through the entry point a user calls.
-    shapes = {"monotile": (1024, 1024, 1000), "tiling": (8192, 8192, 200)}
-    grids = {
-        name: Grid(hotspot_cell((h, w), 7, device)) for name, (h, w, _) in shapes.items()
+    # Phase 4: the main paths, through the entry points a user calls.
+    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
+    # name: (reduced n for the reference check, tolerance, kernels it must launch)
+    checks = {
+        "hotspot 1024^2 auto": (20, ATOL, {"monotile"}),
+        "hotspot 8192^2 auto": (12, ATOL, {"tile_pass"}),
+        "jacobi5 8192^2 tiling linecache": (12, JACOBI_ATOL, {"line_cache"}),
+        "jacobi5 8192^2 auto": (12, JACOBI_ATOL, {"tile_pass"}),
+        "jacobi5 1024^2 auto": (20, JACOBI_ATOL, {"monotile"}),
+        "conway 8192^2 auto": (12, 0.0, {"tile_pass"}),
     }
-    tp.launches = 0
-    mt.launches = 0
-    main_runs = {}
-    for name, (h, w, n) in shapes.items():
-        out, update = hotspot.run(grids[name], n, backend="auto")
-        main_runs[name] = (out, update)
-    counts = {"tile_pass": tp.launches, "monotile": mt.launches}
-    log(f"main path launches: {counts}")
-    for name, (h, w, n) in shapes.items():
-        out, update = main_runs[name]
-        temp = out.arrays.temp
-        assert update.resolved_backend == name, (name, update.resolved_backend)
-        assert tuple(temp.shape) == (h, w) and bool(torch.isfinite(temp).all()), name
-        rate = h * w * n / update.get_walltime() / 1e9
-        config = update.resolved_config
-        log(f"  {h}x{w}, n={n}: auto -> {update.resolved_backend} {config or ''}; "
-            f"walltime {update.get_walltime():.6f} s, {rate:.3f} GCell/s "
-            f"(host clock, first call, build excluded) [{card}]")
-    assert counts["tile_pass"] > 0 and counts["monotile"] > 0, counts
-
-    path_errs = {}
-    for name, (h, w, _) in shapes.items():
-        n_small = 20 if name == "monotile" else 12  # 12 = one full and one partial pass of p=8
-        got, _ = hotspot.run(grids[name], n_small, backend="auto")
-        want, _ = hotspot.run(grids[name], n_small, backend="reference")
+    paths = main_paths(device)
+    assert set(paths) == set(checks), sorted(paths)
+    totals = dict.fromkeys(counters, 0)
+    path_errs = dict.fromkeys(counters, 0.0)
+    runs = {}
+    for name, (grid, run, n, options) in paths.items():
+        n_small, tol, expect = checks[name]
+        for module in counters.values():
+            module.launches = 0
+        out, update = run(grid, n, **options)
+        counts = {k: m.launches for k, m in counters.items()}
+        runs[name] = update
+        launched = {k for k, c in counts.items() if c}
+        log(f"  {name}, n={n}: -> {getattr(update, 'resolved_backend', 'tiling')} "
+            f"{update.resolved_config or ''}; launches {counts}; walltime {update.get_walltime():.6f} s, "
+            f"{grid.shape[0] * grid.shape[1] * n / update.get_walltime() / 1e9:.3f} GCell/s "
+            f"(host clock, build excluded) [{card}]")
+        assert launched == expect, (name, counts)
+        for k in counters:
+            totals[k] += counts[k]
+        field = out.arrays.temp if name.startswith("hotspot") else out.arrays
+        assert tuple(field.shape) == grid.shape, name
+        assert field.dtype == torch.bool or bool(torch.isfinite(field).all()), name
+        if name.startswith("conway"):
+            assert field.dtype == torch.bool and 0 < int(field.sum()) < field.numel(), name
+        # The same path at a reduced n against the plain reference backend.
+        got, _ = run(grid, n_small, **options)
+        want, _ = run(grid, n_small, backend="reference")
         e = max_err(got.arrays, want.arrays)
-        path_errs[name] = e
-        log(f"  {h}x{w}, n={n_small}: auto vs reference max_abs_err={e:.3g} (tol {ATOL})")
-        assert e <= ATOL, (name, e)
+        for k in expect:
+            path_errs[k] = max(path_errs[k], e)
+        log(f"  {name}, n={n_small}: against reference max_abs_err={e:.3g} (tol {tol})")
+        assert e <= tol, (name, e)
+        del out, got, want
+    log(f"main path launches: {totals}")
+    del paths
+    torch.cuda.empty_cache()
+    log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
 
-    # Phase 5: kernel and plain times at the main path's shapes.
-    kernels = []
-    n_mono = shapes["monotile"][2]
-    cell = grids["monotile"].arrays
-    tf = hotspot.derive_coefficients(1024, 1024)
+    # Phase 5: kernel, plain and library times at the main paths' shapes.
+    # The `kernels` line keeps one workload per kernel from PR to PR: the
+    # tile pass at HotSpot 8192^2, the resident grid at HotSpot 1024^2, the
+    # line cache at Jacobi5 8192^2; the others are logged beside them.
+    kernels = {}
+    cells = 8192 * 8192
     hz = hotspot.HotspotCell(temp=0.0, power=0.0)
-    ms = cuda_ms(lambda: mt.monotile(cell, tf, hz, offset=0, n_iterations=n_mono), 5)
-    plain_ms = cuda_ms(lambda: mt.monotile_plain(cell, tf, hz, offset=0, n_iterations=n_mono), 1)
-    log(f"  monotile 1024x1024 n={n_mono}: kernel {ms:.4f} ms ({1024 * 1024 * n_mono / ms / 1e6:.3f} "
-        f"GCell/s), plain {plain_ms:.4f} ms ({1024 * 1024 * n_mono / plain_ms / 1e6:.3f} GCell/s) [{card}]")
-    kernels.append(dict(
-        name="monotile", route="cuda", source="stencilstream_tpu_torch/csrc/monotile.cu",
-        replaces="stencilstream_tpu/backends/monotile.py:253", launches=counts["monotile"],
-        max_abs_err=max(errs["monotile"], path_errs["monotile"]), ms=ms, plain_ms=plain_ms,
-    ))
-    cell = grids["tiling"].arrays
+    cell = hotspot_cell((8192, 8192), 7, device)
     tf = hotspot.derive_coefficients(8192, 8192)
-    config = main_runs["tiling"][1].resolved_config
-    p, tile = config["iters_per_pass"], (config["tile_rows"], config["tile_cols"])
+    hs_cfg = runs["hotspot 8192^2 auto"].resolved_config
+    p, tile = hs_cfg["iters_per_pass"], (hs_cfg["tile_rows"], hs_cfg["tile_cols"])
     kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
     ms = cuda_ms(lambda: tp.tile_pass(cell, tf, hz, tile=tile, **kw), 10)
     plain_ms = cuda_ms(lambda: tp.tile_pass_plain(cell, tf, hz, **kw), 2)
-    log(f"  tile_pass 8192x8192 tile={tile} p={p}: kernel {ms:.4f} ms "
-        f"({8192 * 8192 * p / ms / 1e6:.3f} GCell/s), plain {plain_ms:.4f} ms "
-        f"({8192 * 8192 * p / plain_ms / 1e6:.3f} GCell/s) [{card}]")
-    kernels.append(dict(
+    e = max_err(tp.tile_pass(cell, tf, hz, tile=tile, **kw), tp.tile_pass_plain(cell, tf, hz, **kw))
+    b, by = bound(12 * cells, tf.n_operations * p * cells)
+    log(f"  tile_pass hotspot 8192x8192 tile={tile} p={p}: kernel {ms:.4f} ms = {b / ms:.1%} of its "
+        f"bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, max_abs_err={e:.3g} [{card}]")
+    assert e <= ATOL
+    kernels["tile_pass"] = dict(
         name="tile_pass", route="cuda", source="stencilstream_tpu_torch/csrc/tile_pass.cu",
-        replaces="stencilstream_tpu/backends/strip_pass.py:535", launches=counts["tile_pass"],
-        max_abs_err=max(errs["tile_pass"], path_errs["tiling"]), ms=ms, plain_ms=plain_ms,
-    ))
+        replaces="stencilstream_tpu/backends/strip_pass.py:535", launches=totals["tile_pass"],
+        max_abs_err=max(errs["tile_pass"], path_errs["tile_pass"], e), ms=ms, plain_ms=plain_ms,
+        bound_ms=b, bound_by=by, library_ms=None,
+        workload=f"hotspot 8192x8192, one pass of p={p}, tile {tile}",
+    )
+    del cell
 
-    log(json.dumps({"kernels": kernels}))
+    # One Jacobi5 8192^2 pass of p=8, the tile-pass and line-cache kernels
+    # in turns on the same input, and p conv2d calls.
+    j5 = jacobi.make_kernel("jacobi5_general", JACOBI5_COEFS)
+    x = torch.tensor(np.random.default_rng(9).random((8192, 8192), np.float32), device=device)
+    tile_cfg = runs["jacobi5 8192^2 auto"].resolved_config
+    lc_cfg = runs["jacobi5 8192^2 tiling linecache"].resolved_config
+    p = lc_cfg["iters_per_pass"]
+    assert tile_cfg["iters_per_pass"] == p, (tile_cfg, lc_cfg)
+    kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
+    tile = (tile_cfg["tile_rows"], tile_cfg["tile_cols"])
+    geometry = {k: lc_cfg[k] for k in ("strip_rows", "panel_cols", "segment_rows")}
+    run_tile = lambda: tp.tile_pass(x, j5, 0.0, tile=tile, **kw)  # noqa: E731
+    run_lc = lambda: lc.line_cache_pass(x, j5, 0.0, **geometry, **kw)  # noqa: E731
+    turns = {"tile_pass": [], "line_cache": []}
+    for name in ("tile_pass", "line_cache", "line_cache", "tile_pass"):
+        turns[name].append(cuda_ms(run_tile if name == "tile_pass" else run_lc, 20))
+    jac_ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    jac_plain_ms = cuda_ms(lambda: tp.tile_pass_plain(x, j5, 0.0, **kw), 2)
+    c = JACOBI5_COEFS
+    w = torch.tensor([[0, c[0], 0], [c[1], c[4], c[3]], [0, c[2], 0]], dtype=torch.float32,
+                     device=device).view(1, 1, 3, 3)
+
+    def library_jacobi(y, steps):
+        y = y.view(1, 1, *y.shape)
+        for _ in range(steps):
+            y = torch.nn.functional.conv2d(y, w, padding=1)
+        return y.view(y.shape[2:])
+
+    # The yardstick with cuDNN's default choice of algorithm, then with
+    # `cudnn.benchmark`, whose first call per shape times the candidates and
+    # keeps the fastest (cuda_ms's warm-up call); the tuned time is reported.
+    lib_default_ms = cuda_ms(lambda: library_jacobi(x, p), 10)
+    torch.backends.cudnn.benchmark = True
+    lib_ms = cuda_ms(lambda: library_jacobi(x, p), 10)
+    plain = tp.tile_pass_plain(x, j5, 0.0, **kw)
+    lib_err = float((library_jacobi(x, p) - plain).abs().max())
+    timed_err = {"tile_pass": max_err(run_tile(), plain), "line_cache": max_err(run_lc(), plain)}
+    log(f"  jacobi5 8192x8192 p={p}: tile_pass {turns['tile_pass']} ms, line_cache {turns['line_cache']} "
+        f"ms (in turns), plain {jac_plain_ms:.4f} ms, {p} x conv2d {lib_ms:.4f} ms tuned "
+        f"({lib_default_ms:.4f} ms with cuDNN's default choice); conv2d against plain "
+        f"max_abs_err={lib_err:.3g} (tol {LIBRARY_ATOL}), kernels against plain {timed_err} [{card}]")
+    assert lib_err <= LIBRARY_ATOL and max(timed_err.values()) <= JACOBI_ATOL
+    jac_bound, jac_by = bound(8 * cells, j5.n_operations * p * cells)
+    for name in ("tile_pass", "line_cache"):
+        log(f"  {name} jacobi5: {jac_ms[name]:.4f} ms = {jac_bound / jac_ms[name]:.1%} of its bound "
+            f"{jac_bound:.4f} ms ({jac_by}) [{card}]")
+    # What really resides per SM, against what the config law counted on.
+    n_ctas = -(-8192 // geometry["panel_cols"]) * -(-8192 // geometry["segment_rows"])
+    per_sm = lc.line_cache_residency(j5, geometry["strip_rows"], geometry["panel_cols"], p, device)
+    law_per_sm = lc.ctas_per_sm(
+        lc.line_cache_smem_bytes(geometry["strip_rows"], geometry["panel_cols"], 1, p, 4, 0), limits
+    )
+    log(f"  line_cache {geometry}: {n_ctas} CTAs, {per_sm} resident per SM by the CUDA occupancy "
+        f"calculator (the law counted {law_per_sm}): {n_ctas / (per_sm * limits.sm_count):.3f} waves")
+    kernels["line_cache"] = dict(
+        name="line_cache", route="cuda", source="stencilstream_tpu_torch/csrc/line_cache.cu",
+        replaces="stencilstream_tpu/backends/line_cache.py:375", launches=totals["line_cache"],
+        max_abs_err=max(errs["line_cache"], path_errs["line_cache"], timed_err["line_cache"]),
+        ms=jac_ms["line_cache"], plain_ms=jac_plain_ms, bound_ms=jac_bound, bound_by=jac_by,
+        library_ms=lib_ms, workload=f"jacobi5_general 8192x8192, one pass of p={p}, {geometry}",
+    )
+    del x, plain
+
+    # The resident grid at HotSpot 1024^2, n=1000 (no single PyTorch call).
+    n_mono = 1000
+    cell = hotspot_cell((1024, 1024), 7, device)
+    tf = hotspot.derive_coefficients(1024, 1024)
+    ms = cuda_ms(lambda: mt.monotile(cell, tf, hz, offset=0, n_iterations=n_mono), 5)
+    plain_ms = cuda_ms(lambda: mt.monotile_plain(cell, tf, hz, offset=0, n_iterations=n_mono), 1)
+    cells = 1024 * 1024
+    mono_bound, mono_by = bound(12 * cells, tf.n_operations * n_mono * cells)
+    log(f"  monotile hotspot 1024x1024 n={n_mono}: kernel {ms:.4f} ms "
+        f"({cells * n_mono / ms / 1e6:.3f} GCell/s) = {mono_bound / ms:.1%} of its bound "
+        f"{mono_bound:.4f} ms ({mono_by}), plain {plain_ms:.4f} ms [{card}]")
+    kernels["monotile"] = dict(
+        name="monotile", route="cuda", source="stencilstream_tpu_torch/csrc/monotile.cu",
+        replaces="stencilstream_tpu/backends/monotile.py:253", launches=totals["monotile"],
+        max_abs_err=max(errs["monotile"], path_errs["monotile"]), ms=ms, plain_ms=plain_ms,
+        bound_ms=mono_bound, bound_by=mono_by, library_ms=None,
+        workload=f"hotspot 1024x1024, n={n_mono} in one launch",
+    )
+
+    # Beside it: Jacobi5 on the resident grid.
+    y = torch.tensor(np.random.default_rng(10).random((1024, 1024), np.float32), device=device)
+    ms = cuda_ms(lambda: mt.monotile(y, j5, 0.0, offset=0, n_iterations=n_mono), 5)
+    plain_ms = cuda_ms(lambda: mt.monotile_plain(y, j5, 0.0, offset=0, n_iterations=n_mono), 1)
+    lib_ms = cuda_ms(lambda: library_jacobi(y, n_mono), 2)
+    b, by = bound(8 * cells, j5.n_operations * n_mono * cells)
+    log(f"  monotile jacobi5 1024x1024 n={n_mono}: kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
+        f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, {n_mono} x conv2d {lib_ms:.4f} ms tuned [{card}]")
+    log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
+
+    order = ("tile_pass", "monotile", "line_cache")
+    log(json.dumps({"kernels": [kernels[k] for k in order]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

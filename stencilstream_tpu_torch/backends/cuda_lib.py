@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The kernels are CUDA C++ under ``stencilstream_tpu_torch/csrc/``, compiled by
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, and loaded with ``ctypes``. The library is built at first use into
+``nvcc`` for Hopper (``sm_90a``), one compiler process per source file, all
+started together, and linked into one shared library with a plain C
+interface, loaded with ``ctypes``. The library is built at first use into
 ``stencilstream_tpu_torch/_build/`` and rebuilt whenever a source file or the
 compiler flags change (the file name carries their hash). Without ``nvcc``
 the build raises; nothing falls back.
@@ -41,20 +42,22 @@ __all__ = [
     "library",
     "op_info",
     "pointer_array",
+    "variant_outputs",
     "with_variant",
 ]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("tile_pass.cu", "monotile.cu")
+SOURCES = ("tile_pass.cu", "monotile.cu", "line_cache.cu")
 
 #: No FMA contraction: the kernels then round exactly like their plain
-#: PyTorch versions, which evaluate one elementwise operation at a time.
+#: PyTorch versions, which evaluate one elementwise operation at a time
+#: (a functor fuses a multiply-add only where it says so, with __fmaf_rn).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -67,6 +70,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
     "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
+    "ss_line_cache_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
+    "ss_line_cache_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_op_info_": [ctypes.POINTER(ctypes.c_int)],
 }
 
@@ -94,6 +99,28 @@ def device_limits(device) -> DeviceLimits:
         return H100_SXM
     props = torch.cuda.get_device_properties(device)
     return DeviceLimits(props.multi_processor_count, props.shared_memory_per_block_optin)
+
+
+def fit_shared_memory(need, geometry, p: int, auto_p: bool, shrink, limits: DeviceLimits, describe):
+    """The shrinking loop the capacity laws share. While ``need(geometry,
+    p)`` bytes exceed half the shared memory a block may use (so that two
+    CTAs share an SM), shrink ``p`` when it was not given, then the
+    geometry (``shrink(geometry)``, ``None`` when it is smallest). Returns
+    ``(geometry, p)``; raises ``ValueError``, naming ``describe(geometry,
+    p)``, when the result exceeds all of it."""
+    while need(geometry, p) > limits.smem_per_block // 2:
+        if auto_p and p > 1:
+            p -= 1
+        elif (smaller := shrink(geometry)) is not None:
+            geometry = smaller
+        else:
+            break
+    if need(geometry, p) > limits.smem_per_block:
+        raise ValueError(
+            f"{describe(geometry, p)} needs {need(geometry, p)} B of shared memory; "
+            f"the device allows {limits.smem_per_block} B per block"
+        )
+    return geometry, p
 
 
 def nvcc_path() -> str:
@@ -139,21 +166,30 @@ def build() -> tuple[Path, float, str]:
     if target.exists():
         return target, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+    nvcc = nvcc_path()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    report = proc.stdout + proc.stderr
-    log.write_text(report)
-    os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
-    return target, seconds, report
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objects = [str(Path(work) / (Path(src).stem + ".o")) for src in SOURCES]
+        compiles = [
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)]
+            for src, obj in zip(SOURCES, objects)
+        ]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in compiles]
+        outputs = [p.communicate()[0] for p in procs]
+        report = "".join(outputs)
+        for cmd, proc, out in zip(compiles, procs, outputs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        tmp = str(Path(work) / "lib.so")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objects]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        log.write_text(report)
+        os.replace(tmp, target)  # atomic: a concurrent loader sees all or nothing
+    return target, time.perf_counter() - start, report
 
 
 @functools.cache
@@ -179,7 +215,13 @@ def entry(prefix: str, op: str):
     return fn
 
 
-_DTYPES = {(4, 1): torch.float32, (8, 1): torch.float64, (4, 0): torch.int32}
+_DTYPES = {(4, 1): torch.float32, (8, 1): torch.float64, (4, 0): torch.int32, (1, 0): torch.uint8}
+
+
+def kernel_view(t: torch.Tensor) -> torch.Tensor:
+    """The tensor as a kernel takes it: a bool field as a uint8 view of the
+    same bytes (no copy), any other field as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
 @functools.cache
@@ -257,6 +299,7 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
             f"{type(tf).__name__} (radius, sub-iterations, variant fields, invariant "
             f"fields, params) = {expect}, but functor {op!r} is compiled for {got}"
         )
+    leaves = [kernel_view(t) for t in leaves]
     shape = tuple(leaves[0].shape)
     device = leaves[0].device
     for t in leaves:
@@ -279,27 +322,49 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
     )
 
 
-def cell_smem_bytes(arrays: Any, tf: Any) -> int:
-    """Shared-memory bytes one cell takes in either kernel: two ping-pong
-    copies of each variant field, one staged copy of each invariant field
-    (``csrc/common.cuh:cell_smem_bytes``). Without a device functor every
-    field counts as variant."""
+def cell_field_bytes(arrays: Any, tf: Any) -> tuple[int, int]:
+    """Bytes of one cell's variant fields and of its invariant fields.
+    Without a device functor every field counts as variant."""
     names = cell_field_names(arrays)
     variant = getattr(tf, "cuda_variant", names)
-    total = 0
+    sizes = [0, 0]
     for j, t in enumerate(cell_leaves(arrays)):
-        copies = 1 if names and names[j] not in variant else 2
-        total += copies * t.element_size()
-    return total
+        sizes[bool(names) and names[j] not in variant] += t.element_size()
+    return sizes[0], sizes[1]
+
+
+def cell_smem_bytes(arrays: Any, tf: Any) -> int:
+    """Shared-memory bytes one cell takes in the tile-pass and resident-grid
+    kernels: two ping-pong copies of each variant field, one staged copy of
+    each invariant field (``csrc/common.cuh:cell_smem_bytes``)."""
+    variant, invariant = cell_field_bytes(arrays, tf)
+    return 2 * variant + invariant
 
 
 def with_variant(arrays: Any, fields: KernelFields, new_variant: list[torch.Tensor]) -> Any:
-    """``arrays`` with its variant fields replaced; invariant fields are the
-    very tensors of ``arrays``."""
+    """``arrays`` with its variant fields replaced by kernel outputs (viewed
+    back as bool where the field is bool); invariant fields are the very
+    tensors of ``arrays``."""
     leaves = cell_leaves(arrays)
     for j, t in zip(fields.variant_index, new_variant):
-        leaves[j] = t
+        leaves[j] = t.view(torch.bool) if leaves[j].dtype == torch.bool else t
     return cell_unflatten(arrays, leaves)
+
+
+def variant_outputs(arrays: Any, fields: KernelFields, out: Any) -> list[torch.Tensor]:
+    """Output tensors for a kernel's variant fields: new ones, or those of
+    ``out`` (a cell from an earlier pass of the same chain, written in
+    place), checked against the input fields."""
+    if out is None:
+        return [torch.empty_like(t) for t in fields.variant]
+    out_leaves = cell_leaves(out)
+    dst = [kernel_view(out_leaves[j]) for j in fields.variant_index]
+    for d, s in zip(dst, fields.variant):
+        if d.shape != s.shape or d.dtype != s.dtype or d.device != s.device:
+            raise ValueError("out must match the grid's fields")
+        if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
+            raise ValueError("out must be contiguous and must not be the input")
+    return dst
 
 
 def check(code: int, what: str) -> None:

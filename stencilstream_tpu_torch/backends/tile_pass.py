@@ -22,7 +22,7 @@ from typing import Any, Callable
 import torch
 
 from ..core.cell import cell_leaves
-from .cuda_lib import check, entry, kernel_fields, pointer_array, with_variant
+from .cuda_lib import check, entry, kernel_fields, pointer_array, variant_outputs, with_variant
 from .fused import fused_substep
 
 __all__ = ["tile_pass", "tile_pass_plain", "launches"]
@@ -91,16 +91,7 @@ def tile_pass(
         )
     fields = kernel_fields(arrays, tf, halo_cell, offset)
     H, W = fields.variant[0].shape
-    if out is None:
-        dst = [torch.empty_like(t) for t in fields.variant]
-    else:
-        out_leaves = cell_leaves(out)
-        dst = [out_leaves[j] for j in fields.variant_index]
-        for d, s in zip(dst, fields.variant):
-            if d.shape != s.shape or d.dtype != s.dtype or d.device != s.device:
-                raise ValueError("out must match the grid's fields")
-            if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
-                raise ValueError("out must be contiguous and must not be the input")
+    dst = variant_outputs(arrays, fields, out)
     tile_h, tile_w = tile
     fn = entry("ss_tile_pass_", fields.op)
     with torch.cuda.device(device):

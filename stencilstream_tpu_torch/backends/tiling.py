@@ -1,11 +1,21 @@
 """Tiling backend: temporal blocking over 2D tiles, any grid size.
 
-Counterpart of ``stencilstream_tpu/backends/tiling.py`` in its clamped
-mode. The grid is cut into ``tile_h x tile_w`` core tiles; each pass stages
-every tile with its compound halo ``r * p * k`` into one CTA's shared memory
-and runs ``p`` fused iterations there (:mod:`.tile_pass`). The host loops
-``ceil(n / p)`` passes and ping-pongs two global buffers; the last pass is
-partial when ``p`` does not divide ``n``.
+Counterpart of ``stencilstream_tpu/backends/tiling.py`` in its clamped and
+line-cache window modes. The host loops ``ceil(n / p)`` passes of ``p``
+fused iterations and ping-pongs two global buffers; the last pass is partial
+when ``p`` does not divide ``n``. One pass is one kernel launch:
+
+* ``window_mode="clamped"`` (default): the grid is cut into
+  ``tile_h x tile_w`` core tiles; each pass stages every tile with its
+  compound halo ``r * p * k`` into one CTA's shared memory and runs ``p``
+  fused iterations there (:mod:`.tile_pass`).
+* ``window_mode="linecache"``: each CTA walks a column panel's row segment
+  strip by strip and carries the rows the next strip needs on chip, so rows
+  are neither re-read nor recomputed within a walk (:mod:`.line_cache`).
+  Grid edges are exact inside the kernel, so there is no band patch, and
+  the TPU mode's eligibility rules (lane-aligned widths, 32-bit fields) do
+  not apply: any grid runs whose strip holds ``2r`` rows, and a strip that
+  does not raises ``ValueError``.
 
 Where the TPU package cut full-width row strips to keep its lane dimension
 contiguous, shared memory on Hopper favours square tiles, so there are no
@@ -18,8 +28,9 @@ import torch
 
 from ..core.grid import Grid
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import DeviceLimits, cell_smem_bytes, device_limits
+from .cuda_lib import DeviceLimits, cell_field_bytes, cell_smem_bytes, device_limits, fit_shared_memory
 from .fused import halo_width
+from .line_cache import line_cache_pass, pick_linecache_config
 from .tile_pass import tile_pass
 
 __all__ = ["StencilUpdate", "pick_config", "DEFAULT_TILE"]
@@ -56,22 +67,18 @@ def pick_config(
     if n_iterations:
         p = min(p, n_iterations)
 
-    def window_bytes(th, tw, p):
+    def window_bytes(tile, p):
         hp = halo_width(radius, p, n_subiterations)
-        return (th + 2 * hp) * (tw + 2 * hp) * cell_bytes
+        return (tile[0] + 2 * hp) * (tile[1] + 2 * hp) * cell_bytes
 
-    while window_bytes(th, tw, p) > limits.smem_per_block // 2:
-        if auto_p and p > 1:
-            p -= 1
-        elif th > 8 or tw > 32:
-            th, tw = max(8, th // 2), max(32, tw // 2)
-        else:
-            break
-    if window_bytes(th, tw, p) > limits.smem_per_block:
-        raise ValueError(
-            f"a {th}x{tw} tile at iters_per_pass={p} needs {window_bytes(th, tw, p)} B of "
-            f"shared memory; the device allows {limits.smem_per_block} B per block"
-        )
+    def shrink(tile):
+        th, tw = tile
+        return (max(8, th // 2), max(32, tw // 2)) if th > 8 or tw > 32 else None
+
+    (th, tw), p = fit_shared_memory(
+        window_bytes, (th, tw), p, auto_p, shrink, limits,
+        lambda tile, p: f"a {tile[0]}x{tile[1]} tile at iters_per_pass={p}",
+    )
     if halo_width(radius, p, n_subiterations) > min(th, tw):
         raise ValueError(
             f"iters_per_pass={p} gives a halo of {halo_width(radius, p, n_subiterations)} "
@@ -86,14 +93,32 @@ class StencilUpdate(StencilUpdateBase):
     Extra keyword options:
 
     * ``iters_per_pass`` — temporal parallelism p, iterations fused per pass
-      (auto: halo at most an eighth of the core; see :func:`pick_config`).
+      (auto: halo at most an eighth of the core or panel; see
+      :func:`pick_config` and :func:`.line_cache.pick_linecache_config`).
+    * ``window_mode`` — ``"clamped"`` (2D tiles, the default) or
+      ``"linecache"`` (streaming column panels).
+    * ``strip_rows`` — rows a line-cache walk stages per step (auto: 32);
+      line-cache mode only.
 
     ``resolved_config`` holds the configuration the last call executed.
     """
 
-    def __init__(self, params, *, iters_per_pass: int | None = None):
+    def __init__(
+        self,
+        params,
+        *,
+        iters_per_pass: int | None = None,
+        window_mode: str = "clamped",
+        strip_rows: int | None = None,
+    ):
         super().__init__(params)
+        if window_mode not in ("clamped", "linecache"):
+            raise ValueError(f"window_mode must be 'clamped' or 'linecache' (got {window_mode!r})")
+        if strip_rows is not None and window_mode != "linecache":
+            raise ValueError("strip_rows applies to window_mode='linecache' only")
         self.iters_per_pass = iters_per_pass
+        self.window_mode = window_mode
+        self.strip_rows = strip_rows
         #: The configuration the last ``_update`` actually executed.
         self.resolved_config: dict | None = None
 
@@ -105,22 +130,37 @@ class StencilUpdate(StencilUpdateBase):
         offset = int(p.iteration_offset)
         halo_cell = resolve_halo(p.halo_value, grid)
         H, W = grid.shape
-        th, tw, ipp = pick_config(
-            H, W, tf.stencil_radius, tf.n_subiterations, n,
-            cell_smem_bytes(grid.arrays, tf), device_limits(grid.device), self.iters_per_pass,
-        )
-        self.resolved_config = dict(
-            window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp
-        )
+        limits = device_limits(grid.device)
+        if self.window_mode == "linecache":
+            cfg = pick_linecache_config(
+                H, W, tf.stencil_radius, tf.n_subiterations, n,
+                *cell_field_bytes(grid.arrays, tf), limits, self.iters_per_pass, self.strip_rows,
+            )
+            self.resolved_config = dict(window_mode="linecache", **cfg._asdict())
+            ipp = cfg.iters_per_pass
+            geometry = dict(
+                strip_rows=cfg.strip_rows, panel_cols=cfg.panel_cols, segment_rows=cfg.segment_rows
+            )
+            run_pass = line_cache_pass
+        else:
+            th, tw, ipp = pick_config(
+                H, W, tf.stencil_radius, tf.n_subiterations, n,
+                cell_smem_bytes(grid.arrays, tf), limits, self.iters_per_pass,
+            )
+            self.resolved_config = dict(
+                window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp
+            )
+            geometry = dict(tile=(th, tw))
+            run_pass = tile_pass
         lookup = self._tdv_lookup(grid)
         arrays = grid.arrays
         # Pass i writes into pass i-2's result: two buffers, never the input.
         earlier = [None, None]
         for i_pass in range(-(-n // ipp) if n else 0):
-            arrays = tile_pass(
+            arrays = run_pass(
                 arrays, tf, halo_cell,
                 i_start=offset + i_pass * ipp, offset=offset, n_iterations=n,
-                iters_per_pass=ipp, tile=(th, tw), out=earlier[i_pass % 2], tdv_lookup=lookup,
+                iters_per_pass=ipp, out=earlier[i_pass % 2], tdv_lookup=lookup, **geometry,
             )
             earlier[i_pass % 2] = arrays
         return Grid(arrays)

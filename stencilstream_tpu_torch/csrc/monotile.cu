@@ -29,7 +29,7 @@
 #include <cuda_runtime.h>
 
 #include "common.cuh"
-#include "ops/hotspot.cuh"
+#include "ops/all.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -203,4 +203,4 @@ int launch_monotile(void* const* var_in, void* const* var_out, void* const* inv,
                                    n_iterations, params, halo, xchg, stream);             \
   }
 
-SS_MONOTILE_ENTRY(hotspot, ss::HotspotOp)
+SS_FOR_EACH_OP(SS_MONOTILE_ENTRY)

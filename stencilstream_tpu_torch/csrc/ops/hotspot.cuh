@@ -4,9 +4,9 @@
 // Cell fields: temp (variant), power (invariant). Runtime parameters, in
 // order: Rx_1, Ry_1, Rz_1, Cap_1 (HotspotKernel.cuda_params()). At a grid
 // edge the missing neighbour is replaced by the centre temperature. The
-// update keeps the Python twin's association term by term, including its one
-// fused multiply-add, and the kernels are built without any other FMA
-// contraction, so the two round alike.
+// update keeps the Python twin's association term by term, including the
+// four multiply-adds that XLA fuses, and the kernels are built without any
+// other FMA contraction, so the two round alike.
 #pragma once
 
 #include "../common.cuh"
@@ -36,11 +36,11 @@ struct HotspotOp {
     const float bottom = s.row == s.H - 1 ? old : s.v(0, 1, 0);
     const float left = s.col == 0 ? old : s.v(0, 0, -1);
     const float right = s.col == s.W - 1 ? old : s.v(0, 0, 1);
-    const float old_coef = 1.0f - Cap_1 * (2.0f * Ry_1 + 2.0f * Rx_1 + Rz_1);
+    // Fused multiply-adds where XLA fuses the reference's.
+    const float old_coef = __fmaf_rn(-Cap_1, 2.0f * Ry_1 + 2.0f * Rx_1 + Rz_1, 1.0f);
     float acc = power + kAmbTemp * Rz_1;
-    acc = (bottom + top) * Ry_1 + acc;
-    acc = (right + left) * Rx_1 + acc;
-    // One fused multiply-add, as XLA evaluates the reference's last line.
+    acc = __fmaf_rn(bottom + top, Ry_1, acc);
+    acc = __fmaf_rn(right + left, Rx_1, acc);
     out[0] = __fmaf_rn(old, old_coef, acc * Cap_1);
   }
 };

@@ -27,7 +27,7 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "ops/hotspot.cuh"
+#include "ops/all.cuh"
 
 namespace ss {
 
@@ -187,7 +187,7 @@ int op_info(int* info) {
   }                                                                                     \
   extern "C" int ss_op_info_##name(int* info) { return ss::op_info<Op>(info); }
 
-SS_TILE_PASS_ENTRY(hotspot, ss::HotspotOp)
+SS_FOR_EACH_OP(SS_TILE_PASS_ENTRY)
 
 extern "C" const char* ss_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -14,9 +14,19 @@ from typing import Any
 import numpy as np
 
 from .core.grid import Grid
+from .models import jacobi
 from .models.hotspot import HotspotCell, HotspotKernel
+from .probe import ProbeCell
 
-__all__ = ["grid_from_numpy", "transition_function_from_fields", "hotspot_grid", "hotspot_kernel"]
+__all__ = [
+    "grid_from_numpy",
+    "transition_function_from_fields",
+    "conway_grid",
+    "hotspot_grid",
+    "hotspot_kernel",
+    "jacobi_kernel",
+    "probe_grid",
+]
 
 
 def _as_dict(values: Any) -> dict:
@@ -50,3 +60,23 @@ def hotspot_kernel(fields: Any) -> HotspotKernel:
 def hotspot_grid(arrays: Any, *, device) -> Grid:
     """The port's HotSpot grid from a JAX HotSpot grid's ``to_numpy()``."""
     return grid_from_numpy(HotspotCell, arrays, device=device)
+
+
+def jacobi_kernel(variant: str, fields: Any) -> Any:
+    """The port's Jacobi ``variant`` from a JAX one's fields (Jacobi9's
+    ``coef`` stays a tuple)."""
+    values = _as_dict(fields)
+    if "coef" in values and isinstance(values["coef"], (list, tuple)):
+        values["coef"] = tuple(values["coef"])
+    return transition_function_from_fields(jacobi.VARIANTS[variant], values)
+
+
+def conway_grid(cells: Any, *, device) -> Grid:
+    """The port's Conway grid (one bool field) from a JAX grid's
+    ``to_numpy()``."""
+    return grid_from_numpy(None, np.asarray(cells, dtype=bool), device=device)
+
+
+def probe_grid(arrays: Any, *, device) -> Grid:
+    """The port's probe grid from a JAX probe grid's ``to_numpy()``."""
+    return grid_from_numpy(ProbeCell, arrays, device=device)

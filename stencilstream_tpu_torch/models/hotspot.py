@@ -24,6 +24,7 @@ import torch
 
 from ..backends import create_update
 from ..core import Grid, Params, cell_type, transition_function
+from ..core.fma import fma_f32
 from ..utils.io import (
     read_float_grid_binary,
     read_float_grid_text,
@@ -75,6 +76,12 @@ class HotspotKernel:
     #: updates ``temp``; ``power`` is loop-invariant and never written.
     cuda_op = "hotspot"
     cuda_variant = ("temp",)
+    #: Float32 operations per cell and iteration that the update does on
+    #: cell data, a fused multiply-add counted as two: power + AMB*Rz, b + t,
+    #: fma, r + l, fma, acc * Cap, fma. ``old_coef`` and ``AMB*Rz`` are
+    #: constants of the launch. (``FLOPS_PER_CELL`` is Rodinia's count, kept
+    #: for its GFlops print.)
+    n_operations = 10
     Rx_1: float = 0.0
     Ry_1: float = 0.0
     Rz_1: float = 0.0
@@ -100,16 +107,14 @@ class HotspotKernel:
         #   new = old * (1 - Cap*(2Ry+2Rx+Rz)) + Cap*(power + AMB*Rz
         #         + (b+t)*Ry + (r+l)*Rx)
         rx, ry, rz, cap = f32(self.Rx_1), f32(self.Ry_1), f32(self.Rz_1), f32(self.Cap_1)
-        old_coef = float(f32(1.0) - cap * (f32(2.0) * ry + f32(2.0) * rx + rz))
+        # XLA on the CPU fuses four multiply-adds, old_coef's included, and so
+        # does the device functor (__fmaf_rn).
+        conductance = torch.tensor([f32(2.0) * ry + f32(2.0) * rx + rz])
+        old_coef = float(fma_f32(conductance, -float(cap), torch.ones(1))[0])
         acc = power + float(f32(AMB_TEMP) * rz)
-        acc = (bottom + top) * float(ry) + acc
-        acc = (right + left) * float(rx) + acc
-        # XLA fuses the last multiply-add, fma(old, old_coef, acc*Cap), and
-        # so does the device functor (fmaf). The product of two float32
-        # values is exact in float64, so the sum is rounded once to float64
-        # and once to float32: the fused result except in the rare case where
-        # the float64 rounding lands exactly on a float32 tie.
-        new_temp = (old.double() * old_coef + (acc * float(cap)).double()).float()
+        acc = fma_f32(bottom + top, float(ry), acc)
+        acc = fma_f32(right + left, float(rx), acc)
+        new_temp = fma_f32(old, old_coef, acc * float(cap))
         return HotspotCell(temp=new_temp, power=power)
 
     def get_time_dependent_value(self, i):

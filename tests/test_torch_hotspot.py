@@ -2,8 +2,8 @@
 
 The same numpy inputs go through both packages (via
 ``stencilstream_tpu_torch.interop``); JAX runs on the CPU. The port's HotSpot
-keeps the JAX package's float32 association, including the one
-multiply-add XLA fuses, so the two agree to the last bit here; the stated
+keeps the JAX package's float32 association, including the four
+multiply-adds XLA fuses, so the two agree to the last bit here; the stated
 tolerances leave room only for a different platform's rounding.
 """
 
@@ -46,6 +46,23 @@ def test_reference_matches_jax_reference():
     out, _ = hs.run(grid, 100, backend="reference", kernel=kernel)
     np.testing.assert_allclose(out.to_numpy().temp, j_out.to_numpy().temp, rtol=1e-6, atol=1e-5)
     np.testing.assert_array_equal(out.to_numpy().power, j_out.to_numpy().power)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_reference_matches_jax_bit_for_bit_at_any_coefficients(seed):
+    """48x40, 30 iterations, coefficients drawn at random (Cap not a power
+    of two, so XLA's fused ``1 - Cap*(2Ry+2Rx+Rz)`` rounds differently from
+    the unfused one in about one draw of three): exact."""
+    rng = np.random.default_rng(100 + seed)
+    coefs = dict(
+        Rx_1=rng.uniform(0.01, 0.4), Ry_1=rng.uniform(0.01, 0.4),
+        Rz_1=rng.uniform(0.001, 0.1), Cap_1=rng.uniform(0.1, 0.9),
+    )
+    jkernel = jhs.HotspotKernel(**{k: np.float32(v) for k, v in coefs.items()})
+    jgrid, grid = _both((48, 40), seed)
+    j_out, _ = jhs.run(jgrid, 30, backend="reference", kernel=jkernel)
+    out, _ = hs.run(grid, 30, backend="reference", kernel=interop.hotspot_kernel(jkernel))
+    np.testing.assert_array_equal(out.to_numpy().temp, j_out.to_numpy().temp)
 
 
 def test_hotspot_golden():

@@ -8,20 +8,27 @@ This file imports no JAX, so its card tests run where JAX is absent:
 ``gpu`` need a CUDA card and skip without one; the others check, on the CPU,
 that a wrapper given CPU tensors runs its plain version and launches nothing.
 
-Tolerance on the card: atol 1e-4 at temperatures in [70, 90]. A kernel and
-its plain version evaluate the same float32 operations in the same order,
-so they agree to a few ulps (7.6e-6 at 80); with the strong coefficients
-one iteration moves temperatures by ~1e-1.
+Tolerance on the card: atol 1e-4 at HotSpot's temperatures in [70, 90] and
+1e-5 at Jacobi's values in [0, 5]. A kernel and its plain version evaluate
+the same float32 operations in the same order, with the same fused
+multiply-adds, so they agree to a few ulps (7.6e-6 at 80, 4.8e-7 at 5);
+with the strong coefficients one iteration moves temperatures by ~1e-1.
+Conway's and the probe's integer cells must agree exactly.
 """
+
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from stencilstream_tpu_torch import Grid, Params, create_update
+from stencilstream_tpu_torch import Grid, Params, create_update, probe
 from stencilstream_tpu_torch.backends import cuda_lib
+from stencilstream_tpu_torch.backends import line_cache as lc
 from stencilstream_tpu_torch.backends import monotile as mt
 from stencilstream_tpu_torch.backends import tile_pass as tp
+from stencilstream_tpu_torch.core.cell import cell_leaves
+from stencilstream_tpu_torch.models import conway, jacobi
 from stencilstream_tpu_torch.models import hotspot as hs
 
 STRONG = dict(Rx_1=np.float32(0.1), Ry_1=np.float32(0.1), Rz_1=np.float32(0.05), Cap_1=np.float32(0.5))
@@ -34,6 +41,37 @@ def _cell(shape, seed, device, dtype=torch.float32):
         temp=torch.tensor(rng.uniform(70, 90, shape), dtype=dtype, device=device),
         power=torch.tensor(rng.uniform(0, 1e-3, shape), dtype=dtype, device=device),
     )
+
+
+#: Distinct coefficients per Jacobi variant, so a wrong tap shows.
+JACOBI_COEFS = {
+    "jacobi1_general": [0.9],
+    "jacobi4_general": [0.1, 0.2, 0.3, 0.4],
+    "jacobi5_general": [0.15, 0.2, 0.25, 0.1, 0.3],
+    "jacobi9_general": [0.05, 0.1, 0.15, 0.2, 0.02, 0.13, 0.07, 0.11, 0.17],
+}
+#: Every device functor: HotSpot, the eight Jacobi variants, Conway, the probe.
+OPS = ["hotspot", *sorted(jacobi.VARIANTS), "conway", "probe"]
+
+
+def _case(op, shape, seed, device, iteration=0):
+    """(cell, transition function, halo cell, tolerance) for a functor; the
+    halo is non-zero (HotSpot 5.0 and 0.25, Jacobi 5.0), the probe's cells
+    sit at ``iteration``."""
+    rng = np.random.default_rng(seed)
+    if op == "hotspot":
+        return _cell(shape, seed, device), hs.HotspotKernel(**STRONG), hs.HotspotCell(temp=5.0, power=0.25), ATOL
+    if op in jacobi.VARIANTS:
+        x = torch.tensor(rng.random(shape, np.float32), device=device)
+        return x, jacobi.make_kernel(op, JACOBI_COEFS.get(op, [])), 5.0, 1e-5
+    if op == "conway":
+        return torch.tensor(rng.random(shape) < 0.4, device=device), conway.ConwayKernel(), False, 0
+    grid = probe.make_probe_grid(*shape, iteration, device=device)
+    return grid.arrays, probe.ProbeKernel(), probe.probe_halo_cell(), 0
+
+
+def _max_err(a, b):
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(cell_leaves(a), cell_leaves(b)))
 
 
 @pytest.fixture
@@ -64,7 +102,44 @@ def test_build_is_keyed_by_the_sources():
     assert len(digest) == 16 and digest == cuda_lib.source_hash()
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR and digest in path.name
-    assert {"tile_pass.cu", "monotile.cu"} <= {p.name for p in cuda_lib.CSRC.glob("*.cu")}
+    assert set(cuda_lib.SOURCES) == {p.name for p in cuda_lib.CSRC.glob("*.cu")}
+    assert set(cuda_lib.SOURCES) == {"tile_pass.cu", "monotile.cu", "line_cache.cu"}
+
+
+def test_every_functor_is_instantiated_in_every_kernel():
+    """ops/all.cuh lists each functor the Python side names, once, and every
+    kernel source expands its entry macro over that list."""
+    listed = re.findall(r"X\((\w+), ss::(\w+)\)", (cuda_lib.CSRC / "ops" / "all.cuh").read_text())
+    names = [name for name, _ in listed]
+    assert sorted(names) == sorted(OPS) and len(set(names)) == len(names)
+    assert len({op for _, op in listed}) == len(listed)
+    for tf in (hs.HotspotKernel(), conway.ConwayKernel(), probe.ProbeKernel(),
+               *(jacobi.make_kernel(v, JACOBI_COEFS.get(v, [])) for v in jacobi.VARIANTS)):
+        assert tf.cuda_op in names
+    for src in cuda_lib.SOURCES:
+        assert re.search(r"^SS_FOR_EACH_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
+
+
+def test_bool_fields_reach_the_kernels_as_uint8_views():
+    cells = torch.tensor([[True, False], [False, True]])
+    view = cuda_lib.kernel_view(cells)
+    assert view.dtype == torch.uint8 and view.data_ptr() == cells.data_ptr()
+    assert view.tolist() == [[1, 0], [0, 1]]
+    x = torch.zeros(2, 2)
+    assert cuda_lib.kernel_view(x) is x
+    assert cuda_lib._DTYPES[(1, 0)] == torch.uint8
+
+
+@pytest.mark.parametrize("op", OPS)
+def test_cpu_line_cache_pass_is_one_tile_pass(op):
+    """On the CPU the line-cache wrapper runs its plain version, which is one
+    tile pass's, and launches nothing."""
+    cell, tf, halo, _ = _case(op, (11, 14), 1, "cpu", iteration=2)
+    kw = dict(i_start=2, offset=1, n_iterations=3, iters_per_pass=3)
+    before = lc.launches
+    got = lc.line_cache_pass(cell, tf, halo, strip_rows=8, panel_cols=32, segment_rows=8, **kw)
+    assert lc.launches == before
+    assert _max_err(got, tp.tile_pass_plain(cell, tf, halo, **kw)) == 0
 
 
 def test_cell_smem_bytes_counts_variant_fields_twice():
@@ -151,3 +226,80 @@ def test_kernels_refuse_what_they_cannot_run(cuda):
     big = _cell((4096, 4096), 0, cuda)
     with pytest.raises(ValueError, match="tiling"):
         mt.monotile(big, kernel, halo, offset=0, n_iterations=1)
+
+
+#: (shape, strip, panel, segment, p, i_start, offset, n): odd shapes, a grid
+#: smaller than one strip and one panel, segment boundaries off the strip
+#: grid, a pass with 1 of p steps active.
+LINE_CACHE_CASES = [
+    ((37, 53), 8, 32, 16, 3, 3, 3, 5),
+    ((37, 53), 32, 64, 64, 4, 7, 3, 5),
+    ((20, 24), 32, 64, 32, 8, 0, 0, 8),
+    ((300, 260), 32, 64, 100, 8, 2, 1, 20),
+    ((300, 260), 4, 32, 21, 5, 2, 1, 20),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LINE_CACHE_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-p{c[4]}-s{c[1]}")
+@pytest.mark.parametrize("op", ["hotspot", "jacobi5_general", "conway", "probe"])
+def test_line_cache_kernel_matches_plain_version(cuda, op, case):
+    shape, strip, panel, segment, p, i_start, offset, n = case
+    cell, tf, halo, tol = _case(op, shape, 11, cuda, iteration=i_start)
+    kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+    before = lc.launches
+    got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=panel, segment_rows=segment, **kw)
+    want = lc.line_cache_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert lc.launches == before + 1
+    assert _max_err(got, want) <= tol
+    if op == "hotspot":
+        assert got.power is cell.power
+    if op == "probe":
+        assert int(got.status.abs().max()) == probe.NORMAL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", OPS)
+def test_every_functor_on_every_kernel(cuda, op):
+    cell, tf, halo, tol = _case(op, (45, 70), 12, cuda, iteration=1)
+    kw = dict(i_start=1, offset=1, n_iterations=5, iters_per_pass=3)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    got = tp.tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+    assert _max_err(got, want) <= tol
+    got = lc.line_cache_pass(cell, tf, halo, strip_rows=8, panel_cols=32, segment_rows=20, **kw)
+    assert _max_err(got, want) <= tol
+    got = mt.monotile(cell, tf, halo, offset=1, n_iterations=4)
+    want = mt.monotile_plain(cell, tf, halo, offset=1, n_iterations=4)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= tol
+    if op == "conway":
+        assert got.dtype == torch.bool
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["jacobi5_general", "hotspot"])
+def test_line_cache_residency_meets_the_laws_count(cuda, op):
+    """The config law counts threads and shared memory only; the CUDA
+    runtime, which counts registers as well, holds at least as many CTAs per
+    SM at the law's 8192^2 geometry, so one wave holds the law's segments."""
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    limits = cuda_lib.device_limits(cuda)
+    variant, invariant = cuda_lib.cell_field_bytes(cell, tf)
+    cfg = lc.pick_linecache_config(8192, 8192, 1, 1, 200, variant, invariant, limits)
+    smem = lc.line_cache_smem_bytes(cfg.strip_rows, cfg.panel_cols, 1, cfg.iters_per_pass, variant, invariant)
+    law = lc.ctas_per_sm(smem, limits)
+    assert lc.line_cache_residency(tf, cfg.strip_rows, cfg.panel_cols, cfg.iters_per_pass, cuda) >= law
+
+
+@pytest.mark.gpu
+def test_linecache_mode_launches_only_the_line_cache_kernel(cuda):
+    x = torch.tensor(np.random.default_rng(4).random((1000, 700), np.float32), device=cuda)
+    kernel = jacobi.make_kernel("jacobi5_general", JACOBI_COEFS["jacobi5_general"])
+    before = (lc.launches, tp.launches, mt.launches)
+    got, update = jacobi.run(Grid(x), kernel, 13, backend="tiling", window_mode="linecache")
+    launched = (lc.launches - before[0], tp.launches - before[1], mt.launches - before[2])
+    assert update.resolved_config["window_mode"] == "linecache"
+    assert launched == (2, 0, 0)  # p = 8: one full pass and one partial
+    want, _ = jacobi.run(Grid(x), kernel, 13, backend="reference")
+    assert float((got.arrays - want.arrays).abs().max()) <= 1e-5

@@ -15,7 +15,10 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    with HotSpot, Jacobi5, Conway and the probe. Odd shapes, grids smaller than a
    tile or strip, segment boundaries off the strip grid, 8192^2 at p=8,
    passes with 1 of p steps active, non-zero iteration offsets and halo
-   values; every probe cell must stay Normal;
+   values; every probe cell must stay Normal. The tile pass also runs, on
+   every functor, interior tiles beside edge tiles whose core lies inside
+   the grid, widths that are not multiples of 4, a ragged run, more tiles
+   than resident CTAs and p=1;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
@@ -27,12 +30,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    reduced n;
 5. time the kernels, their plain versions and, where one exists, the
    PyTorch call that computes the same function, with CUDA events at the
-   main paths' shapes: the tile pass at HotSpot 8192^2, p=8; one Jacobi5
+   main paths' shapes and the config laws' geometry: the tile pass at
+   HotSpot 8192^2, p=8, and at Conway 8192^2 (2 B a cell); one Jacobi5
    8192^2 pass of p=8 through the tile-pass and the line-cache kernels in
    turns, against p successive ``conv2d`` calls (cuDNN tuned by
-   ``cudnn.benchmark``); the resident grid at HotSpot 1024^2, n=1000, and
-   Jacobi5's 1024^2 run beside it. Also log how many line-cache CTAs the
-   CUDA runtime keeps resident per SM against what the config law counted.
+   ``cudnn.benchmark``); the resident grid at HotSpot 1024^2, n=1000, with
+   the same run through ``tiling`` and Jacobi5's 1024^2 run beside it. Also
+   log how many tile-pass and line-cache CTAs the CUDA runtime keeps
+   resident per SM against what the config laws counted.
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
@@ -173,7 +178,8 @@ def check_kernels(device) -> dict:
     from stencilstream_tpu_torch import probe
     from stencilstream_tpu_torch.backends import line_cache as lc
     from stencilstream_tpu_torch.backends.monotile import monotile, monotile_plain
-    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain, tile_smem_bytes
     from stencilstream_tpu_torch.models import jacobi
 
     errs = {"tile_pass": 0.0, "monotile": 0.0, "line_cache": 0.0}
@@ -227,6 +233,37 @@ def check_kernels(device) -> dict:
             if op == "probe":
                 assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
+    # The tile-pass kernel's geometry on every functor, (shape, tile,
+    # iters_per_pass, i_start, offset, n): interior tiles beside edge tiles
+    # whose core lies inside the grid but whose window does not; widths that
+    # are not multiples of 4 (the copy widths); a window height that leaves
+    # a ragged run; more tiles than resident CTAs; p=1; 1 of p steps active.
+    # p, then the core's height, halves until the window fits one block.
+    geometry_cases = [
+        ((192, 288), (64, 96), 8, 0, 0, 8),
+        ((61, 1001), (32, 64), 3, 2, 1, 20),
+        ((70, 1002), (20, 32), 8, 0, 0, 8),
+        ((1000, 1003), (8, 32), 2, 0, 0, 2),
+        ((45, 70), (16, 32), 1, 4, 4, 1),
+        ((45, 70), (16, 32), 4, 7, 3, 5),
+    ]
+    limits = cuda_lib.device_limits(device)
+    for seed, op in enumerate(["hotspot", *others], start=400):
+        for shape, tile, p, i_start, offset, n in geometry_cases:
+            cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
+            cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+            while tile_smem_bytes(*tile, tf.stencil_radius * p * tf.n_subiterations, cell_bytes) > \
+                    limits.smem_per_block:
+                tile, p = (tile, p // 2) if p > 1 else ((max(8, tile[0] // 2), tile[1]), p)
+            kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+            got = tile_pass(cell, tf, halo, tile=tile, **kw)
+            want = tile_pass_plain(cell, tf, halo, **kw)
+            torch.cuda.synchronize()
+            check(errs, "tile_pass", f"{op} {shape} tile={tile} p={p} i_start={i_start} offset={offset} "
+                  f"n={n}", got, want, tol)
+            if op == "probe":
+                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+
     # The line-cache kernel, (shape, strip, panel, segment, iters_per_pass,
     # i_start, offset, n).
     line_cases = [
@@ -277,7 +314,8 @@ def main() -> int:
     from stencilstream_tpu_torch.backends import line_cache as lc
     from stencilstream_tpu_torch.backends import monotile as mt
     from stencilstream_tpu_torch.backends import tile_pass as tp
-    from stencilstream_tpu_torch.models import hotspot, jacobi
+    from stencilstream_tpu_torch.backends.tiling import TILE_LAW
+    from stencilstream_tpu_torch.models import conway, hotspot, jacobi
     from stencilstream_tpu_torch.trace_cells import JACOBI5_COEFS, main_paths
 
     limits = cuda_lib.device_limits(device)
@@ -365,6 +403,9 @@ def main() -> int:
     log(f"  tile_pass hotspot 8192x8192 tile={tile} p={p}: kernel {ms:.4f} ms = {b / ms:.1%} of its "
         f"bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, max_abs_err={e:.3g} [{card}]")
     assert e <= ATOL
+    per_sm = tp.tile_pass_residency(tf, tile, p, device)
+    log(f"  tile_pass hotspot tile={tile} p={p}: {per_sm} CTAs resident per SM by the CUDA occupancy "
+        f"calculator (the law sized the window for {TILE_LAW[12][2]})")
     kernels["tile_pass"] = dict(
         name="tile_pass", route="cuda", source="stencilstream_tpu_torch/csrc/tile_pass.cu",
         replaces="stencilstream_tpu/backends/strip_pass.py:535", launches=totals["tile_pass"],
@@ -373,6 +414,24 @@ def main() -> int:
         workload=f"hotspot 8192x8192, one pass of p={p}, tile {tile}",
     )
     del cell
+
+    # Conway 8192^2, one pass at the main path's p and tile: 1 B read and 1 B
+    # written per cell (no single PyTorch call computes it).
+    cw_cfg = runs["conway 8192^2 auto"].resolved_config
+    p, tile = cw_cfg["iters_per_pass"], (cw_cfg["tile_rows"], cw_cfg["tile_cols"])
+    soup = torch.tensor(np.random.default_rng(8).random((8192, 8192)) < 0.35, device=device)
+    life = conway.ConwayKernel()
+    kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
+    ms = cuda_ms(lambda: tp.tile_pass(soup, life, False, tile=tile, **kw), 10)
+    plain_ms = cuda_ms(lambda: tp.tile_pass_plain(soup, life, False, **kw), 2)
+    e = max_err(tp.tile_pass(soup, life, False, tile=tile, **kw), tp.tile_pass_plain(soup, life, False, **kw))
+    b, by = bound(2 * cells, 0)
+    log(f"  tile_pass conway 8192x8192 tile={tile} p={p}: kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
+        f"{b:.4f} ms ({by}, 2 B/cell), plain {plain_ms:.4f} ms, library none: no single PyTorch call, "
+        f"max_abs_err={e:.3g}; {tp.tile_pass_residency(life, tile, p, device)} CTAs resident per SM "
+        f"(law: {TILE_LAW[2][2]}) [{card}]")
+    assert e == 0
+    del soup
 
     # One Jacobi5 8192^2 pass of p=8, the tile-pass and line-cache kernels
     # in turns on the same input, and p conv2d calls.
@@ -426,6 +485,8 @@ def main() -> int:
     law_per_sm = lc.ctas_per_sm(
         lc.line_cache_smem_bytes(geometry["strip_rows"], geometry["panel_cols"], 1, p, 4, 0), limits
     )
+    log(f"  tile_pass jacobi5 tile={tile} p={p}: {tp.tile_pass_residency(j5, tile, p, device)} CTAs "
+        f"resident per SM by the CUDA occupancy calculator (law: {TILE_LAW[8][2]})")
     log(f"  line_cache {geometry}: {n_ctas} CTAs, {per_sm} resident per SM by the CUDA occupancy "
         f"calculator (the law counted {law_per_sm}): {n_ctas / (per_sm * limits.sm_count):.3f} waves")
     kernels["line_cache"] = dict(
@@ -448,6 +509,17 @@ def main() -> int:
     log(f"  monotile hotspot 1024x1024 n={n_mono}: kernel {ms:.4f} ms "
         f"({cells * n_mono / ms / 1e6:.3f} GCell/s) = {mono_bound / ms:.1%} of its bound "
         f"{mono_bound:.4f} ms ({mono_by}), plain {plain_ms:.4f} ms [{card}]")
+    # Beside it, for information: the same run through `tiling` (the tile
+    # pass, host loop of ceil(n/p) passes); `auto` keeps the resident grid.
+    grid = Grid(cell)
+    tiling_out, update = hotspot.run(grid, n_mono, backend="tiling")
+    tiling_ms = cuda_ms(lambda: hotspot.run(grid, n_mono, backend="tiling"), 3)
+    mono_out, _ = hotspot.run(grid, n_mono, backend="monotile")
+    log(f"  hotspot 1024x1024 n={n_mono} through tiling {update.resolved_config}: {tiling_ms:.4f} ms "
+        f"({cells * n_mono / tiling_ms / 1e6:.3f} GCell/s, host loop included) against the resident "
+        f"grid's {ms:.4f} ms; the two agree to {max_err(tiling_out.arrays, mono_out.arrays):.3g} [{card}]")
+    assert max_err(tiling_out.arrays, mono_out.arrays) <= ATOL
+    del grid, tiling_out, mono_out
     kernels["monotile"] = dict(
         name="monotile", route="cuda", source="stencilstream_tpu_torch/csrc/monotile.cu",
         replaces="stencilstream_tpu/backends/monotile.py:253", launches=totals["monotile"],

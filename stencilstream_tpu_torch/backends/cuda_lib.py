@@ -69,6 +69,7 @@ _I = ctypes.c_int
 #: C signatures by entry-point prefix (the functor's name is appended).
 _SIGNATURES = {
     "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
+    "ss_tile_pass_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
     "ss_line_cache_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
     "ss_line_cache_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],

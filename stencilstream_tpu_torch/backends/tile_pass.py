@@ -17,18 +17,45 @@ unchanged (the last, partial pass of a call).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Any, Callable
 
 import torch
 
 from ..core.cell import cell_leaves
-from .cuda_lib import check, entry, kernel_fields, pointer_array, variant_outputs, with_variant
+from .cuda_lib import (
+    check,
+    entry,
+    kernel_fields,
+    pointer_array,
+    require_device_op,
+    variant_outputs,
+    with_variant,
+)
 from .fused import fused_substep
 
-__all__ = ["tile_pass", "tile_pass_plain", "launches"]
+__all__ = ["tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes", "launches"]
 
 #: Kernel launches made by :func:`tile_pass` (CUDA tensors only).
 launches = 0
+
+#: Elements a shared-memory row pitch is rounded up to, and each plane's pad
+#: (``csrc/tile_pass.cu``: ``kPitchAlign``): 16 bytes for any cell type.
+PITCH_ALIGN = 16
+#: Columns one warp covers: the narrowest tile the kernel's thread map takes.
+WARP = 32
+#: Rows of one thread's run for a one-field cell (``csrc/tile_pass.cu``:
+#: ``kRun``): the shortest tile the kernel takes.
+RUN_ROWS = 8
+
+
+def tile_smem_bytes(tile_h: int, tile_w: int, halo: int, cell_bytes: int) -> int:
+    """Dynamic shared memory of one tile-pass CTA (``csrc/tile_pass.cu``):
+    for each of the ``cell_bytes`` (:func:`.cuda_lib.cell_smem_bytes`), one
+    plane of window rows times a pitch of window columns rounded up to
+    :data:`PITCH_ALIGN`, plus :data:`PITCH_ALIGN` elements."""
+    pitch = -(-(tile_w + 2 * halo) // PITCH_ALIGN) * PITCH_ALIGN
+    return cell_bytes * ((tile_h + 2 * halo) * pitch + PITCH_ALIGN)
 
 
 def tile_pass_plain(
@@ -70,17 +97,19 @@ def tile_pass(
     offset: int,
     n_iterations: int,
     iters_per_pass: int,
-    tile: tuple[int, int] = (64, 64),
+    tile: tuple[int, int],
     out: Any = None,
     tdv_lookup: Callable[[int, int], Any] | None = None,
 ) -> Any:
-    """One pass; returns the new grid cell.
+    """One pass over ``tile``-sized cores (``tiling.pick_config`` gives the
+    law's); returns the new grid cell.
 
     On the card the variant fields of the result are new tensors, or those
     of ``out`` (a cell from an earlier pass of the same chain, written in
     place; it must not be ``arrays``). The invariant fields of the result
     ARE the tensors of ``arrays``, so no caller may later write in place
-    into a returned cell's fields without cloning them first.
+    into a returned cell's fields without cloning them first. Raises for a
+    tile narrower than a warp or shorter than a run.
     """
     global launches
     device = cell_leaves(arrays)[0].device
@@ -93,6 +122,8 @@ def tile_pass(
     H, W = fields.variant[0].shape
     dst = variant_outputs(arrays, fields, out)
     tile_h, tile_w = tile
+    if tile_w < WARP or tile_h < RUN_ROWS:
+        raise ValueError(f"the tile-pass kernel takes tiles of at least {RUN_ROWS}x{WARP} (got {tile})")
     fn = entry("ss_tile_pass_", fields.op)
     with torch.cuda.device(device):
         code = fn(
@@ -100,6 +131,19 @@ def tile_pass(
             H, W, tile_h, tile_w, iters_per_pass, i_start, offset, n_iterations,
             fields.params, fields.halo, torch.cuda.current_stream(device).cuda_stream,
         )
-    check(code, "tile-pass kernel")
+    check(code, f"tile-pass kernel (tile {tile})")
     launches += 1
     return with_variant(arrays, fields, dst)
+
+
+def tile_pass_residency(tf: Any, tile: tuple[int, int], iters_per_pass: int, device) -> int:
+    """CTAs of the tile-pass kernel for ``tf``'s functor that one SM of the
+    CUDA ``device`` holds at once at this tile and ``p``, as the CUDA
+    runtime's occupancy calculator reports it (registers, threads and
+    shared memory)."""
+    blocks = ctypes.c_int()
+    fn = entry("ss_tile_pass_residency_", require_device_op(tf))
+    with torch.cuda.device(device):
+        code = fn(tile[0], tile[1], iters_per_pass, ctypes.byref(blocks))
+    check(code, "tile-pass occupancy query")
+    return blocks.value

@@ -28,16 +28,34 @@ import torch
 
 from ..core.grid import Grid
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import DeviceLimits, cell_field_bytes, cell_smem_bytes, device_limits, fit_shared_memory
+from .cuda_lib import DeviceLimits, cell_field_bytes, cell_smem_bytes, device_limits
 from .fused import halo_width
 from .line_cache import line_cache_pass, pick_linecache_config
-from .tile_pass import tile_pass
+from .tile_pass import RUN_ROWS, WARP, tile_pass, tile_smem_bytes
 
-__all__ = ["StencilUpdate", "pick_config", "DEFAULT_TILE"]
+__all__ = ["StencilUpdate", "pick_config", "TILE_LAW"]
 
-#: Core tile side: a multiple of the 32-thread warp, so staging loads are
-#: whole rows of coalesced 128-byte lines.
-DEFAULT_TILE = 64
+#: The tile-pass geometry that ran fastest per iteration at 8192^2 on an
+#: NVIDIA H100 80GB HBM3 at 700 W (``tile_sweep.py``; PERF.md), by the
+#: shared-memory bytes of one cell (:func:`.cuda_lib.cell_smem_bytes`):
+#: ``(tile_h, tile_w), halo r*p*k, CTAs per SM the window is sized for``.
+#: HotSpot 12 B, Jacobi 8 B, Conway 2 B, the probe 40 B (five int32 fields).
+#: Heights are whole 8-cell runs. The one-field cells' windows (core plus
+#: twice the halo) are whole 32-lane warps wide, so the sub-steps' narrowing
+#: windows waste fewer lanes than a core of whole warps would.
+TILE_LAW = {
+    2: ((64, 240), 8, 2),
+    8: ((96, 112), 8, 2),
+    12: ((56, 112), 8, 2),
+    40: ((32, 128), 4, 1),
+}
+
+
+def law_entry(cell_bytes: int):
+    """The :data:`TILE_LAW` entry of the largest tabulated cell not larger
+    than ``cell_bytes`` (the smallest one for a smaller cell)."""
+    fits = [b for b in TILE_LAW if b <= cell_bytes]
+    return TILE_LAW[max(fits) if fits else min(TILE_LAW)]
 
 
 def pick_config(
@@ -53,32 +71,48 @@ def pick_config(
     """Choose ``(tile_h, tile_w, iters_per_pass)`` from the device's shared
     memory.
 
-    A 64x64 core (smaller for a smaller grid) and, unless given, the
-    largest ``p`` whose halo ``r*p*k`` stays within an eighth of the core,
-    so the average window is some 1.2x the core; then ``p`` (and, at
-    ``p = 1`` or a given ``p``, the tile) shrinks until the window of
-    ``cell_bytes`` per cell fits half the shared memory a block may use, so
-    two CTAs share an SM. The core is never smaller than the halo.
+    The tile of :data:`TILE_LAW` for ``cell_bytes`` (no larger than the grid,
+    rounded up to whole runs and warps) and, unless given, the largest ``p``
+    whose halo ``r*p*k`` stays within the law's halo. While the window
+    (:func:`.tile_pass.tile_smem_bytes`) exceeds the law's share of the
+    shared memory a block may use, halve the core's height, then its width,
+    as long as it stays at least twice the halo; then lower ``p`` when it
+    was not given; then halve the core down to one run by one warp. The core
+    is never smaller than the halo.
     """
+    (th, tw), halo, ctas = law_entry(cell_bytes)
     auto_p = iters_per_pass is None
-    th = min(DEFAULT_TILE, -(-height // 8) * 8)
-    tw = min(DEFAULT_TILE, -(-width // 32) * 32)
-    p = max(1, min(th, tw) // (8 * radius * n_subiterations)) if auto_p else iters_per_pass
+    th = min(th, -(-height // RUN_ROWS) * RUN_ROWS)
+    tw = min(tw, -(-width // WARP) * WARP)
+    p = max(1, halo // (radius * n_subiterations)) if auto_p else iters_per_pass
     if n_iterations:
         p = min(p, n_iterations)
 
-    def window_bytes(tile, p):
+    def window_bytes(th, tw, p):
+        return tile_smem_bytes(th, tw, halo_width(radius, p, n_subiterations), cell_bytes)
+
+    def narrower(tw):
+        return max(WARP, tw // 2 // WARP * WARP)
+
+    def shrink(th, tw, p):
         hp = halo_width(radius, p, n_subiterations)
-        return (tile[0] + 2 * hp) * (tile[1] + 2 * hp) * cell_bytes
+        if th // 2 >= max(RUN_ROWS, 2 * hp):
+            return th // 2, tw, p
+        if narrower(tw) < tw and narrower(tw) >= 2 * hp:
+            return th, narrower(tw), p
+        if auto_p and p > 1:
+            return th, tw, p - 1
+        if th > RUN_ROWS or tw > WARP:
+            return max(RUN_ROWS, th // 2), narrower(tw), p
+        return None
 
-    def shrink(tile):
-        th, tw = tile
-        return (max(8, th // 2), max(32, tw // 2)) if th > 8 or tw > 32 else None
-
-    (th, tw), p = fit_shared_memory(
-        window_bytes, (th, tw), p, auto_p, shrink, limits,
-        lambda tile, p: f"a {tile[0]}x{tile[1]} tile at iters_per_pass={p}",
-    )
+    while window_bytes(th, tw, p) > limits.smem_per_block // ctas and (smaller := shrink(th, tw, p)):
+        th, tw, p = smaller
+    if window_bytes(th, tw, p) > limits.smem_per_block:
+        raise ValueError(
+            f"a {th}x{tw} tile at iters_per_pass={p} needs {window_bytes(th, tw, p)} B of shared "
+            f"memory; the device allows {limits.smem_per_block} B per block"
+        )
     if halo_width(radius, p, n_subiterations) > min(th, tw):
         raise ValueError(
             f"iters_per_pass={p} gives a halo of {halo_width(radius, p, n_subiterations)} "
@@ -93,8 +127,9 @@ class StencilUpdate(StencilUpdateBase):
     Extra keyword options:
 
     * ``iters_per_pass`` — temporal parallelism p, iterations fused per pass
-      (auto: halo at most an eighth of the core or panel; see
-      :func:`pick_config` and :func:`.line_cache.pick_linecache_config`).
+      (auto: the halo of :data:`TILE_LAW`, or at most an eighth of the
+      panel; see :func:`pick_config` and
+      :func:`.line_cache.pick_linecache_config`).
     * ``window_mode`` — ``"clamped"`` (2D tiles, the default) or
       ``"linecache"`` (streaming column panels).
     * ``strip_rows`` — rows a line-cache walk stages per step (auto: 32);

@@ -1,29 +1,55 @@
 // Tile-pass kernel: p fused iterations (p*k sub-steps) of a device functor
-// over 2D tiles, one CTA per tile, one launch per pass.
+// over 2D tiles, one launch per pass.
 //
 // Replaces the TPU kernel stencilstream_tpu/backends/strip_pass.py:StripPass
 // (kernel body built in __init__, pallas_call in StripPass.run), which fuses
 // p iterations over full-width row strips held in VMEM.
 //
-// What bounds it on Hopper: each CTA stages a (TH+2hp) x (TW+2hp) window,
-// hp = r*p*k, of every field into shared memory once per pass, so global
-// traffic per cell-iteration is about (2*variant + invariant) bytes x window
-// overlap / p -- for HotSpot at 64x64 tiles and p=8, some 2 B, far below the
-// card's memory bandwidth. Every sub-step then reads five temp taps plus the
-// power centre and writes one value per cell, all in shared memory: about
-// 28 B of shared-memory traffic and ~10 flops per cell-step, plus the
-// redundant halo ring (the window shrinks by r per side each sub-step, so the
-// average window is ~1.2x the core at p=8). Shared-memory bandwidth and
-// instruction issue bound it. The design keeps the whole pass on chip, skips
-// the stale ring that grows from the window edge (each sub-step computes only
-// the cells the next one needs), and stops a partial pass at the call's last
-// iteration instead of copying cells through.
+// Each tile's window, the core plus the compound halo hp = r*p*k per side,
+// is staged into shared memory once per pass; the p*k sub-steps ping-pong
+// between two shared planes per variant field, sub-step s computing only the
+// window narrowed by r*(s+1) per side (the cells the next one needs); the
+// core is written back. A partial pass stops at the call's last iteration.
 //
-// Layout of dynamic shared memory, one plane = window rows x window cols:
-//   [variant field][ping-pong buffer][plane], then [invariant field][plane].
-// Cells outside the grid hold the halo value at every sub-step.
+// What bounds it on Hopper (PERF.md, measured by tile_sweep.py): not device
+// memory. At HotSpot 8192^2, p=8, the law's 56x112 core stages a window
+// 1.47x the core, ~15.8 B a cell, which alone takes about a third of the
+// pass; the rest is shared-memory bandwidth and instruction throughput in the
+// sub-steps, which compute whole 32-column chunks and kRun-row runs of the
+// narrowing window (1.35 lane-cells per useful cell-step at that geometry)
+// with ~4.4 shared loads and ~20 instructions a cell in the interior run
+// loop. What the design does about it:
+//
+// * A 2D thread map without division. A warp covers 32 consecutive columns
+//   of one row (conflict-free shared accesses); each thread computes a run of
+//   kRun cells down one column. Runs and 32-column chunks are dealt to the
+//   warps round-robin with counters, so no index is divided by a runtime
+//   value. A chunk or run that would cross the narrowing window's edge is
+//   shifted back inside it (it recomputes a few cells the neighbouring one
+//   also writes, with the same value), so no lane tests a bound per cell.
+// * Register blocking. A thread computes its run's kRun cells before it
+//   stores any, so the compiler loads each shared tap that neighbouring cells
+//   of the run read once and keeps it in a register; the functors keep their
+//   Taps interface (common.cuh).
+// * Edge-free interior tiles. One CTA-uniform test decides whether the whole
+//   window (compound halo included) lies inside the grid; such tiles run the
+//   sub-steps with no out-of-grid test. Edge tiles write the halo value into
+//   every out-of-grid cell at every sub-step.
+// * Asynchronous, wide staging. Rows are staged with 16-byte cp.async where
+//   the row's global and shared addresses are 16-byte aligned (each plane is
+//   shifted so that both agree modulo 16 bytes), with 4- or 8-byte cp.async
+//   for the rest of the row; out-of-grid cells are written with the halo
+//   value. 1-byte cells (Conway) are staged with plain loads and stores,
+//   which measured faster for them. Loads of one CTA overlap the compute of
+//   the other resident on the SM (a persistent grid that prefetched its next
+//   tile into a third buffer measured slower; PERF.md).
+//
+// Layout of dynamic shared memory, one plane = window rows x pitch + 16
+// elements, pitch = window columns rounded up to 16 elements:
+//   [ping-pong buffer 0..2)[variant field][plane], then [invariant field][plane].
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <type_traits>
 
 #include "common.cuh"
@@ -31,7 +57,19 @@
 
 namespace ss {
 
-constexpr int kTileThreads = 512;
+constexpr int kTileWarps = 16;  // warps per CTA
+constexpr int kTileThreads = 32 * kTileWarps;
+constexpr int kMinBlocks = 2;    // CTAs per SM the register budget is cut for
+constexpr int kRun = 8;          // cells per thread run (one-field functors)
+constexpr int kPitchAlign = 16;  // elements: pitch multiple and per-plane pad
+
+// Cells a thread computes down one column per sub-step. Multi-field cells
+// (the probe's five) keep one, to stay within 64 registers a thread without
+// spilling.
+template <class Op>
+__host__ __device__ constexpr int run_rows() {
+  return Op::kVariant == 1 ? kRun : 1;
+}
 
 template <class Op>
 struct TilePassArgs {
@@ -42,93 +80,213 @@ struct TilePassArgs {
   int steps;           // p * k sub-steps
   int i_start;         // absolute iteration of the pass's first step
   int i_end;           // offset + n: steps at or past it leave cells unchanged
+  int tiles_x;
+  int pitch, plane;    // shared row pitch and plane size, in elements
+  bool vec16;          // rows may be staged in 16-byte copies
 };
 
-template <class Op>
-__global__ void __launch_bounds__(kTileThreads)
-tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_address(dst)), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(shared_address(dst)), "l"(src),
+                 "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+template <class T>
+__device__ __forceinline__ void copy_cell(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4 || sizeof(T) == 8)
+    cp_async<sizeof(T)>(dst, src);
+  else
+    *dst = *src;
+}
+
+// Stage one field's window, rows dealt to warps: out-of-grid cells get the
+// halo value, the in-grid span of a row is copied, 16 bytes at a time
+// between its first and last 16-byte boundary when `vec16` (not for 1-byte
+// cells, which are copied one per lane).
+template <class T>
+__device__ __forceinline__ void stage_field(T* win, int pitch, const T* g, T halo, int row0,
+                                            int col0, int WH, int WW, int H, int W, bool vec16) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = threadIdx.x;
+  const int a = max(col0, 0) - col0;       // first in-grid window column
+  const int b = min(col0 + WW, W) - col0;  // end of the in-grid columns
+  for (int wr = threadIdx.y; wr < WH; wr += kTileWarps) {
+    T* s = win + wr * pitch;
+    const int gr = row0 + wr;
+    if (gr < 0 || gr >= H || b <= a) {
+      for (int c = lane; c < WW; c += 32) s[c] = halo;
+      continue;
+    }
+    for (int c = lane; c < a; c += 32) s[c] = halo;
+    for (int c = b + lane; c < WW; c += 32) s[c] = halo;
+    const T* gp = g + static_cast<long>(gr) * W + col0;
+    int lo = b, hi = b;  // the 16-byte body [lo, hi)
+    if (sizeof(T) > 1 && vec16) {
+      lo = min(b, a + ((E - ((col0 + a) & (E - 1))) & (E - 1)));
+      hi = lo + ((b - lo) & ~(E - 1));
+      for (int c = lo + lane * E; c < hi; c += 32 * E) cp_async<16>(s + c, gp + c);
+    }
+    for (int c = a + lane; c < lo; c += 32) copy_cell(s + c, gp + c);
+    for (int c = hi + lane; c < b; c += 32) copy_cell(s + c, gp + c);
+  }
+}
+
+// One sub-step over the window narrowed by m per side: src -> dst (window
+// origins), invariant fields at `inv`. A thread computes its run's V cells
+// before it stores any, so the compiler loads each tap that the run's cells
+// share once.
+template <class Op, bool kEdge>
+__device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const Op& op,
+                                        const typename Op::T* src, typename Op::T* dst,
+                                        const typename Op::T* inv, int m, int row0, int col0,
+                                        int iteration, int sub) {
   using T = typename Op::T;
   constexpr int NV = Op::kVariant;
-  constexpr int NI = Op::kInvariant;
   constexpr int R = Op::kRadius;
-  constexpr int K = Op::kSubiterations;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* var_base = reinterpret_cast<T*>(smem_raw);
-
+  constexpr int V = run_rows<Op>();
   const int WH = a.tile_h + 2 * a.halo;
   const int WW = a.tile_w + 2 * a.halo;
-  const int plane = WH * WW;
-  T* inv_base = var_base + 2 * NV * plane;
-  const int row0 = blockIdx.y * a.tile_h - a.halo;  // global row of window row 0
-  const int col0 = blockIdx.x * a.tile_w - a.halo;
-
-  // Stage the window; outside the grid every field holds its halo value.
-  for (int idx = threadIdx.x; idx < plane; idx += blockDim.x) {
-    const int wr = idx / WW;
-    const int wc = idx - wr * WW;
-    const int gr = row0 + wr;
-    const int gc = col0 + wc;
-    const bool in = gr >= 0 && gr < a.H && gc >= 0 && gc < a.W;
-    const long gi = static_cast<long>(gr) * a.W + gc;
+  const int n_runs = (WH - 2 * m + V - 1) / V;
+  const int n_chunks = (WW - 2 * m + 31) >> 5;
+  int jx = threadIdx.y, jy = 0;
+  while (jx >= n_chunks) jx -= n_chunks, ++jy;
+  while (jy < n_runs) {
+    const int r = min(m + jy * V, WH - m - V);
+    const int c = min(m + (jx << 5), WW - m - 32) + threadIdx.x;
+    const int gr = row0 + r;
+    const int gc = col0 + c;
+    const bool col_in = gc >= 0 && gc < a.W;
+    T out[V][NV];
 #pragma unroll
-    for (int f = 0; f < NV; ++f)
-      var_base[f * 2 * plane + idx] = in ? a.f.var_in[f][gi] : a.f.halo_var[f];
+    for (int k = 0; k < V; ++k) {
+      if (kEdge && (!col_in || gr + k < 0 || gr + k >= a.H)) {
 #pragma unroll
-    for (int f = 0; f < NI; ++f)
-      inv_base[f * plane + idx] = in ? a.f.inv[f][gi] : a.f.halo_inv[f];
+        for (int f = 0; f < NV; ++f) out[k][f] = a.f.halo_var[f];
+      } else {
+        if (!kEdge) {
+          // Inside an interior tile every computed cell has all its
+          // neighbours in the grid: let the compiler fold edge tests.
+          __builtin_assume(gr + k >= R && gr + k < a.H - R && gc >= R && gc < a.W - R);
+        }
+        const Taps<T> t{src + (r + k) * a.pitch + c, inv + (r + k) * a.pitch + c, a.plane,
+                        a.plane, a.pitch, gr + k, gc, a.H, a.W, iteration, sub};
+        op(t, out[k]);
+      }
+    }
+    T* d0 = dst + r * a.pitch + c;
+#pragma unroll
+    for (int k = 0; k < V; ++k)
+#pragma unroll
+      for (int f = 0; f < NV; ++f) d0[f * a.plane + k * a.pitch] = out[k][f];
+    jx += kTileWarps;
+    while (jx >= n_chunks) jx -= n_chunks, ++jy;
   }
-  __syncthreads();
+}
 
-  int cur = 0;
+// The pass's sub-steps on one staged tile; returns the buffer holding the
+// result (`cur` or `other`).
+template <class Op, bool kEdge>
+__device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, const Op& op,
+                                                     typename Op::T* cur, typename Op::T* other,
+                                                     const typename Op::T* inv, int row0,
+                                                     int col0) {
+  constexpr int R = Op::kRadius;
+  constexpr int K = Op::kSubiterations;
   for (int s = 0; s < a.steps; ++s) {
     const int iteration = a.i_start + s / K;
     // Past the call's last iteration every cell passes through unchanged,
     // so the core already holds the result (uniform across the CTA).
     if (iteration >= a.i_end) break;
-    const int sub = s % K;
-    // After s+1 sub-steps the outer R*(s+1) ring of the window is stale;
-    // compute only the cells inside it.
-    const int m = R * (s + 1);
-    const int ch = WH - 2 * m;
-    const int cw = WW - 2 * m;
-    const T* src = var_base + cur * plane;
-    T* dst = var_base + (cur ^ 1) * plane;
-    for (int idx = threadIdx.x; idx < ch * cw; idx += blockDim.x) {
-      const int wr = m + idx / cw;
-      const int wc = m + idx % cw;
-      const int gr = row0 + wr;
-      const int gc = col0 + wc;
-      const int li = wr * WW + wc;
-      T out[NV];
-      if (gr < 0 || gr >= a.H || gc < 0 || gc >= a.W) {
-#pragma unroll
-        for (int f = 0; f < NV; ++f) out[f] = a.f.halo_var[f];
-      } else {
-        const Taps<T> t{src + li, inv_base + li, 2L * plane, static_cast<long>(plane),
-                        WW, gr, gc, a.H, a.W, iteration, sub};
-        op(t, out);
-      }
-#pragma unroll
-      for (int f = 0; f < NV; ++f) dst[f * 2 * plane + li] = out[f];
-    }
+    substep<Op, kEdge>(a, op, cur, other, inv, R * (s + 1), row0, col0, iteration, s % K);
     __syncthreads();
-    cur ^= 1;
+    typename Op::T* t = cur;
+    cur = other;
+    other = t;
   }
+  return cur;
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kTileThreads, kMinBlocks)
+tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
+  using T = typename Op::T;
+  constexpr int NV = Op::kVariant;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ty = blockIdx.x / a.tiles_x;  // once per CTA
+  const int tx = blockIdx.x - ty * a.tiles_x;
+  const int row0 = ty * a.tile_h - a.halo;
+  const int col0 = tx * a.tile_w - a.halo;
+  const int WH = a.tile_h + 2 * a.halo;
+  const int WW = a.tile_w + 2 * a.halo;
+  // Shift every plane so that its rows' shared and global addresses agree
+  // modulo 16 bytes.
+  const int sh = col0 & (16 / static_cast<int>(sizeof(T)) - 1);
+  T* cur = reinterpret_cast<T*>(smem_raw) + sh;  // [2][NV][plane]
+  T* other = cur + NV * a.plane;
+  T* inv = cur + 2 * NV * a.plane;                // [NI][plane]
+
+#pragma unroll
+  for (int f = 0; f < NV; ++f)
+    stage_field(cur + f * a.plane, a.pitch, a.f.var_in[f], a.f.halo_var[f], row0, col0, WH, WW,
+                a.H, a.W, a.vec16);
+#pragma unroll
+  for (int f = 0; f < Op::kInvariant; ++f)
+    stage_field(inv + f * a.plane, a.pitch, a.f.inv[f], a.f.halo_inv[f], row0, col0, WH, WW,
+                a.H, a.W, a.vec16);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+
+  const bool interior = row0 >= 0 && col0 >= 0 && row0 + WH <= a.H && col0 + WW <= a.W;
+  const T* res = interior ? run_steps<Op, false>(a, op, cur, other, inv, row0, col0)
+                          : run_steps<Op, true>(a, op, cur, other, inv, row0, col0);
 
   // Write the core back.
-  const T* src = var_base + cur * plane;
-  for (int idx = threadIdx.x; idx < a.tile_h * a.tile_w; idx += blockDim.x) {
-    const int cr = idx / a.tile_w;
-    const int cc = idx - cr * a.tile_w;
-    const int gr = blockIdx.y * a.tile_h + cr;
-    const int gc = blockIdx.x * a.tile_w + cc;
-    if (gr < a.H && gc < a.W) {
-      const int li = (cr + a.halo) * WW + cc + a.halo;
+  const int gr0 = ty * a.tile_h;
+  const int gc0 = tx * a.tile_w;
+  const int n_rows = min(a.tile_h, a.H - gr0);
+  const int n_cols = min(a.tile_w, a.W - gc0);
+  for (int i = threadIdx.y; i < n_rows; i += kTileWarps) {
+    const T* s = res + (i + a.halo) * a.pitch + a.halo;
+    const long g = static_cast<long>(gr0 + i) * a.W + gc0;
+    for (int c = threadIdx.x; c < n_cols; c += 32) {
 #pragma unroll
-      for (int f = 0; f < NV; ++f)
-        a.f.var_out[f][static_cast<long>(gr) * a.W + gc] = src[f * 2 * plane + li];
+      for (int f = 0; f < NV; ++f) a.f.var_out[f][g + c] = s[f * a.plane + c];
     }
   }
+}
+
+template <class Op>
+size_t tile_smem_bytes(const TilePassArgs<Op>& a) {
+  return sizeof(typename Op::T) * static_cast<size_t>(a.plane) *
+         (2 * Op::kVariant + Op::kInvariant);
+}
+
+// Fill the launch arguments; returns false for a tile the thread map does
+// not take (narrower than a warp or shorter than a run).
+template <class Op>
+bool tile_args(TilePassArgs<Op>& a, int H, int W, int tile_h, int tile_w, int iters_per_pass) {
+  if (tile_w < 32 || tile_h < run_rows<Op>() || iters_per_pass < 0) return false;
+  a.H = H;
+  a.W = W;
+  a.tile_h = tile_h;
+  a.tile_w = tile_w;
+  a.halo = Op::kRadius * iters_per_pass * Op::kSubiterations;
+  a.steps = iters_per_pass * Op::kSubiterations;
+  a.tiles_x = (W + tile_w - 1) / tile_w;
+  a.pitch = (tile_w + 2 * a.halo + kPitchAlign - 1) / kPitchAlign * kPitchAlign;
+  a.plane = (tile_h + 2 * a.halo) * a.pitch + kPitchAlign;
+  return true;
 }
 
 template <class Op>
@@ -136,26 +294,44 @@ int launch_tile_pass(void* const* var_in, void* const* var_out, void* const* inv
                      int W, int tile_h, int tile_w, int iters_per_pass, int i_start,
                      int offset, int n_iterations, const double* params,
                      const double* halo, void* stream) {
+  using T = typename Op::T;
   TilePassArgs<Op> a;
+  if (!tile_args(a, H, W, tile_h, tile_w, iters_per_pass))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.f = make_fields<Op>(var_in, var_out, inv, halo);
-  a.H = H;
-  a.W = W;
-  a.tile_h = tile_h;
-  a.tile_w = tile_w;
-  a.halo = Op::kRadius * iters_per_pass * Op::kSubiterations;
-  a.steps = iters_per_pass * Op::kSubiterations;
   a.i_start = i_start;
   a.i_end = offset + n_iterations;
-  const size_t smem = cell_smem_bytes<Op>() * static_cast<size_t>(tile_h + 2 * a.halo) *
-                      static_cast<size_t>(tile_w + 2 * a.halo);
+  bool aligned = (static_cast<size_t>(W) * sizeof(T)) % 16 == 0;
+  for (int f = 0; f < Op::kVariant; ++f)
+    aligned = aligned && reinterpret_cast<uintptr_t>(var_in[f]) % 16 == 0;
+  for (int f = 0; f < Op::kInvariant; ++f)
+    aligned = aligned && reinterpret_cast<uintptr_t>(inv[f]) % 16 == 0;
+  a.vec16 = aligned;
+  const size_t smem = tile_smem_bytes(a);
   cudaError_t e = cudaFuncSetAttribute(tile_pass_kernel<Op>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((W + tile_w - 1) / tile_w, (H + tile_h - 1) / tile_h);
-  tile_pass_kernel<Op><<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = a.tiles_x * ((H + tile_h - 1) / tile_h);
+  tile_pass_kernel<Op><<<blocks, dim3(32, kTileWarps), smem, static_cast<cudaStream_t>(stream)>>>(
       a, Op::from_params(params));
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of tile_pass_kernel<Op> that one SM of the current device holds at
+// this geometry: registers, threads and shared memory, as the runtime counts.
+template <class Op>
+int tile_pass_residency(int tile_h, int tile_w, int iters_per_pass, int* blocks_per_sm) {
+  TilePassArgs<Op> a;
+  if (!tile_args(a, 1, 1, tile_h, tile_w, iters_per_pass))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = tile_smem_bytes(a);
+  cudaError_t e = cudaFuncSetAttribute(tile_pass_kernel<Op>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, tile_pass_kernel<Op>, kTileThreads, smem));
 }
 
 // Shape of a functor, for the Python wrapper's checks: {radius,
@@ -184,6 +360,10 @@ int op_info(int* info) {
     return ss::launch_tile_pass<Op>(var_in, var_out, inv, H, W, tile_h, tile_w,         \
                                     iters_per_pass, i_start, offset, n_iterations,      \
                                     params, halo, stream);                              \
+  }                                                                                     \
+  extern "C" int ss_tile_pass_residency_##name(int tile_h, int tile_w,                 \
+                                               int iters_per_pass, int* blocks_per_sm) { \
+    return ss::tile_pass_residency<Op>(tile_h, tile_w, iters_per_pass, blocks_per_sm);  \
   }                                                                                     \
   extern "C" int ss_op_info_##name(int* info) { return ss::op_info<Op>(info); }
 

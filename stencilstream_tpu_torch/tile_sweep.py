@@ -1,0 +1,236 @@
+"""Geometry of the tile-pass kernel, timed on one NVIDIA card.
+
+    python -m stencilstream_tpu_torch.tile_sweep [--out sweep.jsonl] [--parts grid,sass]
+        [--ops hotspot,jacobi5,conway,probe] [--passes 2,4,8]
+
+Two parts, each printing one JSON line per measurement:
+
+* ``grid``: one pass at each (tile, p) whose window fits one block's shared
+  memory, for HotSpot (12 B a cell in shared memory), Jacobi5 (8 B), Conway
+  (2 B) and the probe (40 B) at 8192^2, with the CTAs per SM that the CUDA
+  occupancy calculator reports, the time of a pass with no step active
+  (staging and write-back alone, ``copy_ms``), and the cells the thread map
+  computes per useful cell-step (:func:`thread_map_work`). Compare
+  ``ms_per_iteration``.
+* ``sass``: the kernel library disassembled with ``cuobjdump -sass``: for
+  each functor, the loops of the tile-pass kernel that load and store
+  shared memory and hold no other such loop (the run loops of the interior
+  and the edge sub-steps), with their instructions, shared loads (``LDS``)
+  and stores (``STS``), and the shared loads per cell-step (``LDS`` x
+  variant fields / ``STS``).
+
+Every kernel result is held against the plain version (``max_abs_err``);
+times are CUDA-event means over repeated launches after a warm-up. Needs a
+CUDA card; there is no CPU fallback.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .backends import cuda_lib
+from .backends import tile_pass as tp
+from .models import conway, hotspot, jacobi
+from .trace_cells import JACOBI5_COEFS
+from . import probe
+
+__all__ = ["main", "run_loops", "thread_map_work", "TILES", "PASSES"]
+
+#: Core tiles of the geometry sweep, heights a multiple of the run: widths a
+#: multiple of the 32-lane warp, and widths whose window at a halo of 8
+#: (p=8 at radius 1) is a multiple of it.
+TILES = [(32, 64), (64, 64), (64, 96), (32, 128), (64, 128), (128, 64), (96, 96), (96, 128),
+         (32, 192), (128, 128), (64, 256), (32, 256),
+         (32, 112), (40, 112), (48, 112), (56, 112), (64, 112), (80, 112), (96, 112),
+         (32, 240), (48, 240), (64, 240)]
+#: Iterations per pass of the geometry sweep.
+PASSES = [2, 4, 6, 8, 12, 16]
+SIZE = 8192
+#: Device functor of each swept case, as ptxas names its instantiation.
+FUNCTORS = {"hotspot": "HotspotOp", "jacobi5": "Jacobi5GeneralOp", "conway": "ConwayOp", "probe": "ProbeOp"}
+
+
+def cases(device):
+    """name -> (cell, transition function, halo cell) at SIZE^2."""
+    rng = np.random.default_rng(5)
+    shape = (SIZE, SIZE)
+    hs = hotspot.HotspotCell(
+        temp=torch.tensor(rng.uniform(70, 90, shape).astype(np.float32), device=device),
+        power=torch.tensor(rng.uniform(0, 1e-3, shape).astype(np.float32), device=device),
+    )
+    return {
+        "hotspot": (hs, hotspot.derive_coefficients(*shape), hotspot.HotspotCell(temp=0.0, power=0.0)),
+        "jacobi5": (
+            torch.tensor(rng.random(shape, np.float32), device=device),
+            jacobi.make_kernel("jacobi5_general", JACOBI5_COEFS), 0.0,
+        ),
+        "conway": (torch.tensor(rng.random(shape) < 0.35, device=device), conway.ConwayKernel(), False),
+        "probe": (probe.make_probe_grid(*shape, 0, device=device).arrays, probe.ProbeKernel(),
+                  probe.probe_halo_cell()),
+    }
+
+
+def thread_map_work(tile, halo: int, radius: int, run: int = tp.RUN_ROWS) -> tuple[float, float]:
+    """What the kernel's thread map computes in one pass over one tile, per
+    useful cell-step (core cells x halo/radius sub-steps): ``(lane-cells,
+    window cells)``. Sub-step s computes the window narrowed by r*(s+1) per
+    side; the lanes cover it in whole 32-column chunks and whole runs."""
+    th, tw = tile
+    steps = halo // radius
+    lanes = window = 0
+    for s in range(steps):
+        h, w = th + 2 * (halo - radius * (s + 1)), tw + 2 * (halo - radius * (s + 1))
+        window += h * w
+        lanes += -(-h // run) * run * -(-w // tp.WARP) * tp.WARP
+    useful = th * tw * steps
+    return lanes / useful, window / useful
+
+
+def max_err(a, b) -> float:
+    from .core.cell import cell_leaves
+
+    return max(float((x.double() - y.double()).abs().max()) for x, y in zip(cell_leaves(a), cell_leaves(b)))
+
+
+def kernel_report(report: str, kernel: str) -> dict:
+    """ptxas's registers and stack/spill line for each instantiation of
+    ``kernel``, by functor name."""
+    out, name = {}, None
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if kernel in line else None
+        elif name and ("Used" in line or "spill" in line):
+            out.setdefault(name.split(kernel)[1][:24], []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
+_SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
+_BACKWARD_BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+
+
+def run_loops(sass: str, functor: str) -> list[dict]:
+    """The run loops of ``functor``'s tile-pass kernel in a ``cuobjdump
+    -sass`` listing: loops (spans closed by a backward branch) that load and
+    store shared memory, copy nothing from global memory (``LDGSTS``) and
+    hold no other such loop; ``instructions``, ``LDS`` and ``STS`` counted
+    over the loop's body."""
+    chunk = next((c for c in sass.split("Function : ")[1:]
+                  if c.startswith("_ZN2ss16tile_pass_kernel") and functor in c.split(None, 1)[0]), "")
+    code = [(int(a, 16), op) for a, op in _SASS_INSTRUCTION.findall(chunk)]
+    loops = []
+    for addr, op in code:
+        branch = _BACKWARD_BRANCH.search(op)
+        if branch and int(branch.group(1), 16) < addr:
+            body = [o for a, o in code if int(branch.group(1), 16) <= a <= addr]
+            count = lambda pattern: sum(1 for o in body if re.search(pattern, o))  # noqa: E731
+            loops.append(dict(span=(int(branch.group(1), 16), addr), instructions=len(body),
+                              LDS=count(r"\bLDS"), STS=count(r"\bSTS"), LDGSTS=count(r"\bLDGSTS")))
+    candidates = [lp for lp in loops if lp["LDS"] and lp["STS"] and not lp["LDGSTS"]]
+    inner = [lp for lp in candidates
+             if not any(o is not lp and lp["span"][0] <= o["span"][0] and o["span"][1] <= lp["span"][1]
+                        for o in candidates)]
+    return sorted(({k: v for k, v in lp.items() if k not in ("span", "LDGSTS")} for lp in inner),
+                  key=lambda lp: lp["instructions"])
+
+
+def timed(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def run_pass(cell, tf, halo, tile, p, n=None):
+    """One pass of p iterations; with ``n=0`` no step is active, so the
+    kernel only stages and writes back."""
+    return tp.tile_pass(cell, tf, halo, i_start=0, offset=0, n_iterations=p if n is None else n,
+                        iters_per_pass=p, tile=tile)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="tile_sweep", description=__doc__.splitlines()[0])
+    parser.add_argument("--out", help="also write the JSON lines to this file")
+    parser.add_argument("--passes", default=",".join(map(str, PASSES)), help="p values of the geometry sweep")
+    parser.add_argument("--parts", default="grid,sass", help="comma-separated: grid, sass")
+    parser.add_argument("--ops", default="hotspot,jacobi5,conway,probe", help="ops of the grid sweep")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("tile_sweep: no CUDA device is available", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    parts = set(args.parts.split(","))
+    lines = []
+
+    def emit(record):
+        record["card"] = card
+        lines.append(json.dumps(record))
+        print(lines[-1], flush=True)
+
+    cuda_lib.library()
+    work = cases(device)
+    limits = cuda_lib.device_limits(device)
+    plain_cache = {}
+
+    def plain(op, p):
+        if (op, p) not in plain_cache:
+            plain_cache.clear()
+            cell, tf, halo = work[op]
+            plain_cache[(op, p)] = tp.tile_pass_plain(cell, tf, halo, i_start=0, offset=0,
+                                                      n_iterations=p, iters_per_pass=p)
+        return plain_cache[(op, p)]
+
+    if "grid" in parts:
+        emit(dict(part="build", ptxas=kernel_report(cuda_lib.build()[2], "tile_pass_kernel")))
+        for op in args.ops.split(","):
+            cell, tf, halo = work[op]
+            cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+            run = tp.RUN_ROWS if cuda_lib.op_info(tf.cuda_op)["n_variant"] == 1 else 1
+            for p in map(int, args.passes.split(",")):
+                for tile in TILES:
+                    hp = tf.stencil_radius * p * tf.n_subiterations
+                    smem = tp.tile_smem_bytes(*tile, hp, cell_bytes)
+                    if smem > limits.smem_per_block or hp > min(tile):
+                        continue
+                    fn = lambda: run_pass(cell, tf, halo, tile, p)  # noqa: E731
+                    e = max_err(fn(), plain(op, p))
+                    ms = timed(fn, 5)
+                    copy_ms = timed(lambda: run_pass(cell, tf, halo, tile, p, 0), 5)
+                    lanes, window = thread_map_work(tile, hp, tf.stencil_radius, run)
+                    emit(dict(part="grid", op=op, cell_bytes=cell_bytes, tile=list(tile), p=p, ms=ms,
+                              ms_per_iteration=ms / p, copy_ms=copy_ms, smem=smem,
+                              ctas_per_sm=tp.tile_pass_residency(tf, tile, p, device),
+                              lane_cells_per_cell_step=lanes, window_cells_per_cell_step=window,
+                              max_abs_err=e))
+    if "sass" in parts:
+        cuobjdump = str(Path(cuda_lib.nvcc_path()).with_name("cuobjdump"))
+        sass = subprocess.run([cuobjdump, "-sass", str(cuda_lib.build()[0])], capture_output=True,
+                              text=True, check=True).stdout
+        for op, functor in FUNCTORS.items():
+            n_variant = cuda_lib.op_info(work[op][1].cuda_op)["n_variant"]
+            loops = run_loops(sass, functor)
+            emit(dict(part="sass", op=op, run_loops=loops,
+                      lds_per_cell_step=[lp["LDS"] * n_variant / lp["STS"] for lp in loops]))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -89,7 +89,7 @@ def test_cpu_tensors_take_the_plain_versions():
     halo = hs.HotspotCell(temp=5.0, power=0.25)
     cell = _cell((10, 13), 0, "cpu")
     before = (tp.launches, mt.launches)
-    a = tp.tile_pass(cell, kernel, halo, i_start=0, offset=0, n_iterations=3, iters_per_pass=3)
+    a = tp.tile_pass(cell, kernel, halo, i_start=0, offset=0, n_iterations=3, iters_per_pass=3, tile=(8, 32))
     b = tp.tile_pass_plain(cell, kernel, halo, i_start=0, offset=0, n_iterations=3, iters_per_pass=3)
     c = mt.monotile(cell, kernel, halo, offset=0, n_iterations=3)
     d = mt.monotile_plain(cell, kernel, halo, offset=0, n_iterations=3)
@@ -222,7 +222,8 @@ def test_kernels_refuse_what_they_cannot_run(cuda):
         mt.monotile(_cell((16, 16), 0, cuda, torch.float64), kernel, halo, offset=0, n_iterations=1)
     strided = hs.HotspotCell(temp=torch.zeros(16, 32, device=cuda)[:, ::2], power=torch.zeros(16, 16, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
-        tp.tile_pass(strided, kernel, halo, i_start=0, offset=0, n_iterations=1, iters_per_pass=1)
+        tp.tile_pass(strided, kernel, halo, i_start=0, offset=0, n_iterations=1, iters_per_pass=1,
+                     tile=(16, 32))
     big = _cell((4096, 4096), 0, cuda)
     with pytest.raises(ValueError, match="tiling"):
         mt.monotile(big, kernel, halo, offset=0, n_iterations=1)
@@ -275,6 +276,73 @@ def test_every_functor_on_every_kernel(cuda, op):
     assert _max_err(got, want) <= tol
     if op == "conway":
         assert got.dtype == torch.bool
+
+
+#: (shape, tile, p, i_start, offset, n) for the tile-pass kernel's geometry:
+#: interior tiles beside edge tiles whose core lies inside the grid but whose
+#: window does not; widths that are not multiples of 4 (the copy widths); a
+#: window height that leaves a ragged run; more tiles than resident CTAs;
+#: p=1; a pass with 1 of p steps active.
+TILE_CASES = [
+    ((192, 288), (64, 96), 8, 0, 0, 8),
+    ((61, 1001), (32, 64), 3, 2, 1, 20),
+    ((70, 1002), (20, 32), 8, 0, 0, 8),
+    ((1000, 1003), (8, 32), 2, 0, 0, 2),
+    ((45, 70), (16, 32), 1, 4, 4, 1),
+    ((45, 70), (16, 32), 4, 7, 3, 5),
+]
+
+
+def _fitted(tile, p, cell, tf, limits):
+    """The case's tile and p, p halved and then the core's height halved until
+    the window fits one block (the probe's 40 B cells need it)."""
+    cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+    while tp.tile_smem_bytes(*tile, tf.stencil_radius * p * tf.n_subiterations, cell_bytes) > limits.smem_per_block:
+        tile, p = (tile, p // 2) if p > 1 else ((max(tp.RUN_ROWS, tile[0] // 2), tile[1]), p)
+    return tile, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TILE_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-t{c[1][0]}x{c[1][1]}-p{c[2]}")
+@pytest.mark.parametrize("op", OPS)
+def test_tile_pass_geometry_on_every_functor(cuda, op, case):
+    shape, tile, p, i_start, offset, n = case
+    cell, tf, halo, tol = _case(op, shape, 13, cuda, iteration=i_start)
+    tile, p = _fitted(tile, p, cell, tf, cuda_lib.device_limits(cuda))
+    kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+    before = tp.launches
+    got = tp.tile_pass(cell, tf, halo, tile=tile, **kw)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert tp.launches == before + 1
+    assert _max_err(got, want) <= tol
+    if op == "hotspot":
+        assert got.power is cell.power
+    if op == "probe":
+        assert int(got.status.abs().max()) == probe.NORMAL
+
+
+@pytest.mark.gpu
+def test_tile_pass_refuses_a_tile_the_thread_map_cannot_take(cuda):
+    cell, tf, halo, _ = _case("hotspot", (64, 64), 0, cuda)
+    kw = dict(i_start=0, offset=0, n_iterations=1, iters_per_pass=1)
+    for tile in ((64, 16), (4, 64)):
+        with pytest.raises(ValueError, match="tile"):
+            tp.tile_pass(cell, tf, halo, tile=tile, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["hotspot", "jacobi5_general", "conway", "probe"])
+def test_tile_pass_residency_meets_the_laws_count(cuda, op):
+    """The CUDA runtime holds at least as many tile-pass CTAs per SM at the
+    law's 8192^2 geometry as the law sized the window for."""
+    from stencilstream_tpu_torch.backends.tiling import TILE_LAW, pick_config
+
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+    th, tw, p = pick_config(8192, 8192, tf.stencil_radius, tf.n_subiterations, 200, cell_bytes,
+                            cuda_lib.device_limits(cuda))
+    assert tp.tile_pass_residency(tf, (th, tw), p, cuda) >= TILE_LAW[cell_bytes][2]
 
 
 @pytest.mark.gpu

@@ -18,7 +18,11 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    values; every probe cell must stay Normal. The tile pass also runs, on
    every functor, interior tiles beside edge tiles whose core lies inside
    the grid, widths that are not multiples of 4, a ragged run, more tiles
-   than resident CTAs and p=1;
+   than resident CTAs and p=1; the line cache too, on every functor:
+   interior panels beside edge panels at widths that are and are not
+   multiples of 4, a ragged last strip, segments that end mid-strip or start
+   inside another's warm-up, the law's strip and panel, p=1 and 1 of p
+   steps active;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
@@ -31,9 +35,11 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
 5. time the kernels, their plain versions and, where one exists, the
    PyTorch call that computes the same function, with CUDA events at the
    main paths' shapes and the config laws' geometry: the tile pass at
-   HotSpot 8192^2, p=8, and at Conway 8192^2 (2 B a cell); one Jacobi5
-   8192^2 pass of p=8 through the tile-pass and the line-cache kernels in
-   turns, against p successive ``conv2d`` calls (cuDNN tuned by
+   HotSpot 8192^2, p=8, and at Conway 8192^2 (2 B a cell), each beside the
+   line cache on the same pass in turns (tile pass, line cache, line cache,
+   tile pass), so that the invariant-field and byte-cell paths have times;
+   one Jacobi5 8192^2 pass of p=8 through the tile-pass and the line-cache
+   kernels in turns, against p successive ``conv2d`` calls (cuDNN tuned by
    ``cudnn.benchmark``); the resident grid at HotSpot 1024^2, n=1000, with
    the same run through ``tiling`` and Jacobi5's 1024^2 run beside it. Also
    log how many tile-pass and line-cache CTAs the CUDA runtime keeps
@@ -163,6 +169,30 @@ def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def in_turns(cell, tf, halo, tile, p, limits, reps) -> dict:
+    """One pass of p from iteration 0 through the tile-pass kernel at
+    ``tile`` and the line-cache kernel at its law's geometry for this cell,
+    timed in turns (tile pass, line cache, line cache, tile pass) on the same
+    input: the geometry and each kernel's times and result."""
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.core.cell import cell_leaves
+
+    H, W = cell_leaves(cell)[0].shape
+    cfg = lc.pick_linecache_config(H, W, tf.stencil_radius, tf.n_subiterations, p,
+                                   *cuda_lib.cell_field_bytes(cell, tf), limits, iters_per_pass=p)
+    geometry = {k: getattr(cfg, k) for k in ("strip_rows", "panel_cols", "segment_rows")}
+    kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
+    runs = {"tile_pass": lambda: tp.tile_pass(cell, tf, halo, tile=tile, **kw),
+            "line_cache": lambda: lc.line_cache_pass(cell, tf, halo, **geometry, **kw)}
+    times = {k: [] for k in runs}
+    for k in ("tile_pass", "line_cache", "line_cache", "tile_pass"):
+        times[k].append(cuda_ms(runs[k], reps))
+    return dict(geometry=geometry, times=times, ms={k: sum(v) / len(v) for k, v in times.items()},
+                out={k: run() for k, run in runs.items()})
+
+
 def check(errs, kernel, what, got, want, tol, moved=None) -> None:
     e = max_err(got, want)
     errs[kernel] = max(errs[kernel], e)
@@ -264,32 +294,58 @@ def check_kernels(device) -> dict:
             if op == "probe":
                 assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
-    # The line-cache kernel, (shape, strip, panel, segment, iters_per_pass,
-    # i_start, offset, n).
+    # The line-cache kernel's geometry on every functor, (shape, strip,
+    # panel, segment, iters_per_pass, i_start, offset, n): interior panels
+    # beside edge panels at widths that are and are not multiples of 4; a
+    # ragged last strip; segments that end mid-strip, and segments shorter
+    # than the warm-up, so that each starts inside the warm-up of the one
+    # below; the law's strip and panel; p=1; 1 of p steps active. p, then the
+    # panel, shrink until the CTA fits one block.
+    law = lc.pick_linecache_config(8192, 8192, 1, 1, 8, 4, 0, limits)  # Jacobi5's
+    line_geometry = [
+        ((203, 1001), 32, 112, 64, 8, 0, 0, 8),
+        ((200, 1008), 32, 112, 100, 8, 2, 1, 20),
+        ((150, 1000), 64, 48, 20, 8, 0, 0, 8),
+        ((300, 260), law.strip_rows, law.panel_cols, 128, 8, 0, 0, 8),
+        ((45, 70), 8, 32, 16, 1, 4, 4, 1),
+        ((45, 70), 16, 48, 24, 4, 7, 3, 5),
+    ]
+    def check_line(op, seed, shape, strip, panel, segment, p, i_start, offset, n):
+        cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
+        variant, invariant = cuda_lib.cell_field_bytes(cell, tf)
+        while lc.line_cache_smem_bytes(strip, panel, tf.stencil_radius, p * tf.n_subiterations, variant,
+                                       invariant) > limits.smem_per_block:
+            p, panel = (p // 2, panel) if p > 1 else (p, max(32, panel - 32))
+        kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+        got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=panel, segment_rows=segment, **kw)
+        want = lc.line_cache_pass_plain(cell, tf, halo, **kw)
+        torch.cuda.synchronize()
+        check(errs, "line_cache", f"{op} {shape} strip={strip} panel={panel} segment={segment} "
+              f"p={p} i_start={i_start} offset={offset} n={n}", got, want, tol)
+        if op == "hotspot":
+            assert got.power is cell.power, "invariant field must be passed through"
+        if op == "probe":
+            assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+
+    for seed, op in enumerate(["hotspot", *others], start=500):
+        for case in line_geometry:
+            check_line(op, seed, *case)
+
+    # The line-cache kernel on the four cell kinds, (shape, strip, panel,
+    # segment, iters_per_pass, i_start, offset, n), up to 8192^2 at p=8 and
+    # the law's geometry.
+    big = lc.pick_linecache_config(8192, 8192, 1, 1, 1000, 4, 0, limits)
     line_cases = [
         ((37, 53), 8, 32, 16, 3, 3, 3, 5),
         ((37, 53), 32, 64, 64, 4, 7, 3, 5),        # 1 of 4 steps active
         ((20, 24), 32, 64, 32, 8, 0, 0, 8),        # smaller than a strip and a panel
         ((1000, 1000), 32, 64, 100, 8, 11, 10, 13),  # segments off the strip grid
         ((1000, 1000), 32, 64, 128, 8, 5, 5, 100),
-        ((8192, 8192), 32, 64, 1024, 8, 0, 0, 1000),
+        ((8192, 8192), big.strip_rows, big.panel_cols, big.segment_rows, 8, 0, 0, 1000),
     ]
     for op in ("hotspot", "jacobi5_general", "conway", "probe"):
-        for seed, (shape, strip, panel, segment, p, i_start, offset, n) in enumerate(line_cases, start=300):
-            cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
-            kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
-            got = lc.line_cache_pass(
-                cell, tf, halo, strip_rows=strip, panel_cols=panel, segment_rows=segment, **kw
-            )
-            want = lc.line_cache_pass_plain(cell, tf, halo, **kw)
-            torch.cuda.synchronize()
-            check(errs, "line_cache", f"{op} {shape} strip={strip} panel={panel} segment={segment} "
-                  f"p={p} i_start={i_start} offset={offset} n={n}", got, want, tol)
-            if op == "hotspot":
-                assert got.power is cell.power, "invariant field must be passed through"
-            if op == "probe":
-                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
-            del cell, got, want
+        for seed, case in enumerate(line_cases, start=300):
+            check_line(op, seed, *case)
     return errs
 
 
@@ -406,6 +462,18 @@ def main() -> int:
     per_sm = tp.tile_pass_residency(tf, tile, p, device)
     log(f"  tile_pass hotspot tile={tile} p={p}: {per_sm} CTAs resident per SM by the CUDA occupancy "
         f"calculator (the law sized the window for {TILE_LAW[12][2]})")
+    # Beside it, the line cache on the same pass: the invariant-field path.
+    want = tp.tile_pass_plain(cell, tf, hz, **kw)
+    t = in_turns(cell, tf, hz, tile, p, limits, 10)
+    lc_e = max(max_err(t["out"]["line_cache"], want), max_err(t["out"]["tile_pass"], want))
+    log(f"  hotspot 8192x8192 p={p}: tile_pass {t['times']['tile_pass']} ms, line_cache "
+        f"{t['times']['line_cache']} ms (in turns) at {t['geometry']}; line_cache {t['ms']['line_cache']:.4f} "
+        f"ms = {b / t['ms']['line_cache']:.1%} of the bound, max_abs_err={lc_e:.3g}; "
+        f"{lc.line_cache_residency(tf, t['geometry']['strip_rows'], t['geometry']['panel_cols'], p, device)} "
+        f"line-cache CTAs resident per SM [{card}]")
+    assert lc_e <= ATOL
+    errs["line_cache"] = max(errs["line_cache"], lc_e)
+    del want, t
     kernels["tile_pass"] = dict(
         name="tile_pass", route="cuda", source="stencilstream_tpu_torch/csrc/tile_pass.cu",
         replaces="stencilstream_tpu/backends/strip_pass.py:535", launches=totals["tile_pass"],
@@ -431,7 +499,17 @@ def main() -> int:
         f"max_abs_err={e:.3g}; {tp.tile_pass_residency(life, tile, p, device)} CTAs resident per SM "
         f"(law: {TILE_LAW[2][2]}) [{card}]")
     assert e == 0
-    del soup
+    # Beside it, the line cache on the same pass: the byte-cell path.
+    want = tp.tile_pass_plain(soup, life, False, **kw)
+    t = in_turns(soup, life, False, tile, p, limits, 10)
+    lc_e = max(max_err(t["out"]["line_cache"], want), max_err(t["out"]["tile_pass"], want))
+    log(f"  conway 8192x8192 p={p}: tile_pass {t['times']['tile_pass']} ms, line_cache "
+        f"{t['times']['line_cache']} ms (in turns) at {t['geometry']}; line_cache {t['ms']['line_cache']:.4f} "
+        f"ms = {b / t['ms']['line_cache']:.1%} of the bound, max_abs_err={lc_e:.3g}; "
+        f"{lc.line_cache_residency(life, t['geometry']['strip_rows'], t['geometry']['panel_cols'], p, device)} "
+        f"line-cache CTAs resident per SM [{card}]")
+    assert lc_e == 0
+    del soup, want, t
 
     # One Jacobi5 8192^2 pass of p=8, the tile-pass and line-cache kernels
     # in turns on the same input, and p conv2d calls.
@@ -443,13 +521,9 @@ def main() -> int:
     assert tile_cfg["iters_per_pass"] == p, (tile_cfg, lc_cfg)
     kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
     tile = (tile_cfg["tile_rows"], tile_cfg["tile_cols"])
-    geometry = {k: lc_cfg[k] for k in ("strip_rows", "panel_cols", "segment_rows")}
-    run_tile = lambda: tp.tile_pass(x, j5, 0.0, tile=tile, **kw)  # noqa: E731
-    run_lc = lambda: lc.line_cache_pass(x, j5, 0.0, **geometry, **kw)  # noqa: E731
-    turns = {"tile_pass": [], "line_cache": []}
-    for name in ("tile_pass", "line_cache", "line_cache", "tile_pass"):
-        turns[name].append(cuda_ms(run_tile if name == "tile_pass" else run_lc, 20))
-    jac_ms = {k: sum(v) / len(v) for k, v in turns.items()}
+    t = in_turns(x, j5, 0.0, tile, p, limits, 20)
+    geometry, turns, jac_ms = t["geometry"], t["times"], t["ms"]
+    assert geometry == {k: lc_cfg[k] for k in geometry}, (geometry, lc_cfg)
     jac_plain_ms = cuda_ms(lambda: tp.tile_pass_plain(x, j5, 0.0, **kw), 2)
     c = JACOBI5_COEFS
     w = torch.tensor([[0, c[0], 0], [c[1], c[4], c[3]], [0, c[2], 0]], dtype=torch.float32,
@@ -469,7 +543,7 @@ def main() -> int:
     lib_ms = cuda_ms(lambda: library_jacobi(x, p), 10)
     plain = tp.tile_pass_plain(x, j5, 0.0, **kw)
     lib_err = float((library_jacobi(x, p) - plain).abs().max())
-    timed_err = {"tile_pass": max_err(run_tile(), plain), "line_cache": max_err(run_lc(), plain)}
+    timed_err = {k: max_err(out, plain) for k, out in t["out"].items()}
     log(f"  jacobi5 8192x8192 p={p}: tile_pass {turns['tile_pass']} ms, line_cache {turns['line_cache']} "
         f"ms (in turns), plain {jac_plain_ms:.4f} ms, {p} x conv2d {lib_ms:.4f} ms tuned "
         f"({lib_default_ms:.4f} ms with cuDNN's default choice); conv2d against plain "
@@ -483,7 +557,8 @@ def main() -> int:
     n_ctas = -(-8192 // geometry["panel_cols"]) * -(-8192 // geometry["segment_rows"])
     per_sm = lc.line_cache_residency(j5, geometry["strip_rows"], geometry["panel_cols"], p, device)
     law_per_sm = lc.ctas_per_sm(
-        lc.line_cache_smem_bytes(geometry["strip_rows"], geometry["panel_cols"], 1, p, 4, 0), limits
+        lc.line_cache_smem_bytes(geometry["strip_rows"], geometry["panel_cols"], 1, p, 4, 0), limits,
+        lc.law_entry(4)[3],
     )
     log(f"  tile_pass jacobi5 tile={tile} p={p}: {tp.tile_pass_residency(j5, tile, p, device)} CTAs "
         f"resident per SM by the CUDA occupancy calculator (law: {TILE_LAW[8][2]})")
@@ -496,7 +571,7 @@ def main() -> int:
         ms=jac_ms["line_cache"], plain_ms=jac_plain_ms, bound_ms=jac_bound, bound_by=jac_by,
         library_ms=lib_ms, workload=f"jacobi5_general 8192x8192, one pass of p={p}, {geometry}",
     )
-    del x, plain
+    del x, plain, t
 
     # The resident grid at HotSpot 1024^2, n=1000 (no single PyTorch call).
     n_mono = 1000

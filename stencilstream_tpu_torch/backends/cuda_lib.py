@@ -103,17 +103,17 @@ def device_limits(device) -> DeviceLimits:
 
 
 def fit_shared_memory(need, geometry, p: int, auto_p: bool, shrink, limits: DeviceLimits, describe):
-    """The shrinking loop the capacity laws share. While ``need(geometry,
-    p)`` bytes exceed half the shared memory a block may use (so that two
-    CTAs share an SM), shrink ``p`` when it was not given, then the
-    geometry (``shrink(geometry)``, ``None`` when it is smallest). Returns
-    ``(geometry, p)``; raises ``ValueError``, naming ``describe(geometry,
-    p)``, when the result exceeds all of it."""
+    """The line-cache law's shrinking loop. While ``need(geometry, p)``
+    bytes exceed half the shared memory a block may use (so that two CTAs
+    share an SM), shrink the geometry (``shrink(geometry)``, ``None`` when it
+    is smallest), then ``p`` when it was not given. Returns ``(geometry,
+    p)``; raises ``ValueError``, naming ``describe(geometry, p)``, when the
+    result exceeds all of it."""
     while need(geometry, p) > limits.smem_per_block // 2:
-        if auto_p and p > 1:
-            p -= 1
-        elif (smaller := shrink(geometry)) is not None:
+        if (smaller := shrink(geometry)) is not None:
             geometry = smaller
+        elif auto_p and p > 1:
+            p -= 1
         else:
             break
     if need(geometry, p) > limits.smem_per_block:

@@ -40,11 +40,11 @@ __all__ = ["tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_byt
 launches = 0
 
 #: Elements a shared-memory row pitch is rounded up to, and each plane's pad
-#: (``csrc/tile_pass.cu``: ``kPitchAlign``): 16 bytes for any cell type.
+#: (``csrc/common.cuh``: ``kPitchAlign``).
 PITCH_ALIGN = 16
 #: Columns one warp covers: the narrowest tile the kernel's thread map takes.
 WARP = 32
-#: Rows of one thread's run for a one-field cell (``csrc/tile_pass.cu``:
+#: Rows of one thread's run for a one-field cell (``csrc/common.cuh``:
 #: ``kRun``): the shortest tile the kernel takes.
 RUN_ROWS = 8
 

@@ -127,13 +127,15 @@ class StencilUpdate(StencilUpdateBase):
     Extra keyword options:
 
     * ``iters_per_pass`` — temporal parallelism p, iterations fused per pass
-      (auto: the halo of :data:`TILE_LAW`, or at most an eighth of the
-      panel; see :func:`pick_config` and
+      (auto: the halo of :data:`TILE_LAW`, or of
+      :data:`.line_cache.LINE_LAW`; see :func:`pick_config` and
       :func:`.line_cache.pick_linecache_config`).
     * ``window_mode`` — ``"clamped"`` (2D tiles, the default) or
       ``"linecache"`` (streaming column panels).
-    * ``strip_rows`` — rows a line-cache walk stages per step (auto: 32);
-      line-cache mode only.
+    * ``strip_rows`` — rows a line-cache walk stages per step, for a cell
+      with one variant field a whole number of 8-row runs (auto:
+      :data:`.line_cache.LINE_LAW`'s, 32 for one-field cells); line-cache
+      mode only.
 
     ``resolved_config`` holds the configuration the last call executed.
     """

@@ -1,6 +1,8 @@
 // Shared pieces of the stencil kernels: the neighbourhood view a device
-// functor reads, the field pointers and halo values a launch carries, and the
-// host-side argument unpacking of the plain C interface.
+// functor reads, the field pointers and halo values a launch carries, the
+// host-side argument unpacking of the plain C interface, the run length of
+// the thread maps, and the asynchronous staging of window rows into shared
+// memory.
 //
 // A device functor ("Op", see ops/hotspot.cuh) is the C++ twin of a Python
 // transition function. It declares
@@ -81,6 +83,77 @@ Fields<Op> make_fields(void* const* var_in, void* const* var_out, void* const* i
 template <class Op>
 constexpr size_t cell_smem_bytes() {
   return sizeof(typename Op::T) * (2 * Op::kVariant + Op::kInvariant);
+}
+
+constexpr int kRun = 8;          // cells per thread run (one-field functors)
+constexpr int kPitchAlign = 16;  // elements a shared row pitch is rounded up to
+
+// Cells a thread computes down one column per sub-step. Multi-field cells
+// (the probe's five) keep one, to stay within 64 registers a thread without
+// spilling.
+template <class Op>
+__host__ __device__ constexpr int run_rows() {
+  return Op::kVariant == 1 ? kRun : 1;
+}
+
+__device__ __forceinline__ unsigned shared_address(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_address(dst)), "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(shared_address(dst)), "l"(src),
+                 "n"(N));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
+
+template <class T>
+__device__ __forceinline__ void copy_cell(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4 || sizeof(T) == 8)
+    cp_async<sizeof(T)>(dst, src);
+  else
+    *dst = *src;
+}
+
+// Stage WH rows of one field's window (global rows row0.., columns col0..)
+// into shared memory at `win`, rows dealt to the kWarps warps of the CTA
+// (threadIdx.y): out-of-grid cells get the halo value, the in-grid span of a
+// row is copied with cp.async, 16 bytes at a time between its first and last
+// 16-byte boundary when `vec16` (the row's shared and global addresses then
+// agree modulo 16 bytes), cell by cell elsewhere. 1-byte cells are copied
+// one per lane with plain loads and stores, which measured faster for them.
+// The caller commits the group, waits for it and synchronises the CTA.
+template <int kWarps, class T>
+__device__ __forceinline__ void stage_field(T* win, int pitch, const T* g, T halo, int row0,
+                                            int col0, int WH, int WW, int H, int W, bool vec16) {
+  constexpr int E = 16 / sizeof(T);
+  const int lane = threadIdx.x;
+  const int a = max(col0, 0) - col0;       // first in-grid window column
+  const int b = min(col0 + WW, W) - col0;  // end of the in-grid columns
+  for (int wr = threadIdx.y; wr < WH; wr += kWarps) {
+    T* s = win + wr * pitch;
+    const int gr = row0 + wr;
+    if (gr < 0 || gr >= H || b <= a) {
+      for (int c = lane; c < WW; c += 32) s[c] = halo;
+      continue;
+    }
+    for (int c = lane; c < a; c += 32) s[c] = halo;
+    for (int c = b + lane; c < WW; c += 32) s[c] = halo;
+    const T* gp = g + static_cast<long>(gr) * W + col0;
+    int lo = b, hi = b;  // the 16-byte body [lo, hi)
+    if (sizeof(T) > 1 && vec16) {
+      lo = min(b, a + ((E - ((col0 + a) & (E - 1))) & (E - 1)));
+      hi = lo + ((b - lo) & ~(E - 1));
+      for (int c = lo + lane * E; c < hi; c += 32 * E) cp_async<16>(s + c, gp + c);
+    }
+    for (int c = a + lane; c < lo; c += 32) copy_cell(s + c, gp + c);
+    for (int c = hi + lane; c < b; c += 32) copy_cell(s + c, gp + c);
+  }
 }
 
 }  // namespace ss

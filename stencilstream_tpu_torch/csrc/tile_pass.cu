@@ -35,7 +35,8 @@
 //   window (compound halo included) lies inside the grid; such tiles run the
 //   sub-steps with no out-of-grid test. Edge tiles write the halo value into
 //   every out-of-grid cell at every sub-step.
-// * Asynchronous, wide staging. Rows are staged with 16-byte cp.async where
+// * Asynchronous, wide staging (common.cuh: stage_field, which the line
+//   cache shares). Rows are staged with 16-byte cp.async where
 //   the row's global and shared addresses are 16-byte aligned (each plane is
 //   shifted so that both agree modulo 16 bytes), with 4- or 8-byte cp.async
 //   for the rest of the row; out-of-grid cells are written with the halo
@@ -60,16 +61,6 @@ namespace ss {
 constexpr int kTileWarps = 16;  // warps per CTA
 constexpr int kTileThreads = 32 * kTileWarps;
 constexpr int kMinBlocks = 2;    // CTAs per SM the register budget is cut for
-constexpr int kRun = 8;          // cells per thread run (one-field functors)
-constexpr int kPitchAlign = 16;  // elements: pitch multiple and per-plane pad
-
-// Cells a thread computes down one column per sub-step. Multi-field cells
-// (the probe's five) keep one, to stay within 64 registers a thread without
-// spilling.
-template <class Op>
-__host__ __device__ constexpr int run_rows() {
-  return Op::kVariant == 1 ? kRun : 1;
-}
 
 template <class Op>
 struct TilePassArgs {
@@ -84,62 +75,6 @@ struct TilePassArgs {
   int pitch, plane;    // shared row pitch and plane size, in elements
   bool vec16;          // rows may be staged in 16-byte copies
 };
-
-__device__ __forceinline__ unsigned shared_address(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_address(dst)), "l"(src));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(shared_address(dst)), "l"(src),
-                 "n"(N));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-template <class T>
-__device__ __forceinline__ void copy_cell(T* dst, const T* src) {
-  if constexpr (sizeof(T) == 4 || sizeof(T) == 8)
-    cp_async<sizeof(T)>(dst, src);
-  else
-    *dst = *src;
-}
-
-// Stage one field's window, rows dealt to warps: out-of-grid cells get the
-// halo value, the in-grid span of a row is copied, 16 bytes at a time
-// between its first and last 16-byte boundary when `vec16` (not for 1-byte
-// cells, which are copied one per lane).
-template <class T>
-__device__ __forceinline__ void stage_field(T* win, int pitch, const T* g, T halo, int row0,
-                                            int col0, int WH, int WW, int H, int W, bool vec16) {
-  constexpr int E = 16 / sizeof(T);
-  const int lane = threadIdx.x;
-  const int a = max(col0, 0) - col0;       // first in-grid window column
-  const int b = min(col0 + WW, W) - col0;  // end of the in-grid columns
-  for (int wr = threadIdx.y; wr < WH; wr += kTileWarps) {
-    T* s = win + wr * pitch;
-    const int gr = row0 + wr;
-    if (gr < 0 || gr >= H || b <= a) {
-      for (int c = lane; c < WW; c += 32) s[c] = halo;
-      continue;
-    }
-    for (int c = lane; c < a; c += 32) s[c] = halo;
-    for (int c = b + lane; c < WW; c += 32) s[c] = halo;
-    const T* gp = g + static_cast<long>(gr) * W + col0;
-    int lo = b, hi = b;  // the 16-byte body [lo, hi)
-    if (sizeof(T) > 1 && vec16) {
-      lo = min(b, a + ((E - ((col0 + a) & (E - 1))) & (E - 1)));
-      hi = lo + ((b - lo) & ~(E - 1));
-      for (int c = lo + lane * E; c < hi; c += 32 * E) cp_async<16>(s + c, gp + c);
-    }
-    for (int c = a + lane; c < lo; c += 32) copy_cell(s + c, gp + c);
-    for (int c = hi + lane; c < b; c += 32) copy_cell(s + c, gp + c);
-  }
-}
 
 // One sub-step over the window narrowed by m per side: src -> dst (window
 // origins), invariant fields at `inv`. A thread computes its run's V cells
@@ -237,11 +172,11 @@ tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
 
 #pragma unroll
   for (int f = 0; f < NV; ++f)
-    stage_field(cur + f * a.plane, a.pitch, a.f.var_in[f], a.f.halo_var[f], row0, col0, WH, WW,
+    stage_field<kTileWarps>(cur + f * a.plane, a.pitch, a.f.var_in[f], a.f.halo_var[f], row0, col0, WH, WW,
                 a.H, a.W, a.vec16);
 #pragma unroll
   for (int f = 0; f < Op::kInvariant; ++f)
-    stage_field(inv + f * a.plane, a.pitch, a.f.inv[f], a.f.halo_inv[f], row0, col0, WH, WW,
+    stage_field<kTileWarps>(inv + f * a.plane, a.pitch, a.f.inv[f], a.f.halo_inv[f], row0, col0, WH, WW,
                 a.H, a.W, a.vec16);
   cp_async_commit();
   cp_async_wait_all();

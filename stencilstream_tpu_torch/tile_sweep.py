@@ -1,9 +1,10 @@
-"""Geometry of the tile-pass kernel, timed on one NVIDIA card.
+"""Geometry of the tile-pass and line-cache kernels, timed on one NVIDIA card.
 
-    python -m stencilstream_tpu_torch.tile_sweep [--out sweep.jsonl] [--parts grid,sass]
-        [--ops hotspot,jacobi5,conway,probe] [--passes 2,4,8]
+    python -m stencilstream_tpu_torch.tile_sweep [--out sweep.jsonl]
+        [--parts grid,sass,linecache,linecache-sass] [--ops hotspot,jacobi5,conway,probe]
+        [--passes 2,4,8] [--strips 16,32,64] [--windows 64,128] [--waves 1,2,3]
 
-Two parts, each printing one JSON line per measurement:
+Four parts, each printing one JSON line per measurement:
 
 * ``grid``: one pass at each (tile, p) whose window fits one block's shared
   memory, for HotSpot (12 B a cell in shared memory), Jacobi5 (8 B), Conway
@@ -18,6 +19,16 @@ Two parts, each printing one JSON line per measurement:
   and the edge sub-steps), with their instructions, shared loads (``LDS``)
   and stores (``STS``), and the shared loads per cell-step (``LDS`` x
   variant fields / ``STS``).
+* ``linecache``: one line-cache pass at each (strip, window, p, waves) whose
+  CTA fits one block's shared memory, same cases and size, the panel being
+  the window less both halos and the segments those of the law
+  (:func:`.backends.line_cache.segment_rows`) for ``waves`` waves of CTAs at
+  the CTAs per SM that the occupancy calculator reports; with the time of a
+  pass with no step active (``copy_ms``: staging and stores alone) and the
+  lane-cells per useful cell-step (:func:`line_cache_work`).
+* ``linecache-sass``: the run loops of the line-cache kernel, counted as
+  for the tile pass (its level loop holds the interior and the edge run
+  bodies together).
 
 Every kernel result is held against the plain version (``max_abs_err``);
 times are CUDA-event means over repeated launches after a warm-up. Needs a
@@ -27,6 +38,7 @@ CUDA card; there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import re
 import subprocess
@@ -37,12 +49,13 @@ import numpy as np
 import torch
 
 from .backends import cuda_lib
+from .backends import line_cache as lc
 from .backends import tile_pass as tp
 from .models import conway, hotspot, jacobi
 from .trace_cells import JACOBI5_COEFS
 from . import probe
 
-__all__ = ["main", "run_loops", "thread_map_work", "TILES", "PASSES"]
+__all__ = ["main", "line_cache_work", "run_loops", "thread_map_work", "TILES", "PASSES"]
 
 #: Core tiles of the geometry sweep, heights a multiple of the run: widths a
 #: multiple of the 32-lane warp, and widths whose window at a halo of 8
@@ -54,6 +67,10 @@ TILES = [(32, 64), (64, 64), (64, 96), (32, 128), (64, 128), (128, 64), (96, 96)
 #: Iterations per pass of the geometry sweep.
 PASSES = [2, 4, 6, 8, 12, 16]
 SIZE = 8192
+#: Strip heights and window widths (panel + both halos) of the line-cache
+#: sweep: whole runs, and whole warps.
+STRIPS = [16, 32, 64]
+WINDOWS = [64, 96, 128, 160, 192, 256]
 #: Device functor of each swept case, as ptxas names its instantiation.
 FUNCTORS = {"hotspot": "HotspotOp", "jacobi5": "Jacobi5GeneralOp", "conway": "ConwayOp", "probe": "ProbeOp"}
 
@@ -94,6 +111,18 @@ def thread_map_work(tile, halo: int, radius: int, run: int = tp.RUN_ROWS) -> tup
     return lanes / useful, window / useful
 
 
+def line_cache_work(panel: int, halo: int, radius: int, strip: int, segment: int, warmup: int) -> float:
+    """Lane-cells the line-cache kernel's thread map computes per useful
+    cell-step (core cells x halo/radius levels) on a segment that is not
+    the first: every level computes ``strip`` rows of its narrowing window
+    in whole 32-column chunks, over the segment and its warm-up."""
+    steps = halo // radius
+    window = panel + 2 * halo
+    lanes = sum(-(-(window - 2 * radius * s) // tp.WARP) * tp.WARP for s in range(1, steps + 1))
+    walked = -(-(warmup + segment) // strip) * strip
+    return lanes * walked / (panel * steps * segment)
+
+
 def max_err(a, b) -> float:
     from .core.cell import cell_leaves
 
@@ -116,14 +145,14 @@ _SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _BACKWARD_BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
 
 
-def run_loops(sass: str, functor: str) -> list[dict]:
-    """The run loops of ``functor``'s tile-pass kernel in a ``cuobjdump
-    -sass`` listing: loops (spans closed by a backward branch) that load and
-    store shared memory, copy nothing from global memory (``LDGSTS``) and
-    hold no other such loop; ``instructions``, ``LDS`` and ``STS`` counted
-    over the loop's body."""
+def run_loops(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list[dict]:
+    """The run loops of ``functor``'s ``kernel`` in a ``cuobjdump -sass``
+    listing: loops (spans closed by a backward branch) that load and store
+    shared memory, copy nothing from global memory (``LDGSTS``) and hold no
+    other such loop; ``instructions``, ``LDS`` and ``STS`` counted over the
+    loop's body."""
     chunk = next((c for c in sass.split("Function : ")[1:]
-                  if c.startswith("_ZN2ss16tile_pass_kernel") and functor in c.split(None, 1)[0]), "")
+                  if c.startswith(f"_ZN2ss{len(kernel)}{kernel}") and functor in c.split(None, 1)[0]), "")
     code = [(int(a, 16), op) for a, op in _SASS_INSTRUCTION.findall(chunk)]
     loops = []
     for addr, op in code:
@@ -160,12 +189,23 @@ def run_pass(cell, tf, halo, tile, p, n=None):
                         iters_per_pass=p, tile=tile)
 
 
+def run_line_cache(cell, tf, halo, strip, panel, segment, p, n=None):
+    """One line-cache pass of p iterations; with ``n=0`` no step is active,
+    so the kernel only stages and stores."""
+    return lc.line_cache_pass(cell, tf, halo, i_start=0, offset=0, n_iterations=p if n is None else n,
+                              iters_per_pass=p, strip_rows=strip, panel_cols=panel, segment_rows=segment)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tile_sweep", description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines to this file")
     parser.add_argument("--passes", default=",".join(map(str, PASSES)), help="p values of the geometry sweep")
-    parser.add_argument("--parts", default="grid,sass", help="comma-separated: grid, sass")
-    parser.add_argument("--ops", default="hotspot,jacobi5,conway,probe", help="ops of the grid sweep")
+    parser.add_argument("--parts", default="grid,sass",
+                        help="comma-separated: grid, sass, linecache, linecache-sass")
+    parser.add_argument("--ops", default="hotspot,jacobi5,conway,probe", help="ops of the grid sweeps")
+    parser.add_argument("--strips", default=",".join(map(str, STRIPS)), help="strips of the line-cache sweep")
+    parser.add_argument("--windows", default=",".join(map(str, WINDOWS)), help="windows of the line-cache sweep")
+    parser.add_argument("--waves", default="1,2,3,4", help="waves of CTAs the line-cache segments make")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
@@ -217,15 +257,51 @@ def main(argv=None) -> int:
                               ctas_per_sm=tp.tile_pass_residency(tf, tile, p, device),
                               lane_cells_per_cell_step=lanes, window_cells_per_cell_step=window,
                               max_abs_err=e))
-    if "sass" in parts:
+    if "linecache" in parts:
+        emit(dict(part="linecache-build", ptxas=kernel_report(cuda_lib.build()[2], "line_cache_kernel")))
+        for op in args.ops.split(","):
+            cell, tf, halo = work[op]
+            r = tf.stencil_radius
+            variant, invariant = cuda_lib.cell_field_bytes(cell, tf)
+            for p in map(int, args.passes.split(",")):
+                steps = p * tf.n_subiterations
+                hp = r * steps
+                for strip, window, waves in itertools.product(
+                    map(int, args.strips.split(",")), map(int, args.windows.split(",")),
+                    map(int, args.waves.split(",")),
+                ):
+                    panel = window - 2 * hp
+                    smem = lc.line_cache_smem_bytes(strip, panel, r, steps, variant, invariant)
+                    if panel < lc.WARP or smem > limits.smem_per_block or strip < 2 * r:
+                        continue
+                    per_sm = lc.line_cache_residency(tf, strip, panel, p, device)
+                    warmup = lc.warmup_rows(r, steps, strip)
+                    segment = lc.segment_rows(SIZE, strip, -(-SIZE // panel), per_sm * limits.sm_count * waves,
+                                              warmup)
+                    fn = lambda: run_line_cache(cell, tf, halo, strip, panel, segment, p)  # noqa: E731
+                    e = max_err(fn(), plain(op, p))
+                    ms = timed(fn, 5)
+                    copy_ms = timed(lambda: run_line_cache(cell, tf, halo, strip, panel, segment, p, 0), 5)
+                    emit(dict(part="linecache", op=op, strip=strip, window=window, panel=panel, p=p, waves=waves,
+                              segment=segment, ms=ms, ms_per_iteration=ms / p, copy_ms=copy_ms, smem=smem,
+                              ctas_per_sm=per_sm,
+                              lane_cells_per_cell_step=line_cache_work(panel, hp, r, strip, segment, warmup),
+                              max_abs_err=e))
+    for part, kernel in (("sass", "tile_pass_kernel"), ("linecache-sass", "line_cache_kernel")):
+        if part not in parts:
+            continue
         cuobjdump = str(Path(cuda_lib.nvcc_path()).with_name("cuobjdump"))
         sass = subprocess.run([cuobjdump, "-sass", str(cuda_lib.build()[0])], capture_output=True,
                               text=True, check=True).stdout
         for op, functor in FUNCTORS.items():
             n_variant = cuda_lib.op_info(work[op][1].cuda_op)["n_variant"]
-            loops = run_loops(sass, functor)
-            emit(dict(part="sass", op=op, run_loops=loops,
-                      lds_per_cell_step=[lp["LDS"] * n_variant / lp["STS"] for lp in loops]))
+            # A run loop stores a whole run; the line cache's carry copies
+            # (one word loaded and stored a trip) are not run loops.
+            run = tp.RUN_ROWS if n_variant == 1 else 1
+            loops = [lp for lp in run_loops(sass, functor, kernel) if lp["STS"] >= run * n_variant]
+            emit(dict(part=part, op=op, run_loops=loops,
+                      lds_per_cell_step=[lp["LDS"] * n_variant / lp["STS"] for lp in loops],
+                      instructions_per_cell_step=[lp["instructions"] * n_variant / lp["STS"] for lp in loops]))
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -237,16 +237,45 @@ LINE_CACHE_CASES = [
     ((37, 53), 32, 64, 64, 4, 7, 3, 5),
     ((20, 24), 32, 64, 32, 8, 0, 0, 8),
     ((300, 260), 32, 64, 100, 8, 2, 1, 20),
-    ((300, 260), 4, 32, 21, 5, 2, 1, 20),
+    ((300, 260), 8, 32, 21, 5, 2, 1, 20),
 ]
 
 
+#: The line-cache kernel's geometry, as chip_smoke.py checks it on every
+#: functor: interior panels beside edge panels at widths that are and are
+#: not multiples of 4; a ragged last strip; segments that end mid-strip, and
+#: segments shorter than the warm-up, so that each starts inside the warm-up
+#: of the one below; the law's strip and panel; p=1; 1 of p steps active.
+_LAW = lc.pick_linecache_config(8192, 8192, 1, 1, 8, 4, 0, cuda_lib.H100_SXM)  # Jacobi5's
+LINE_CACHE_GEOMETRY = [
+    ((203, 1001), 32, 112, 64, 8, 0, 0, 8),
+    ((200, 1008), 32, 112, 100, 8, 2, 1, 20),
+    ((150, 1000), 64, 48, 20, 8, 0, 0, 8),
+    ((300, 260), _LAW.strip_rows, _LAW.panel_cols, 128, 8, 0, 0, 8),
+    ((45, 70), 8, 32, 16, 1, 4, 4, 1),
+    ((45, 70), 16, 48, 24, 4, 7, 3, 5),
+]
+
+
+def _fitted_line(strip, panel, p, cell, tf, limits):
+    """The case's panel and p, p halved and then the panel narrowed by a warp
+    until the CTA fits one block (the probe's 20 B of variant fields need
+    it)."""
+    variant, invariant = cuda_lib.cell_field_bytes(cell, tf)
+    while lc.line_cache_smem_bytes(strip, panel, tf.stencil_radius, p * tf.n_subiterations, variant,
+                                   invariant) > limits.smem_per_block:
+        p, panel = (p // 2, panel) if p > 1 else (p, max(lc.WARP, panel - lc.WARP))
+    return panel, p
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", LINE_CACHE_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-p{c[4]}-s{c[1]}")
+@pytest.mark.parametrize("case", LINE_CACHE_CASES + LINE_CACHE_GEOMETRY,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-p{c[4]}-s{c[1]}-w{c[2]}-g{c[3]}")
 @pytest.mark.parametrize("op", ["hotspot", "jacobi5_general", "conway", "probe"])
 def test_line_cache_kernel_matches_plain_version(cuda, op, case):
     shape, strip, panel, segment, p, i_start, offset, n = case
     cell, tf, halo, tol = _case(op, shape, 11, cuda, iteration=i_start)
+    panel, p = _fitted_line(strip, panel, p, cell, tf, cuda_lib.device_limits(cuda))
     kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
     before = lc.launches
     got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=panel, segment_rows=segment, **kw)
@@ -258,6 +287,34 @@ def test_line_cache_kernel_matches_plain_version(cuda, op, case):
         assert got.power is cell.power
     if op == "probe":
         assert int(got.status.abs().max()) == probe.NORMAL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", LINE_CACHE_GEOMETRY,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-p{c[4]}-s{c[1]}-w{c[2]}-g{c[3]}")
+@pytest.mark.parametrize("op", OPS)
+def test_line_cache_geometry_on_every_functor(cuda, op, case):
+    shape, strip, panel, segment, p, i_start, offset, n = case
+    cell, tf, halo, tol = _case(op, shape, 14, cuda, iteration=i_start)
+    panel, p = _fitted_line(strip, panel, p, cell, tf, cuda_lib.device_limits(cuda))
+    kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+    before = lc.launches
+    got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=panel, segment_rows=segment, **kw)
+    want = lc.line_cache_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert lc.launches == before + 1
+    assert _max_err(got, want) <= tol
+    if op == "probe":
+        assert int(got.status.abs().max()) == probe.NORMAL
+
+
+@pytest.mark.gpu
+def test_line_cache_refuses_a_geometry_the_kernel_cannot_take(cuda):
+    cell, tf, halo, _ = _case("jacobi5_general", (64, 64), 0, cuda)
+    kw = dict(i_start=0, offset=0, n_iterations=1, iters_per_pass=1, segment_rows=32)
+    for strip, panel in ((12, 64), (32, 16)):
+        with pytest.raises(ValueError, match="strip_rows|panel_cols"):
+            lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=panel, **kw)
 
 
 @pytest.mark.gpu
@@ -356,7 +413,7 @@ def test_line_cache_residency_meets_the_laws_count(cuda, op):
     variant, invariant = cuda_lib.cell_field_bytes(cell, tf)
     cfg = lc.pick_linecache_config(8192, 8192, 1, 1, 200, variant, invariant, limits)
     smem = lc.line_cache_smem_bytes(cfg.strip_rows, cfg.panel_cols, 1, cfg.iters_per_pass, variant, invariant)
-    law = lc.ctas_per_sm(smem, limits)
+    law = lc.ctas_per_sm(smem, limits, lc.law_entry(variant + invariant)[3])
     assert lc.line_cache_residency(tf, cfg.strip_rows, cfg.panel_cols, cfg.iters_per_pass, cuda) >= law
 
 

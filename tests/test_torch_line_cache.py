@@ -74,7 +74,7 @@ def test_jacobi_matches_jax(n, p, T):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, j_linecache, rtol=1e-6, atol=1e-6)
     assert update.resolved_config == dict(
-        window_mode="linecache", strip_rows=T, panel_cols=64, segment_rows=64, iters_per_pass=p
+        window_mode="linecache", strip_rows=T, panel_cols=152, segment_rows=64, iters_per_pass=p
     )
 
 
@@ -199,33 +199,136 @@ def test_runs_where_jax_falls_back_to_clamped():
 def test_config_law():
     """A pure function of the shape and the device's limits."""
     law = lc.pick_linecache_config
-    # Jacobi5 at 8192^2: 64-column panels and p=8 (halo an eighth of the
-    # panel); a CTA of one f32 field takes 4 B x (2 x 34 + 8 x 2) rows x 80
-    # columns = 26880 B, 8 fit an SM, so 8 x 132 CTAs over 128 panels give
-    # 8 segments of 1024 rows.
-    assert law(8192, 8192, 1, 1, 200, 4, 0, H100_SXM) == (32, 64, 1024, 8)
-    assert lc.line_cache_smem_bytes(32, 64, 1, 8, 4, 0) == 26880
-    assert lc.ctas_per_sm(26880, H100_SXM) == 8 and lc.ctas_per_sm(100_000, H100_SXM) == 2
-    # HotSpot adds two (32 + 8 + 2)-row power planes: 4 CTAs per SM.
-    assert law(8192, 8192, 1, 1, 200, 4, 4, H100_SXM) == (32, 64, 2048, 8)
-    # Small grids: no segment shorter than four warm-ups (4 x 32 rows).
-    assert law(1000, 1000, 1, 1, 200, 4, 0, H100_SXM) == (32, 64, 128, 8)
-    assert law(20, 24, 1, 1, 200, 4, 0, H100_SXM) == (32, 32, 32, 4)
+    # Jacobi5 at 8192^2 (4 B a cell): strips of 32 rows and a 160-column
+    # window at halo 8, so panels of 144 and p=8. A CTA takes 4 B x (2 x 34 +
+    # 7 x 2) rows x 160 columns + 16 = 52496 B; the law counts 4 CTAs per SM
+    # (what the occupancy calculator reported), so 3 waves of 4 x 132 CTAs
+    # over 57 panels give 27 segments of 320 rows.
+    assert law(8192, 8192, 1, 1, 200, 4, 0, H100_SXM) == (32, 144, 320, 8)
+    assert lc.line_cache_smem_bytes(32, 144, 1, 8, 4, 0) == 52496
+    assert lc.ctas_per_sm(52496, H100_SXM, 4) == 4 and lc.ctas_per_sm(100_000, H100_SXM, 4) == 2
+    # HotSpot (8 B, a 41-row power plane besides): a 192-column window, 2 CTAs
+    # per SM, 3 waves; Conway (1 B): 192 columns, 5 CTAs per SM, 2 waves.
+    assert law(8192, 8192, 1, 1, 200, 4, 4, H100_SXM) == (32, 176, 512, 8)
+    assert law(8192, 8192, 1, 1, 200, 1, 0, H100_SXM) == (32, 176, 320, 8)
+    # Small grids: no wider a window than the grid needs, no segment shorter
+    # than four warm-ups (4 x 32 rows).
+    assert law(1000, 1000, 1, 1, 200, 4, 0, H100_SXM) == (32, 144, 128, 8)
+    assert law(20, 24, 1, 1, 200, 4, 0, H100_SXM) == (32, 48, 32, 8)
     # p=4, T=16: warm-up 16 rows, so 96 rows make two segments of 48.
-    assert law(96, 128, 1, 1, 5, 4, 0, H100_SXM, iters_per_pass=4, strip_rows=16) == (16, 64, 48, 4)
+    assert law(96, 128, 1, 1, 5, 4, 0, H100_SXM, iters_per_pass=4, strip_rows=16) == (16, 152, 48, 4)
     assert law(8192, 8192, 1, 1, 3, 4, 0, H100_SXM).iters_per_pass == 3
-    # The probe: 20 B of variant fields, k=2.
-    # 20 B x 84 rows x 80 columns is over half the block's shared memory at
-    # p=4, so p=2 and two CTAs per SM: 2 segments per panel.
-    assert law(8192, 8192, 1, 2, 200, 20, 0, H100_SXM) == (32, 64, 4096, 2)
-    # A smaller card: p drops, then the panel narrows, until a CTA fits half
-    # its shared memory (or, at the smallest panel, all of it).
+    # The probe: 20 B of variant fields, k=2: strips of 8 rows and a
+    # 128-column window at halo 4, p=2.
+    assert law(8192, 8192, 1, 2, 200, 20, 0, H100_SXM) == (8, 120, 488, 2)
+    # A smaller card: the window narrows, then the strip, then p, until a CTA
+    # fits half its shared memory (or, at the smallest, all of it).
     small = DeviceLimits(sm_count=16, smem_per_block=48 * 1024)
-    assert law(8192, 8192, 1, 1, 200, 4, 0, small) == (32, 64, 8192, 6)
-    assert lc.line_cache_smem_bytes(32, 64, 1, 6, 4, 0) <= small.smem_per_block // 2
-    assert law(8192, 8192, 1, 1, 200, 4, 0, DeviceLimits(16, 16 * 1024)) == (32, 32, 8192, 1)
+    assert law(8192, 8192, 1, 1, 200, 4, 0, small) == (32, 48, 8192, 8)
+    assert lc.line_cache_smem_bytes(32, 48, 1, 8, 4, 0) <= small.smem_per_block // 2
+    assert law(8192, 8192, 1, 1, 200, 4, 0, DeviceLimits(16, 16 * 1024)) == (8, 52, 8192, 6)
     with pytest.raises(ValueError, match="shared memory"):
         law(8192, 8192, 1, 1, 200, 4, 0, DeviceLimits(16, 4 * 1024), iters_per_pass=8)
+
+
+#: (variant bytes, invariant bytes, sub-iterations) of the cells the law
+#: sizes: Jacobi5, HotSpot, Conway, the probe.
+CELLS = [(4, 0, 1), (4, 4, 1), (1, 0, 1), (20, 0, 2)]
+SHAPES = [(8192, 8192), (1000, 1000), (300, 260), (20, 24), (64, 8192)]
+LIMITS = [H100_SXM, DeviceLimits(sm_count=16, smem_per_block=48 * 1024)]
+
+
+def _law_cases():
+    return [(cell, shape, limits) for cell in CELLS for shape in SHAPES for limits in LIMITS]
+
+
+def _layout_bytes(strip, panel, radius, steps, variant, invariant):
+    """The kernel's shared-memory layout (csrc/line_cache.cu), counted plane
+    by plane: pitch = window rounded up to 16 elements."""
+    hp = radius * steps
+    pitch = -(-(panel + 2 * hp) // 16) * 16
+    planes = 2 * (2 * radius + strip) * pitch * variant
+    carries = max(steps - 1, 0) * 2 * radius * pitch * variant
+    invariants = (strip + hp + radius) * pitch * invariant
+    return planes + carries + invariants + 16
+
+
+@pytest.mark.parametrize("cell,shape,limits", _law_cases())
+def test_law_window_is_whole_warps(cell, shape, limits):
+    """The window (panel + 2 halos) is a whole number of warps, so every
+    level of the narrowing window covers the same 32-column chunks; it is
+    the law's window where the grid is that wide and a CTA of it fits."""
+    variant, invariant, k = cell
+    cfg = lc.pick_linecache_config(*shape, 1, k, 200, variant, invariant, limits)
+    hp = cfg.iters_per_pass * k
+    window = cfg.panel_cols + 2 * hp
+    assert window % lc.WARP == 0 and cfg.panel_cols >= lc.WARP
+    law_window = lc.law_entry(variant + invariant)[1]
+    fits = lc.line_cache_smem_bytes(cfg.strip_rows, law_window - 2 * hp, 1, hp, variant, invariant)
+    if shape[1] + 2 * hp >= law_window and fits <= limits.smem_per_block // 2:
+        assert window == law_window
+
+
+@pytest.mark.parametrize("cell,shape,limits", _law_cases())
+def test_law_strip_is_whole_runs_and_holds_the_carry(cell, shape, limits):
+    variant, invariant, k = cell
+    cfg = lc.pick_linecache_config(*shape, 1, k, 200, variant, invariant, limits)
+    assert cfg.strip_rows % lc.RUN_ROWS == 0 and cfg.strip_rows >= 2
+    assert cfg.segment_rows % cfg.strip_rows == 0
+
+
+@pytest.mark.parametrize("strip,panel,steps,variant,invariant",
+                         [(32, 112, 8, 4, 0), (32, 112, 8, 4, 4), (64, 240, 8, 1, 0), (16, 60, 2, 20, 0),
+                          (8, 32, 1, 4, 4), (32, 64, 0, 4, 0)])
+def test_smem_bytes_is_the_kernels_layout(strip, panel, steps, variant, invariant):
+    assert lc.line_cache_smem_bytes(strip, panel, 1, steps, variant, invariant) == \
+        _layout_bytes(strip, panel, 1, steps, variant, invariant)
+
+
+@pytest.mark.parametrize("cell,shape,limits", _law_cases())
+def test_law_cta_fits_the_shared_memory_it_counted_on(cell, shape, limits):
+    """A CTA fits one block, and the CTAs per SM the law counted on fit the
+    SM together; the segments of all panels make at most the law's waves of
+    them."""
+    variant, invariant, k = cell
+    cfg = lc.pick_linecache_config(*shape, 1, k, 200, variant, invariant, limits)
+    smem = lc.line_cache_smem_bytes(cfg.strip_rows, cfg.panel_cols, 1, cfg.iters_per_pass * k, variant, invariant)
+    per_sm = lc.ctas_per_sm(smem, limits, lc.law_entry(variant + invariant)[3])
+    assert smem * per_sm <= limits.smem_per_block
+    n_ctas = -(-shape[1] // cfg.panel_cols) * -(-shape[0] // cfg.segment_rows)
+    waves = lc.law_entry(variant + invariant)[4]
+    assert n_ctas <= max(per_sm * limits.sm_count * waves, -(-shape[1] // cfg.panel_cols))
+
+
+@pytest.mark.parametrize(
+    "panel, halo, strip, segment, warmup, want",
+    [
+        # A 128-column window at halo 8: every level in four 32-column chunks,
+        # 11 strips walked for a 320-row segment.
+        (112, 8, 32, 320, 32, 8 * 128 * 352 / (112 * 8 * 320)),
+        # One level on a whole-warp window, no warm-up: only the halo columns.
+        (30, 1, 8, 64, 0, 32 / 30),
+    ],
+)
+def test_line_cache_work_counts_whole_chunks_and_the_warm_up(panel, halo, strip, segment, warmup, want):
+    from stencilstream_tpu_torch.tile_sweep import line_cache_work
+
+    assert line_cache_work(panel, halo, 1, strip, segment, warmup) == pytest.approx(want)
+
+
+def test_a_strip_must_be_whole_runs_and_a_panel_a_warp():
+    """A strip that is not a whole number of 8-row runs, and a panel
+    narrower than a warp, raise on the CPU as on the card."""
+    grid = Grid.from_numpy(np.zeros((16, 64), np.float32), device="cpu")
+    kw = dict(i_start=0, offset=0, n_iterations=1, iters_per_pass=1, segment_rows=16)
+    kernel = jacobi.make_kernel("jacobi5_general", COEFS)
+    with pytest.raises(ValueError, match="runs"):
+        lc.line_cache_pass(grid.arrays, kernel, 0.0, strip_rows=12, panel_cols=32, **kw)
+    with pytest.raises(ValueError, match="panel_cols"):
+        lc.line_cache_pass(grid.arrays, kernel, 0.0, strip_rows=8, panel_cols=16, **kw)
+    update = _port_linecache(Params(kernel, halo_value=0.0, n_iterations=2), strip_rows=12)
+    with pytest.raises(ValueError, match="runs"):
+        update(grid)
 
 
 def test_a_strip_must_hold_the_carried_rows():

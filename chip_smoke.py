@@ -22,7 +22,10 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    interior panels beside edge panels at widths that are and are not
    multiples of 4, a ragged last strip, segments that end mid-strip or start
    inside another's warm-up, the law's strip and panel, p=1 and 1 of p
-   steps active;
+   steps active; the resident grid also, with HotSpot, Jacobi5 and the
+   probe, at q = 1, 2 and 4 sub-steps per exchange with n*k not a multiple
+   of q, on 8-row bands with a ragged last band, on 5-row and one-row bands
+   (where the plan's q falls back to 1), and as a single CTA;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
@@ -83,6 +86,11 @@ LIBRARY_ATOL = 1e-5
 #: FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+
+#: (shape, q) of the resident grid's band checks: one-row bands, 8-row
+#: bands with a ragged last band of 6 rows, 5-row bands.
+MONO_BANDS = [((37, 53), 1), ((1030, 64), 1), ((1030, 64), 2), ((1030, 64), 4),
+              ((600, 40), 1), ((600, 40), 2), ((600, 40), 4)]
 
 JACOBI_COEFS = {
     "jacobi1_general": [0.9],
@@ -207,7 +215,9 @@ def check_kernels(device) -> dict:
 
     from stencilstream_tpu_torch import probe
     from stencilstream_tpu_torch.backends import line_cache as lc
-    from stencilstream_tpu_torch.backends.monotile import monotile, monotile_plain
+    from stencilstream_tpu_torch.backends.monotile import (
+        MAX_THREADS, MonotilePlan, monotile, monotile_plain, monotile_plan,
+    )
     from stencilstream_tpu_torch.backends import cuda_lib
     from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain, tile_smem_bytes
     from stencilstream_tpu_torch.models import jacobi
@@ -232,13 +242,44 @@ def check_kernels(device) -> dict:
         check(errs, "tile_pass", f"hotspot {shape} tile={tile} p={p} i_start={i_start} offset={offset} "
               f"n={n}", got, want, tol, max_err(want, cell))
         assert got.power is cell.power, "invariant field must be passed through"
+    # HotSpot on the resident grid at the plan's geometry, (shape, offset,
+    # n): at (37, 53) the one-row bands force q down to 1.
+    limits = cuda_lib.device_limits(device)
     mono_cases = [((37, 53), 3, 7), ((20, 24), 0, 1), ((1000, 1000), 5, 64), ((1024, 1024), 2, 200)]
     for seed, (shape, offset, n) in enumerate(mono_cases, start=100):
         cell, tf, halo, tol = op_case("hotspot", shape, seed, device)
+        plan = monotile_plan(*shape, 1, 12, limits)
         got = monotile(cell, tf, halo, offset=offset, n_iterations=n)
         want = monotile_plain(cell, tf, halo, offset=offset, n_iterations=n)
         torch.cuda.synchronize()
-        check(errs, "monotile", f"hotspot {shape} offset={offset} n={n}", got, want, tol, max_err(want, cell))
+        check(errs, "monotile", f"hotspot {shape} offset={offset} n={n} band={plan.band} q={plan.q} "
+              f"threads={plan.threads}", got, want, tol, max_err(want, cell))
+    # The resident grid's band algebra at a given q, one CTA of 1024 threads
+    # an SM, from iteration 3 with n*k not a multiple of q (but for the
+    # probe at q=2), so the last group is short: 8-row bands with a ragged
+    # last band of 6 rows (1030), 5-row bands (600), one-row bands (37);
+    # every probe cell must stay Normal. Then a single CTA that holds the
+    # whole grid, q=4, from iteration 2.
+    for seed, op in enumerate(["hotspot", "jacobi5_general", "probe"], start=600):
+        for shape, q in MONO_BANDS:
+            cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=3)
+            n = 3 if op == "probe" else 5
+            band = -(-shape[0] // limits.sm_count)
+            plan = MonotilePlan(band, -(-shape[0] // band), 0, q, MAX_THREADS)
+            got = monotile(cell, tf, halo, offset=3, n_iterations=n, plan=plan)
+            want = monotile_plain(cell, tf, halo, offset=3, n_iterations=n)
+            torch.cuda.synchronize()
+            check(errs, "monotile", f"{op} {shape} band={band} q={q} offset=3 n={n}", got, want, tol)
+            if op == "probe":
+                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+        cell, tf, halo, tol = op_case(op, (37, 53), seed, device, iteration=2)
+        plan = MonotilePlan(37, 1, 0, 4, MAX_THREADS)
+        got = monotile(cell, tf, halo, offset=2, n_iterations=7, plan=plan)
+        want = monotile_plain(cell, tf, halo, offset=2, n_iterations=7)
+        torch.cuda.synchronize()
+        check(errs, "monotile", f"{op} (37, 53) one CTA q=4 offset=2 n=7", got, want, tol)
+        if op == "probe":
+            assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
     # Every other functor on every kernel.
     others = [*sorted(jacobi.VARIANTS), "conway", "probe"]
@@ -277,7 +318,6 @@ def check_kernels(device) -> dict:
         ((45, 70), (16, 32), 1, 4, 4, 1),
         ((45, 70), (16, 32), 4, 7, 3, 5),
     ]
-    limits = cuda_lib.device_limits(device)
     for seed, op in enumerate(["hotspot", *others], start=400):
         for shape, tile, p, i_start, offset, n in geometry_cases:
             cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
@@ -581,8 +621,9 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: mt.monotile_plain(cell, tf, hz, offset=0, n_iterations=n_mono), 1)
     cells = 1024 * 1024
     mono_bound, mono_by = bound(12 * cells, tf.n_operations * n_mono * cells)
-    log(f"  monotile hotspot 1024x1024 n={n_mono}: kernel {ms:.4f} ms "
-        f"({cells * n_mono / ms / 1e6:.3f} GCell/s) = {mono_bound / ms:.1%} of its bound "
+    plan = mt.monotile_plan(1024, 1024, 1, 12, limits)
+    log(f"  monotile hotspot 1024x1024 n={n_mono} (band {plan.band}, q={plan.q}, {plan.threads} threads): "
+        f"kernel {ms:.4f} ms ({cells * n_mono / ms / 1e6:.3f} GCell/s) = {mono_bound / ms:.1%} of its bound "
         f"{mono_bound:.4f} ms ({mono_by}), plain {plain_ms:.4f} ms [{card}]")
     # Beside it, for information: the same run through `tiling` (the tile
     # pass, host loop of ceil(n/p) passes); `auto` keeps the resident grid.
@@ -609,7 +650,9 @@ def main() -> int:
     plain_ms = cuda_ms(lambda: mt.monotile_plain(y, j5, 0.0, offset=0, n_iterations=n_mono), 1)
     lib_ms = cuda_ms(lambda: library_jacobi(y, n_mono), 2)
     b, by = bound(8 * cells, j5.n_operations * n_mono * cells)
-    log(f"  monotile jacobi5 1024x1024 n={n_mono}: kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
+    plan = mt.monotile_plan(1024, 1024, 1, 8, limits)
+    log(f"  monotile jacobi5 1024x1024 n={n_mono} (band {plan.band}, q={plan.q}, {plan.threads} threads): "
+        f"kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
         f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, {n_mono} x conv2d {lib_ms:.4f} ms tuned [{card}]")
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 

@@ -70,7 +70,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
     "ss_tile_pass_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
+    "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P, ctypes.c_uint, _P],
+    "ss_monotile_residency_": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_line_cache_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
     "ss_line_cache_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_op_info_": [ctypes.POINTER(ctypes.c_int)],
@@ -203,6 +204,7 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
 def entry(prefix: str, op: str):
     """The C entry point ``<prefix><op>`` with its signature declared."""
     fn = getattr(library(), prefix + op, None)

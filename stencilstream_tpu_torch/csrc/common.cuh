@@ -1,8 +1,8 @@
 // Shared pieces of the stencil kernels: the neighbourhood view a device
 // functor reads, the field pointers and halo values a launch carries, the
 // host-side argument unpacking of the plain C interface, the run length of
-// the thread maps, and the asynchronous staging of window rows into shared
-// memory.
+// the thread maps, the run body of the line-cache and resident-grid kernels,
+// and the asynchronous staging of window rows into shared memory.
 //
 // A device functor ("Op", see ops/hotspot.cuh) is the C++ twin of a Python
 // transition function. It declares
@@ -94,6 +94,51 @@ constexpr int kPitchAlign = 16;  // elements a shared row pitch is rounded up to
 template <class Op>
 __host__ __device__ constexpr int run_rows() {
   return Op::kVariant == 1 ? kRun : 1;
+}
+
+// One thread's run of cells down one column of a sub-step, computed, then
+// stored: all of a run's outputs are computed before any is stored, so the
+// compiler loads each shared tap that the run's cells share once. src, dst
+// and inv point at the run's first cell in its variant planes (fields
+// `vstride` elements apart, in src and dst alike) and its invariant planes
+// (`istride` apart), rows `pitch` apart; (gr, gc) are that cell's global
+// coordinates; only the first n cells are computed and stored (all V unless
+// the caller passes fewer). kRows / kCols: every cell of the run has all
+// its neighbours inside the grid in that direction, which lets the compiler
+// fold the functor's own edge tests there. kOutside: cells may lie outside
+// the grid (they get the halo value); otherwise they all lie inside it. The
+// line-cache and resident-grid kernels share it.
+template <class Op, bool kRows, bool kCols, bool kOutside, int V = run_rows<Op>()>
+__device__ __forceinline__ void run_cells(const Op& op, const Fields<Op>& fields,
+                                          const typename Op::T* src, typename Op::T* dst,
+                                          const typename Op::T* inv, long vstride, long istride,
+                                          int pitch, int gr, int gc, int H, int W, int iteration,
+                                          int sub, int n = V) {
+  using T = typename Op::T;
+  constexpr int NV = Op::kVariant;
+  constexpr int R = Op::kRadius;
+  const bool col_in = gc >= 0 && gc < W;
+  T out[V][NV];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (k >= n) continue;
+    if (kOutside && (!col_in || gr + k < 0 || gr + k >= H)) {
+#pragma unroll
+      for (int f = 0; f < NV; ++f) out[k][f] = fields.halo_var[f];
+    } else {
+      if (kRows) __builtin_assume(gr + k >= R && gr + k < H - R);
+      if (kCols) __builtin_assume(gc >= R && gc < W - R);
+      const Taps<T> t{src + k * pitch, inv + k * pitch, vstride, istride, pitch,
+                      gr + k,          gc,             H,       W,       iteration, sub};
+      op(t, out[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (k >= n) continue;
+#pragma unroll
+    for (int f = 0; f < NV; ++f) dst[f * vstride + k * pitch] = out[k][f];
+  }
 }
 
 __device__ __forceinline__ unsigned shared_address(const void* p) {

@@ -39,7 +39,8 @@
 // * A 2D thread map without division, as the tile pass's: a warp covers 32
 //   consecutive columns of a level, each thread a run of kRun cells down one
 //   column (one for multi-field cells), all computed before any is stored,
-//   so shared taps that the run's cells share are loaded once. The strip is
+//   so shared taps that the run's cells share are loaded once (common.cuh:
+//   run_cells, which the resident grid runs too). The strip is
 //   a whole number of runs; the last chunk of a level is shifted back inside
 //   the window, so no lane tests a bound per cell.
 // * Edge-free interior runs. One warp-uniform test per run decides whether
@@ -119,44 +120,6 @@ size_t line_cache_smem_bytes(const LineCacheArgs<Op>& a) {
   return elems * sizeof(typename Op::T) + 16;  // + the alignment shift
 }
 
-// One thread's run of V cells down column c of a level, rows r.. of the
-// strip (global gr.., gc): computed, then stored. kEdge: cells may lie
-// outside the grid (they get the halo value); otherwise every cell and its
-// neighbours lie inside it.
-template <class Op, bool kEdge>
-__device__ __forceinline__ void run_cells(const LineCacheArgs<Op>& a, const Op& op,
-                                          const typename Op::T* src, typename Op::T* dst,
-                                          const typename Op::T* inv, int r, int c, int gr, int gc,
-                                          int iteration, int sub) {
-  using T = typename Op::T;
-  constexpr int NV = Op::kVariant;
-  constexpr int R = Op::kRadius;
-  constexpr int V = run_rows<Op>();
-  const bool col_in = gc >= 0 && gc < a.W;
-  T out[V][NV];
-#pragma unroll
-  for (int k = 0; k < V; ++k) {
-    if (kEdge && (!col_in || gr + k < 0 || gr + k >= a.H)) {
-#pragma unroll
-      for (int f = 0; f < NV; ++f) out[k][f] = a.f.halo_var[f];
-    } else {
-      if (!kEdge) {
-        // Every cell of the run has all its neighbours in the grid: let the
-        // compiler fold edge tests.
-        __builtin_assume(gr + k >= R && gr + k < a.H - R && gc >= R && gc < a.W - R);
-      }
-      const Taps<T> t{src + (r + k + R) * a.pitch + c, inv + (r + k + R) * a.pitch + c,
-                      a.vplane, a.iplane, a.pitch, gr + k, gc, a.H, a.W, iteration, sub};
-      op(t, out[k]);
-    }
-  }
-  T* d0 = dst + (2 * R + r) * a.pitch + c;
-#pragma unroll
-  for (int k = 0; k < V; ++k)
-#pragma unroll
-    for (int f = 0; f < NV; ++f) d0[f * a.vplane + k * a.pitch] = out[k][f];
-}
-
 // Level s of one strip: the window narrowed by m = r*s per side, src ->
 // dst (variant planes, row 2r = the strip's row 0), invariant fields at
 // `inv` (plane row r = the level's row 0). row0, col0: global coordinates of
@@ -180,12 +143,16 @@ __device__ __forceinline__ void level(const LineCacheArgs<Op>& a, const Op& op,
     const int gc0 = col0 + c0;
     // Warp-uniform: the run's cells and their neighbours lie in the grid.
     const bool inside = gr >= R && gr + V <= a.H - R && gc0 >= R && gc0 + 32 <= a.W - R;
+    const int c = c0 + threadIdx.x;
+    const typename Op::T* s = src + (r + R) * a.pitch + c;
+    typename Op::T* d = dst + (2 * R + r) * a.pitch + c;
+    const typename Op::T* i = inv + (r + R) * a.pitch + c;
     if (inside)
-      run_cells<Op, false>(a, op, src, dst, inv, r, c0 + threadIdx.x, gr, gc0 + threadIdx.x,
-                           iteration, sub);
+      run_cells<Op, true, true, false>(op, a.f, s, d, i, a.vplane, a.iplane, a.pitch, gr, gc0 + threadIdx.x,
+                           a.H, a.W, iteration, sub);
     else
-      run_cells<Op, true>(a, op, src, dst, inv, r, c0 + threadIdx.x, gr, gc0 + threadIdx.x,
-                          iteration, sub);
+      run_cells<Op, false, false, true>(op, a.f, s, d, i, a.vplane, a.iplane, a.pitch, gr, gc0 + threadIdx.x,
+                          a.H, a.W, iteration, sub);
     jx += kLineWarps;
     while (jx >= n_chunks) jx -= n_chunks, ++jy;
   }

@@ -1,10 +1,11 @@
-"""Geometry of the tile-pass and line-cache kernels, timed on one NVIDIA card.
+"""Geometry of the tile-pass, line-cache and resident-grid kernels, timed on one NVIDIA card.
 
     python -m stencilstream_tpu_torch.tile_sweep [--out sweep.jsonl]
-        [--parts grid,sass,linecache,linecache-sass] [--ops hotspot,jacobi5,conway,probe]
+        [--parts grid,sass,linecache,linecache-sass,monotile] [--ops hotspot,jacobi5,conway,probe]
         [--passes 2,4,8] [--strips 16,32,64] [--windows 64,128] [--waves 1,2,3]
+        [--qs 1,2,4,8] [--threads 1024,512]
 
-Four parts, each printing one JSON line per measurement:
+Five parts, each printing one JSON line per measurement:
 
 * ``grid``: one pass at each (tile, p) whose window fits one block's shared
   memory, for HotSpot (12 B a cell in shared memory), Jacobi5 (8 B), Conway
@@ -29,6 +30,13 @@ Four parts, each printing one JSON line per measurement:
 * ``linecache-sass``: the run loops of the line-cache kernel, counted as
   for the tile pass (its level loop holds the interior and the edge run
   bodies together).
+* ``monotile``: the resident-grid kernel, one call of n=1000 iterations, at
+  each (threads per CTA, q) that fits: HotSpot and Jacobi5 at 1024^2, the
+  probe at 600^2 (:data:`MONO_SIZES`); one CTA of 1024 threads an SM, or
+  two of 512 (bands half as tall), and q sub-steps per exchange with q*r
+  at most the band. With the lane-cells the thread map computes per useful
+  cell-step on an interior band (:func:`mono_work`). Compare
+  ``us_per_substep``; :data:`.backends.monotile.MONO_LAW` records the best.
 
 Every kernel result is held against the plain version (``max_abs_err``);
 times are CUDA-event means over repeated launches after a warm-up. Needs a
@@ -50,12 +58,13 @@ import torch
 
 from .backends import cuda_lib
 from .backends import line_cache as lc
+from .backends import monotile as mt
 from .backends import tile_pass as tp
 from .models import conway, hotspot, jacobi
 from .trace_cells import JACOBI5_COEFS
 from . import probe
 
-__all__ = ["main", "line_cache_work", "run_loops", "thread_map_work", "TILES", "PASSES"]
+__all__ = ["main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "TILES", "PASSES"]
 
 #: Core tiles of the geometry sweep, heights a multiple of the run: widths a
 #: multiple of the 32-lane warp, and widths whose window at a halo of 8
@@ -71,14 +80,16 @@ SIZE = 8192
 #: sweep: whole runs, and whole warps.
 STRIPS = [16, 32, 64]
 WINDOWS = [64, 96, 128, 160, 192, 256]
+#: Grid side of each resident-grid case (the probe's 40 B a cell fit at 600^2).
+MONO_SIZES = {"hotspot": 1024, "jacobi5": 1024, "probe": 600}
 #: Device functor of each swept case, as ptxas names its instantiation.
 FUNCTORS = {"hotspot": "HotspotOp", "jacobi5": "Jacobi5GeneralOp", "conway": "ConwayOp", "probe": "ProbeOp"}
 
 
-def cases(device):
-    """name -> (cell, transition function, halo cell) at SIZE^2."""
+def cases(device, size=SIZE):
+    """name -> (cell, transition function, halo cell) at size^2."""
     rng = np.random.default_rng(5)
-    shape = (SIZE, SIZE)
+    shape = (size, size)
     hs = hotspot.HotspotCell(
         temp=torch.tensor(rng.uniform(70, 90, shape).astype(np.float32), device=device),
         power=torch.tensor(rng.uniform(0, 1e-3, shape).astype(np.float32), device=device),
@@ -121,6 +132,14 @@ def line_cache_work(panel: int, halo: int, radius: int, strip: int, segment: int
     lanes = sum(-(-(window - 2 * radius * s) // tp.WARP) * tp.WARP for s in range(1, steps + 1))
     walked = -(-(warmup + segment) // strip) * strip
     return lanes * walked / (panel * steps * segment)
+
+
+def mono_work(band: int, q: int, radius: int, run: int) -> float:
+    """Lane-cells the resident grid's thread map computes per useful
+    cell-step on an interior band: sub-step j of a group of q computes the
+    band plus (q-1-j)*r rows a side, in whole runs down each column."""
+    rows = [band + 2 * radius * m for m in range(q)]
+    return sum(-(-h // run) * run for h in rows) / (band * q)
 
 
 def max_err(a, b) -> float:
@@ -201,11 +220,14 @@ def main(argv=None) -> int:
     parser.add_argument("--out", help="also write the JSON lines to this file")
     parser.add_argument("--passes", default=",".join(map(str, PASSES)), help="p values of the geometry sweep")
     parser.add_argument("--parts", default="grid,sass",
-                        help="comma-separated: grid, sass, linecache, linecache-sass")
+                        help="comma-separated: grid, sass, linecache, linecache-sass, monotile")
     parser.add_argument("--ops", default="hotspot,jacobi5,conway,probe", help="ops of the grid sweeps")
     parser.add_argument("--strips", default=",".join(map(str, STRIPS)), help="strips of the line-cache sweep")
     parser.add_argument("--windows", default=",".join(map(str, WINDOWS)), help="windows of the line-cache sweep")
     parser.add_argument("--waves", default="1,2,3,4", help="waves of CTAs the line-cache segments make")
+    parser.add_argument("--qs", default="1,2,4,8", help="sub-steps per exchange of the monotile part")
+    parser.add_argument("--threads", default="1024,512", help="threads per CTA of the monotile part")
+    parser.add_argument("--mono-n", type=int, default=1000, help="iterations of one monotile call")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
@@ -223,8 +245,38 @@ def main(argv=None) -> int:
         print(lines[-1], flush=True)
 
     cuda_lib.library()
-    work = cases(device)
     limits = cuda_lib.device_limits(device)
+    if "monotile" in parts:
+        emit(dict(part="monotile-build", ptxas=kernel_report(cuda_lib.build()[2], "monotile_kernel")))
+        for op in ("hotspot", "jacobi5", "probe"):
+            if op not in args.ops.split(","):
+                continue
+            size = MONO_SIZES[op]
+            cell, tf, halo = cases(device, size)[op]
+            r, k, n = tf.stencil_radius, tf.n_subiterations, args.mono_n
+            cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+            want = mt.monotile_plain(cell, tf, halo, offset=0, n_iterations=n)
+            run = tp.RUN_ROWS if cuda_lib.op_info(tf.cuda_op)["n_variant"] == 1 else 1
+            for threads in map(int, args.threads.split(",")):
+                per_sm = mt.MAX_THREADS // threads
+                band = max(r, -(-size // (limits.sm_count * per_sm)))
+                for q in map(int, args.qs.split(",")):
+                    smem = mt.monotile_smem_bytes(band, q, size, r, cell_bytes)
+                    if q * r > band or smem > mt.smem_budget(limits, per_sm):
+                        continue
+                    plan = mt.MonotilePlan(band, -(-size // band), mt.monotile_smem_bytes(band, 1, size, r, cell_bytes),
+                                           q, threads)
+                    fn = lambda: mt.monotile(cell, tf, halo, offset=0, n_iterations=n, plan=plan)  # noqa: E731
+                    e = max_err(fn(), want)
+                    ms = timed(fn, 5)
+                    emit(dict(part="monotile", op=op, size=size, cell_bytes=cell_bytes, threads=threads, q=q,
+                              band=band, n_ctas=plan.n_ctas, n=n, ms=ms, us_per_substep=ms * 1e3 / (n * k),
+                              smem=smem, ctas_per_sm=mt.monotile_residency(tf, plan, size, device),
+                              lane_cells_per_cell_step=mono_work(band, q, r, run), max_abs_err=e))
+            del cell, want
+        if parts == {"monotile"}:
+            return _write(args.out, lines)
+    work = cases(device)
     plain_cache = {}
 
     def plain(op, p):
@@ -302,8 +354,12 @@ def main(argv=None) -> int:
             emit(dict(part=part, op=op, run_loops=loops,
                       lds_per_cell_step=[lp["LDS"] * n_variant / lp["STS"] for lp in loops],
                       instructions_per_cell_step=[lp["instructions"] * n_variant / lp["STS"] for lp in loops]))
-    if args.out:
-        with open(args.out, "w") as f:
+    return _write(args.out, lines)
+
+
+def _write(path, lines) -> int:
+    if path:
+        with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
     return 0
 

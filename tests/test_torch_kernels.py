@@ -186,6 +186,70 @@ def test_monotile_kernel_matches_plain_version(cuda, shape, offset, n):
     assert got.power is cell.power
 
 
+#: (shape, q) for the resident grid's band algebra (as tests/
+#: test_torch_monotile.py:BAND_CASES): one-row bands, 8-row bands with a
+#: ragged last band of 6 rows, 5-row bands.
+MONO_BANDS = [((37, 53), 1), ((1030, 64), 1), ((1030, 64), 2), ((1030, 64), 4),
+              ((600, 40), 1), ((600, 40), 2), ((600, 40), 4)]
+
+
+def _band_plan(shape, q, limits, band=None):
+    """A one-CTA-per-SM plan with ``q`` sub-steps per exchange."""
+    band = band or -(-shape[0] // limits.sm_count)
+    return mt.MonotilePlan(band, -(-shape[0] // band), 0, q, mt.MAX_THREADS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["hotspot", "jacobi5_general", "probe"])
+@pytest.mark.parametrize("shape,q", MONO_BANDS, ids=[f"{h}x{w}-q{q}" for (h, w), q in MONO_BANDS])
+def test_monotile_bands_match_plain_version(cuda, op, shape, q):
+    """n=5 (the probe n=3, k=2) from iteration 3, so that the last group of
+    q sub-steps is short for q=2 and 4 (but for the probe at q=2)."""
+    cell, tf, halo, tol = _case(op, shape, 21, cuda, iteration=3)
+    n = 3 if op == "probe" else 5
+    plan = _band_plan(shape, q, cuda_lib.device_limits(cuda))
+    before = mt.launches
+    got = mt.monotile(cell, tf, halo, offset=3, n_iterations=n, plan=plan)
+    want = mt.monotile_plain(cell, tf, halo, offset=3, n_iterations=n)
+    torch.cuda.synchronize()
+    assert mt.launches == before + 1
+    assert _max_err(got, want) <= tol
+    if op == "probe":
+        assert int(got.status.abs().max()) == probe.NORMAL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["hotspot", "probe"])
+def test_monotile_single_cta(cuda, op):
+    """One CTA holds the whole grid: no neighbour to wait for."""
+    cell, tf, halo, tol = _case(op, (37, 53), 22, cuda, iteration=2)
+    plan = _band_plan((37, 53), 4, cuda_lib.device_limits(cuda), band=37)
+    assert plan.n_ctas == 1
+    got = mt.monotile(cell, tf, halo, offset=2, n_iterations=7, plan=plan)
+    want = mt.monotile_plain(cell, tf, halo, offset=2, n_iterations=7)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) <= tol
+
+
+@pytest.mark.gpu
+def test_monotile_refuses_a_deep_halo_beyond_the_band(cuda):
+    cell, tf, halo, _ = _case("hotspot", (1030, 64), 0, cuda)
+    with pytest.raises(RuntimeError, match="resident-grid kernel"):
+        mt.monotile(cell, tf, halo, offset=0, n_iterations=1, plan=_band_plan((1030, 64), 9, cuda_lib.device_limits(cuda)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,shape", [("hotspot", (1024, 1024)), ("jacobi5_general", (1024, 1024)),
+                                      ("probe", (600, 600))])
+def test_monotile_residency_meets_the_plan(cuda, op, shape):
+    """The CUDA occupancy calculator keeps the CTAs per SM the plan counts
+    on at its band, q and threads."""
+    cell, tf, _, _ = _case(op, shape, 0, cuda)
+    plan = mt.monotile_plan(*shape, tf.stencil_radius, cuda_lib.cell_smem_bytes(cell, tf),
+                            cuda_lib.device_limits(cuda))
+    assert mt.monotile_residency(tf, plan, shape[1], cuda) >= mt.MAX_THREADS // plan.threads
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,expect", [((512, 512), "monotile"), ((2304, 1024), "tiling")])
 def test_auto_runs_the_kernels_on_the_card(cuda, shape, expect):

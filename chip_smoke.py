@@ -25,16 +25,31 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    steps active; the resident grid also, with HotSpot, Jacobi5 and the
    probe, at q = 1, 2 and 4 sub-steps per exchange with n*k not a multiple
    of q, on 8-row bands with a ragged last band, on 5-row and one-row bands
-   (where the plan's q falls back to 1), and as a single CTA;
+   (where the plan's q falls back to 1), and as a single CTA. The functors
+   with a time-dependent value (TDV) run every one of these cases but the
+   8192^2 ones: FDTD's three (coef, lut, render) on random fields and
+   coefficients with a disk source that switches off, and detection that
+   starts, inside the run; the probe whose TDV must equal the iteration, at
+   radius 1 and 2 (the first radius-2 functor on the card), each also under
+   every TDV strategy, with a stream shifted by one that must turn every
+   cell Invalid;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
    8192^2 (tiling); ``jacobi.run`` of Jacobi5 at 8192^2 with
    ``backend="tiling", window_mode="linecache"`` (only the line-cache
    kernel) and through ``auto`` (tiling); Jacobi5 at 1024^2 through
-   ``auto`` (monotile); Conway on a random 8192^2 soup through ``auto``.
+   ``auto`` (monotile); Conway on a random 8192^2 soup through ``auto``;
+   FDTD's mono-benchmark with its time axis cut (~8.2k iterations), coef
+   1024^2 through ``auto`` (the tile pass, inline TDV), coef 512^2 through
+   ``auto`` (the resident grid, host-precomputed TDV), render 1024^2
+   through ``tiling(window_mode="linecache")`` (the line cache,
+   device-precomputed TDV), lut 1024^2 through ``auto`` (the tile pass).
    Then hold each path against the plain ``reference`` backend at a
-   reduced n;
+   reduced n (FDTD's also from an offset across the detect iteration).
+   Last, FDTD coef 1024^2 through ``fdtd.run`` as a user calls it: three
+   snapshots, paused and resumed through ``iteration_offset``, each writing
+   an ``hz`` frame, which must equal one call of as many iterations;
 5. time the kernels, their plain versions and, where one exists, the
    PyTorch call that computes the same function, with CUDA events at the
    main paths' shapes and the config laws' geometry: the tile pass at
@@ -46,7 +61,11 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    ``cudnn.benchmark``); the resident grid at HotSpot 1024^2, n=1000, with
    the same run through ``tiling`` and Jacobi5's 1024^2 run beside it. Also
    log how many tile-pass and line-cache CTAs the CUDA runtime keeps
-   resident per SM against what the config laws counted.
+   resident per SM against what the config laws counted. FDTD's kernels
+   beside them: the tile pass on one pass of the coef 1024^2 path, the
+   line cache on one pass of the render 1024^2 path, the resident grid on
+   coef 512^2 at n=1000, each with its plain version (device time by
+   ``torch.profiler``: a pass is shorter than its host call).
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
@@ -60,8 +79,10 @@ line is ``{"ok": true, "device": {...}}``. The port imports no JAX.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -82,6 +103,12 @@ JACOBI_ATOL = 1e-5
 #: values in [0, 1] after p=8 steps.
 LIBRARY_ATOL = 1e-5
 
+#: FDTD kernel against plain version and against the reference backend:
+#: exact. Both evaluate the same float32 operations in the same order, with
+#: the same fused multiply-adds, and read one TDV stream; one missing or
+#: extra source step moves hz at the source by the amplitude (~1).
+FDTD_ATOL = 0.0
+
 #: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and float32
 #: FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -91,6 +118,11 @@ FP32_FLOP_PER_S = 67e12
 #: bands with a ragged last band of 6 rows, 5-row bands.
 MONO_BANDS = [((37, 53), 1), ((1030, 64), 1), ((1030, 64), 2), ((1030, 64), 4),
               ((600, 40), 1), ((600, 40), 2), ((600, 40), 4)]
+
+#: The probes, whose cells must all stay Normal.
+PROBES = ("probe", "probe_tdv", "probe_radius2")
+#: The functors whose transition functions have a time-dependent value.
+TDV_OPS = ["probe_tdv", "probe_radius2", "fdtd_coef", "fdtd_lut", "fdtd_render"]
 
 JACOBI_COEFS = {
     "jacobi1_general": [0.9],
@@ -123,10 +155,49 @@ def hotspot_cell(shape, seed, device):
     )
 
 
+def fdtd_case(resolver, shape, rng, device, iteration):
+    """FDTD with random fields and random coefficients (the coef cells', the
+    lut indices, some outside the table, and the lut and render tables), a
+    disk source of radius 3 cells at the grid's centre that switches off two
+    iterations after ``iteration``, detection from the one after it, and a
+    non-zero halo (the lut index's halo 3)."""
+    import dataclasses
+
+    import torch
+
+    from stencilstream_tpu_torch.models import fdtd
+
+    h, w = shape
+    p = fdtd.Parameters.from_json(fdtd.mono_benchmark(20))
+    res = fdtd.RESOLVERS[resolver](p)
+    tf = fdtd.make_kernel(p, res)
+    sr, sc = h // 2, w // 2
+    state = tf.resolver_state
+    if state is not None:
+        state = {**state, **{f: rng.uniform(0, 1, 16).astype(np.float32) for f in ("ca", "cb", "da", "db")}}
+        if "bounds" in state:
+            state["bounds"] = np.sort(rng.uniform(-h * h / 2, 0, 16)).astype(np.float32)
+    tf = dataclasses.replace(
+        tf, source_r=np.float32(sr), source_c=np.float32(sc), source_radius_squared=9.0,
+        source_distance_bound=np.float32(9 - sr * sr - sc * sc), double_center_rc=np.float32(h),
+        cutoff_iteration=iteration + 2, detect_iteration=iteration + 1, resolver_state=state,
+    )
+    fields = {f.name: torch.tensor(rng.uniform(-1, 1, shape).astype(np.float32), device=device)
+              for f in dataclasses.fields(res.MaterialCell)}
+    halo = dict(ex=0.25, ey=-0.5, hz=0.75, hz_sum=1.0)
+    if resolver == "lut":
+        fields["index"] = torch.tensor(rng.integers(-1, 17, shape).astype(np.int32), device=device)
+        halo["index"] = 3
+    if resolver == "coef":
+        halo.update(ca=0.5, cb=0.125, da=0.5, db=0.125)
+    return res.MaterialCell(**fields), tf, res.MaterialCell(**halo), FDTD_ATOL
+
+
 def op_case(op, shape, seed, device, iteration=0):
     """(cell, transition function, halo cell, tolerance) for a device
     functor: non-zero halos (HotSpot 5.0 and 0.25 for the power, Jacobi
-    5.0); the probe's cells sit at ``iteration``."""
+    5.0, FDTD's :func:`fdtd_case`); the probes' cells sit at
+    ``iteration``."""
     import torch
 
     from stencilstream_tpu_torch import probe
@@ -143,7 +214,12 @@ def op_case(op, shape, seed, device, iteration=0):
         return x, jacobi.make_kernel(op, JACOBI_COEFS.get(op, [])), 5.0, JACOBI_ATOL
     if op == "conway":
         return torch.tensor(rng.random(shape) < 0.4, device=device), conway.ConwayKernel(), False, 0.0
+    if op.startswith("fdtd_"):
+        return fdtd_case(op[len("fdtd_"):], shape, rng, device, iteration)
     grid = probe.make_probe_grid(*shape, iteration, device=device)
+    if op in ("probe_tdv", "probe_radius2"):
+        tf = probe.ProbeTransFunc(radius_=1 if op == "probe_tdv" else 2)
+        return grid.arrays, tf, probe.probe_halo_cell(), 0.0
     return grid.arrays, probe.ProbeKernel(), probe.probe_halo_cell(), 0.0
 
 
@@ -209,6 +285,51 @@ def check(errs, kernel, what, got, want, tol, moved=None) -> None:
     assert e <= tol, f"{kernel} kernel disagrees with its plain version ({what}): {e}"
 
 
+def check_tdv_probes(device, errs) -> None:
+    """Phase 3, the TDV probes under every strategy: a call of n=5 from
+    iteration 3; the tile pass and the line cache on its second pass of p=4
+    (1 of 4 steps active), the resident grid at q = 1, 2 and 4 on 8-row
+    bands. Every cell Normal; a stream shifted by one turns every cell
+    Invalid."""
+    import torch
+
+    from stencilstream_tpu_torch import probe
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends.monotile import MAX_THREADS, MonotilePlan, monotile, monotile_plain
+    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+    from stencilstream_tpu_torch.tdv import tdv_stream
+
+    for seed, op in enumerate(("probe_tdv", "probe_radius2"), start=700):
+        for strategy in ("inline", "precompute_on_device", "precompute_on_host"):
+            cell, tf, halo, tol = op_case(op, (45, 70), seed, device, iteration=7)
+            stream = tdv_stream(tf, 3, 5, device, strategy)
+            assert stream.tolist() == [3, 4, 5, 6, 7], stream
+            kw = dict(i_start=7, offset=3, n_iterations=5, iters_per_pass=4, tdv=stream)
+            want = tile_pass_plain(cell, tf, halo, **kw)
+            runs = {"tile_pass": lambda: tile_pass(cell, tf, halo, tile=(16, 32), **kw),
+                    "line_cache": lambda: lc.line_cache_pass(cell, tf, halo, strip_rows=8, panel_cols=32,
+                                                             segment_rows=20, **kw)}
+            for kernel, run in runs.items():
+                got = run()
+                torch.cuda.synchronize()
+                check(errs, kernel, f"{op} {strategy} (45, 70) p=4 i_start=7 offset=3 n=5", got, want, tol)
+                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+            kw["tdv"] = stream + 1
+            shifted = tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+            assert bool((shifted.status == probe.INVALID).all()), "a shifted TDV stream went unseen"
+            check(errs, "tile_pass", f"{op} {strategy} shifted stream", shifted,
+                  tile_pass_plain(cell, tf, halo, **kw), tol)
+            cell, tf, halo, tol = op_case(op, (1030, 64), seed, device, iteration=3)
+            stream = tdv_stream(tf, 3, 3, device, strategy)
+            want = monotile_plain(cell, tf, halo, offset=3, n_iterations=3, tdv=stream)
+            for q in (1, 2, 4):
+                plan = MonotilePlan(8, -(-1030 // 8), 0, q, MAX_THREADS)
+                got = monotile(cell, tf, halo, offset=3, n_iterations=3, tdv=stream, plan=plan)
+                torch.cuda.synchronize()
+                check(errs, "monotile", f"{op} {strategy} (1030, 64) band=8 q={q} offset=3 n=3", got, want, tol)
+                assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
+
+
 def check_kernels(device) -> dict:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -255,22 +376,25 @@ def check_kernels(device) -> dict:
         check(errs, "monotile", f"hotspot {shape} offset={offset} n={n} band={plan.band} q={plan.q} "
               f"threads={plan.threads}", got, want, tol, max_err(want, cell))
     # The resident grid's band algebra at a given q, one CTA of 1024 threads
-    # an SM, from iteration 3 with n*k not a multiple of q (but for the
-    # probe at q=2), so the last group is short: 8-row bands with a ragged
-    # last band of 6 rows (1030), 5-row bands (600), one-row bands (37);
-    # every probe cell must stay Normal. Then a single CTA that holds the
-    # whole grid, q=4, from iteration 2.
-    for seed, op in enumerate(["hotspot", "jacobi5_general", "probe"], start=600):
+    # an SM, from iteration 3 with n*k not a multiple of q (but for the k=2
+    # functors at q=2), so the last group is short: 8-row bands with a
+    # ragged last band of 6 rows (1030), 5-row bands (600), one-row bands
+    # (37), but none with q*r beyond the band; every probe cell must stay
+    # Normal. Then a single CTA that holds the whole grid, q=4, from
+    # iteration 2.
+    for seed, op in enumerate(["hotspot", "jacobi5_general", "probe", *TDV_OPS], start=600):
         for shape, q in MONO_BANDS:
             cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=3)
-            n = 3 if op == "probe" else 5
+            n = 3 if tf.n_subiterations == 2 else 5
             band = -(-shape[0] // limits.sm_count)
+            if q * tf.stencil_radius > band:
+                continue
             plan = MonotilePlan(band, -(-shape[0] // band), 0, q, MAX_THREADS)
             got = monotile(cell, tf, halo, offset=3, n_iterations=n, plan=plan)
             want = monotile_plain(cell, tf, halo, offset=3, n_iterations=n)
             torch.cuda.synchronize()
             check(errs, "monotile", f"{op} {shape} band={band} q={q} offset=3 n={n}", got, want, tol)
-            if op == "probe":
+            if op in PROBES:
                 assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
         cell, tf, halo, tol = op_case(op, (37, 53), seed, device, iteration=2)
         plan = MonotilePlan(37, 1, 0, 4, MAX_THREADS)
@@ -278,11 +402,13 @@ def check_kernels(device) -> dict:
         want = monotile_plain(cell, tf, halo, offset=2, n_iterations=7)
         torch.cuda.synchronize()
         check(errs, "monotile", f"{op} (37, 53) one CTA q=4 offset=2 n=7", got, want, tol)
-        if op == "probe":
+        if op in PROBES:
             assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
+    check_tdv_probes(device, errs)
+
     # Every other functor on every kernel.
-    others = [*sorted(jacobi.VARIANTS), "conway", "probe"]
+    others = [*sorted(jacobi.VARIANTS), "conway", "probe", *TDV_OPS]
     for seed, op in enumerate(others, start=200):
         # 600^2: the probe's 40 B a cell still fit the resident grid there.
         for shape in ((45, 70), (600, 600)):
@@ -301,7 +427,7 @@ def check_kernels(device) -> dict:
             want = monotile_plain(cell, tf, halo, offset=1, n_iterations=4)
             torch.cuda.synchronize()
             check(errs, "monotile", f"{op} {shape} offset=1 n=4", got, want, tol)
-            if op == "probe":
+            if op in PROBES:
                 assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
     # The tile-pass kernel's geometry on every functor, (shape, tile,
@@ -331,7 +457,7 @@ def check_kernels(device) -> dict:
             torch.cuda.synchronize()
             check(errs, "tile_pass", f"{op} {shape} tile={tile} p={p} i_start={i_start} offset={offset} "
                   f"n={n}", got, want, tol)
-            if op == "probe":
+            if op in PROBES:
                 assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
     # The line-cache kernel's geometry on every functor, (shape, strip,
@@ -364,7 +490,7 @@ def check_kernels(device) -> dict:
               f"p={p} i_start={i_start} offset={offset} n={n}", got, want, tol)
         if op == "hotspot":
             assert got.power is cell.power, "invariant field must be passed through"
-        if op == "probe":
+        if op in PROBES:
             assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
     for seed, op in enumerate(["hotspot", *others], start=500):
@@ -389,6 +515,107 @@ def check_kernels(device) -> dict:
     return errs
 
 
+def fdtd_user_run(path, counters, card, side: int = 1024) -> tuple[dict, float]:
+    """Phase 4, FDTD coef side^2 as a user runs it: ``fdtd.run`` with its
+    snapshot loop (calls of n_snap iterations resumed through
+    iteration_offset, each writing an hz frame into a temporary directory
+    under the package's build directory), the inline TDV, through auto. It
+    must launch the tile pass only and end where one call of as many
+    iterations of ``path`` (the main path's run) ends. Returns the launch
+    counts and that difference."""
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.models import fdtd
+
+    parameters = fdtd.Parameters.from_json(fdtd.mono_benchmark(side))
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as frames:
+        parameters.out_dir = frames
+        for module in counters.values():
+            module.launches = 0
+        out, update = fdtd.run(parameters, backend="auto", device=path[0].device)
+        counts = {k: m.launches for k, m in counters.items()}
+        n_frames = len(os.listdir(frames))
+    n_snap = parameters.n_snap_timesteps()
+    n_run = -(-parameters.n_timesteps() // n_snap) * n_snap
+    log(f"  fdtd.run coef {side}^2 auto, {n_run} iterations in {n_frames} snapshots of {n_snap}: -> "
+        f"{getattr(update, 'resolved_backend', 'tiling')} {update.resolved_config}; launches {counts}; walltime "
+        f"{update.get_walltime():.6f} s, {side * side * n_run / update.get_walltime() / 1e9:.3f} GCell/s "
+        f"(host clock, frames excluded) [{card}]")
+    assert {k for k, c in counts.items() if c} == {"tile_pass"}, counts
+    assert n_frames == n_run // n_snap, n_frames
+    grid, run, _, options = path
+    one_shot, _ = run(grid, n_run, **options)
+    e = max_err(out.arrays, one_shot.arrays)
+    log(f"  fdtd.run with snapshots against one call of {n_run}: max_abs_err={e:.3g} (tol {FDTD_ATOL})")
+    assert e <= FDTD_ATOL, e
+    return counts, e
+
+
+def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) -> dict:
+    """Phase 5, FDTD's kernels on the main paths' state after their runs and
+    at their geometry (no single PyTorch call computes FDTD): one pass of
+    the coef 1024^2 path on the tile pass, one pass of the render 1024^2
+    path on the line cache, coef 512^2 at n=``n_mono`` on the resident grid,
+    each beside its plain version. Bound: 32 B read and 16 B written a coef
+    cell (render 16 and 16), or n_operations a cell-iteration. Returns one
+    row a kernel."""
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends import monotile as mt
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.core.cell import cell_leaves
+    from stencilstream_tpu_torch.tdv import tdv_stream
+    from stencilstream_tpu_torch.tile_sweep import device_ms
+
+    def fdtd_row(kernel, name, fn, plain, n_bytes, cell_steps, reps, what):
+        # Device time (torch.profiler): a pass is shorter than its host call.
+        ms, call_ms, plain_ms = device_ms(fn, reps), cuda_ms(fn, reps), cuda_ms(plain, 1)
+        assert ms > 0, f"the profiler saw no {kernel} kernel"
+        e = max_err(fn(), plain())
+        b, by = bound(n_bytes, runs[name].params.transition_function.n_operations * cell_steps)
+        log(f"  {kernel} {what}: kernel {ms:.4f} ms (device time; {call_ms:.4f} ms a call back to back) = "
+            f"{b / ms:.1%} of its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, library none: no single "
+            f"PyTorch call, max_abs_err={e:.3g}, {path_counts[name][kernel]} launches on the path [{card}]")
+        assert e <= FDTD_ATOL, (kernel, e)
+        return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, max_abs_err=e,
+                    launches=path_counts[name][kernel], workload=what)
+
+    fdtd_kernels = {}
+    for kernel, name in (("tile_pass", "fdtd coef 1024^2 auto"), ("line_cache", "fdtd render 1024^2 tiling linecache")):
+        cfg, tf = runs[name].resolved_config, runs[name].params.transition_function
+        cell = fdtd_outs[name].arrays
+        halo = tf.resolver.halo_cell()
+        p = cfg["iters_per_pass"]
+        h, w = cell.hz.shape
+        kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p, tdv=tdv_stream(tf, 0, p, device))
+        if kernel == "tile_pass":
+            tile = (cfg["tile_rows"], cfg["tile_cols"])
+            fn = lambda: tp.tile_pass(cell, tf, halo, tile=tile, **kw)  # noqa: E731
+            what = f"fdtd {tf.resolver.name} {h}x{w}, one pass of p={p}, tile {tile}"
+        else:
+            geometry = {k: cfg[k] for k in ("strip_rows", "panel_cols", "segment_rows")}
+            fn = lambda: lc.line_cache_pass(cell, tf, halo, **geometry, **kw)  # noqa: E731
+            what = f"fdtd {tf.resolver.name} {h}x{w}, one pass of p={p}, {geometry}"
+        cells = h * w
+        n_bytes = (sum(t.element_size() for t in cell_leaves(cell)) + 16) * cells
+        fdtd_kernels[kernel] = fdtd_row(kernel, name, fn, lambda: tp.tile_pass_plain(cell, tf, halo, **kw),
+                                        n_bytes, p * cells, 50, what)
+    name = "fdtd coef 512^2 auto"
+    tf = runs[name].params.transition_function
+    cell, halo = fdtd_outs[name].arrays, tf.resolver.halo_cell()
+    h, w = cell.hz.shape
+    cells = h * w
+    stream = tdv_stream(tf, 0, n_mono, device)
+    plan = mt.monotile_plan(h, w, 1, 48, cuda_lib.device_limits(device))
+    fdtd_kernels["monotile"] = fdtd_row(
+        "monotile", name, lambda: mt.monotile(cell, tf, halo, offset=0, n_iterations=n_mono, tdv=stream),
+        lambda: mt.monotile_plain(cell, tf, halo, offset=0, n_iterations=n_mono, tdv=stream),
+        48 * cells, n_mono * cells, 5,
+        f"fdtd coef {h}x{w}, n={n_mono} in one launch (band {plan.band}, q={plan.q}, {plan.threads} threads)",
+    )
+    return fdtd_kernels
+
+
 def main() -> int:
     import torch
 
@@ -411,7 +638,9 @@ def main() -> int:
     from stencilstream_tpu_torch.backends import monotile as mt
     from stencilstream_tpu_torch.backends import tile_pass as tp
     from stencilstream_tpu_torch.backends.tiling import TILE_LAW
-    from stencilstream_tpu_torch.models import conway, hotspot, jacobi
+    from stencilstream_tpu_torch.core.cell import cell_leaves
+    from stencilstream_tpu_torch.models import conway, fdtd, hotspot, jacobi
+    from stencilstream_tpu_torch.tdv import tdv_stream
     from stencilstream_tpu_torch.trace_cells import JACOBI5_COEFS, main_paths
 
     limits = cuda_lib.device_limits(device)
@@ -440,19 +669,23 @@ def main() -> int:
         "jacobi5 8192^2 auto": (12, JACOBI_ATOL, {"tile_pass"}),
         "jacobi5 1024^2 auto": (20, JACOBI_ATOL, {"monotile"}),
         "conway 8192^2 auto": (12, 0.0, {"tile_pass"}),
+        "fdtd coef 1024^2 auto": (12, FDTD_ATOL, {"tile_pass"}),
+        "fdtd coef 512^2 auto": (12, FDTD_ATOL, {"monotile"}),
+        "fdtd render 1024^2 tiling linecache": (12, FDTD_ATOL, {"line_cache"}),
+        "fdtd lut 1024^2 auto": (12, FDTD_ATOL, {"tile_pass"}),
     }
     paths = main_paths(device)
     assert set(paths) == set(checks), sorted(paths)
     totals = dict.fromkeys(counters, 0)
     path_errs = dict.fromkeys(counters, 0.0)
-    runs = {}
+    runs, path_counts, fdtd_outs = {}, {}, {}
     for name, (grid, run, n, options) in paths.items():
         n_small, tol, expect = checks[name]
         for module in counters.values():
             module.launches = 0
         out, update = run(grid, n, **options)
         counts = {k: m.launches for k, m in counters.items()}
-        runs[name] = update
+        runs[name], path_counts[name] = update, counts
         launched = {k for k, c in counts.items() if c}
         log(f"  {name}, n={n}: -> {getattr(update, 'resolved_backend', 'tiling')} "
             f"{update.resolved_config or ''}; launches {counts}; walltime {update.get_walltime():.6f} s, "
@@ -461,20 +694,34 @@ def main() -> int:
         assert launched == expect, (name, counts)
         for k in counters:
             totals[k] += counts[k]
-        field = out.arrays.temp if name.startswith("hotspot") else out.arrays
-        assert tuple(field.shape) == grid.shape, name
-        assert field.dtype == torch.bool or bool(torch.isfinite(field).all()), name
+        fields = cell_leaves(out.arrays)
+        for field in fields:
+            assert tuple(field.shape) == grid.shape, name
+            assert field.dtype == torch.bool or bool(torch.isfinite(field).all()), name
         if name.startswith("conway"):
-            assert field.dtype == torch.bool and 0 < int(field.sum()) < field.numel(), name
-        # The same path at a reduced n against the plain reference backend.
-        got, _ = run(grid, n_small, **options)
-        want, _ = run(grid, n_small, backend="reference")
-        e = max_err(got.arrays, want.arrays)
-        for k in expect:
-            path_errs[k] = max(path_errs[k], e)
-        log(f"  {name}, n={n_small}: against reference max_abs_err={e:.3g} (tol {tol})")
-        assert e <= tol, (name, e)
+            assert fields[0].dtype == torch.bool and 0 < int(fields[0].sum()) < fields[0].numel(), name
+        if name.startswith("fdtd"):
+            # The pulse has crossed the ring, and hz_sum accumulated after detect.
+            assert float(out.arrays.hz.abs().max()) > 0 and float(out.arrays.hz_sum.max()) > 0, name
+            fdtd_outs[name] = out
+        # The same path at a reduced n against the plain reference backend;
+        # FDTD's also from an offset across the detect iteration.
+        tf = update.params.transition_function
+        offsets = [0, tf.detect_iteration - n_small // 2] if name.startswith("fdtd") else [0]
+        for offset in offsets:
+            at = {"iteration_offset": offset} if offset else {}
+            got, _ = run(grid, n_small, **options, **at)
+            want, _ = run(grid, n_small, backend="reference", **at)
+            e = max_err(got.arrays, want.arrays)
+            for k in expect:
+                path_errs[k] = max(path_errs[k], e)
+            log(f"  {name}, n={n_small} from {offset}: against reference max_abs_err={e:.3g} (tol {tol})")
+            assert e <= tol, (name, e)
         del out, got, want
+    counts, e = fdtd_user_run(paths["fdtd coef 1024^2 auto"], counters, card)
+    for k in counters:
+        totals[k] += counts[k]
+    path_errs["tile_pass"] = max(path_errs["tile_pass"], e)
     log(f"main path launches: {totals}")
     del paths
     torch.cuda.empty_cache()
@@ -654,6 +901,11 @@ def main() -> int:
     log(f"  monotile jacobi5 1024x1024 n={n_mono} (band {plan.band}, q={plan.q}, {plan.threads} threads): "
         f"kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
         f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, {n_mono} x conv2d {lib_ms:.4f} ms tuned [{card}]")
+
+    fdtd_kernels = fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono)
+    log("fdtd kernels: " + json.dumps(fdtd_kernels))
+    for k, row in fdtd_kernels.items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], row["max_abs_err"])
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     order = ("tile_pass", "monotile", "line_cache")

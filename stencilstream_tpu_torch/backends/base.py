@@ -89,18 +89,20 @@ class StencilUpdateBase:
     def _tdv_strategy(self):
         return resolve_tdv_strategy(self.params.tdv_strategy)
 
-    def _tdv_lookup(self, grid: Grid):
-        """``(i_rel, i_abs) -> tdv`` for the current call's iterations."""
+    def _tdv_stream(self, grid: Grid):
+        """The current call's TDV stream on the grid's device (see
+        :mod:`..tdv`): element ``i_rel`` is step ``i_rel``'s value."""
         p = self.params
-        tf = p.transition_function
-        strategy = self._tdv_strategy()
-        aux = strategy.prepare(tf, int(p.iteration_offset), int(p.n_iterations), grid.device)
-        return lambda i_rel, i_abs: strategy.lookup(tf, aux, i_rel, i_abs)
+        return self._tdv_strategy().prepare(
+            p.transition_function, int(p.iteration_offset), int(p.n_iterations), grid.device
+        )
 
     def require_device_op(self) -> str:
         """Check that the transition function can run on the CUDA kernels
         (``tiling`` and ``monotile`` do so for every CUDA grid) and return
-        its device functor's name; raises ``NotImplementedError``."""
+        its device functor's name; raises ``NotImplementedError`` for one
+        without a functor, or with a time-dependent value whose functor
+        takes none."""
         return require_device_op(self.params.transition_function, self.params.iteration_offset)
 
     @property

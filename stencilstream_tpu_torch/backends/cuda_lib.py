@@ -11,7 +11,8 @@ the build raises; nothing falls back.
 Each kernel entry point takes raw device pointers, ints and doubles, launches
 on the stream it is given, allocates nothing, and returns the CUDA error code
 of the launch (0 on success); :func:`check` turns a non-zero code into an
-exception.
+exception. A functor with a time-dependent value takes the call's TDV stream
+as one more device pointer (:func:`tdv_pointer`).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import time
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..core.cell import cell_field_names, cell_leaves, cell_unflatten
@@ -42,6 +44,8 @@ __all__ = [
     "library",
     "op_info",
     "pointer_array",
+    "require_device_op",
+    "tdv_pointer",
     "variant_outputs",
     "with_variant",
 ]
@@ -66,13 +70,15 @@ _PP = ctypes.POINTER(ctypes.c_void_p)
 _PD = ctypes.POINTER(ctypes.c_double)
 _I = ctypes.c_int
 
-#: C signatures by entry-point prefix (the functor's name is appended).
+#: C signatures by entry-point prefix (the functor's name is appended). The
+#: pointer after the halo doubles is the call's TDV stream (NULL for a
+#: functor without a TDV).
 _SIGNATURES = {
-    "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
+    "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
     "ss_tile_pass_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P, ctypes.c_uint, _P],
+    "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P, _P, ctypes.c_uint, _P],
     "ss_monotile_residency_": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
-    "ss_line_cache_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P],
+    "ss_line_cache_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
     "ss_line_cache_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_op_info_": [ctypes.POINTER(ctypes.c_int)],
 }
@@ -221,21 +227,40 @@ def entry(prefix: str, op: str):
 _DTYPES = {(4, 1): torch.float32, (8, 1): torch.float64, (4, 0): torch.int32, (1, 0): torch.uint8}
 
 
-def kernel_view(t: torch.Tensor) -> torch.Tensor:
-    """The tensor as a kernel takes it: a bool field as a uint8 view of the
-    same bytes (no copy), any other field as it is."""
-    return t.view(torch.uint8) if t.dtype == torch.bool else t
+def kernel_view(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The tensor as a kernel takes it, as a view of the same bytes (no
+    copy): a bool field as uint8; an int32 field as ``dtype`` float32, for a
+    float32 functor that only copies the field's bits (an invariant field
+    that it reinterprets, as FDTD's ring index); any other field as it is."""
+    if t.dtype == torch.bool:
+        return t.view(torch.uint8)
+    if t.dtype == torch.int32 and dtype == torch.float32:
+        return t.view(torch.float32)
+    return t
+
+
+def _halo_bits(value: Any, field: torch.Tensor, view: torch.Tensor) -> float:
+    """A halo value as the kernel's double for ``view`` of ``field``: an
+    int32 value read as float32 bits keeps its bits."""
+    if field.dtype != torch.int32 or view.dtype != torch.float32:
+        return value
+    bits = float(np.array(value, np.int32).view(np.float32))
+    if bits != bits:
+        raise ValueError(f"halo value {value} of an int32 field read as float32 bits is a NaN")
+    return bits
 
 
 @functools.cache
 def op_info(op: str) -> dict:
     """The functor's shape as compiled: radius, sub-iterations, field
-    counts, parameter count and element dtype."""
-    info = (ctypes.c_int * 7)()
+    counts, parameter count, element dtype and the dtype of its
+    time-dependent value (``None`` when it takes none)."""
+    info = (ctypes.c_int * 9)()
     entry("ss_op_info_", op)(info)
     keys = ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params")
     out = dict(zip(keys, info))
     out["dtype"] = _DTYPES[(info[5], info[6])]
+    out["tdv_dtype"] = _DTYPES[(info[7], info[8])] if info[7] else None
     return out
 
 
@@ -255,8 +280,9 @@ class KernelFields:
 
 def require_device_op(tf: Any, offset: int = 0) -> str:
     """The name of ``tf``'s device functor. Raises ``NotImplementedError``,
-    naming the transition function, when it has none or when it has a
-    time-dependent value (the kernels take none yet)."""
+    naming the transition function, when it has none, or when it has a
+    time-dependent value (at ``offset``) but names no type for it
+    (``cuda_tdv``, the torch dtype of the stream its functor reads)."""
     op = getattr(tf, "cuda_op", None)
     if not isinstance(op, str) or not callable(getattr(tf, "cuda_params", None)):
         raise NotImplementedError(
@@ -264,10 +290,10 @@ def require_device_op(tf: Any, offset: int = 0) -> str:
             f"(cuda_op / cuda_variant / cuda_params), so it cannot run on the "
             f"CUDA kernels; use the 'reference' backend for it"
         )
-    if tf.get_time_dependent_value(int(offset)) is not None:
+    if getattr(tf, "cuda_tdv", None) is None and tf.get_time_dependent_value(int(offset)) is not None:
         raise NotImplementedError(
-            f"transition function {type(tf).__name__} has a time-dependent value; "
-            f"the CUDA kernels take none yet"
+            f"transition function {type(tf).__name__} has a time-dependent value, but "
+            f"its device functor {op!r} takes none (cuda_tdv names the type of one)"
         )
     return op
 
@@ -277,9 +303,9 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
     functor and split the cell into variant and invariant fields.
 
     Raises ``NotImplementedError`` for a transition function without a
-    device functor or with a time-dependent value (the kernels take none
-    yet), and ``TypeError``/``ValueError`` for fields the functor does not
-    take.
+    device functor, or with a time-dependent value that its functor does
+    not take, and ``TypeError``/``ValueError`` for fields the functor does
+    not take.
     """
     op = require_device_op(tf, offset)
     info = op_info(op)
@@ -302,7 +328,13 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
             f"{type(tf).__name__} (radius, sub-iterations, variant fields, invariant "
             f"fields, params) = {expect}, but functor {op!r} is compiled for {got}"
         )
-    leaves = [kernel_view(t) for t in leaves]
+    if getattr(tf, "cuda_tdv", None) != info["tdv_dtype"]:
+        raise NotImplementedError(
+            f"{type(tf).__name__} declares a time-dependent value of type "
+            f"{getattr(tf, 'cuda_tdv', None)}, but functor {op!r} takes {info['tdv_dtype']}"
+        )
+    stored = leaves
+    leaves = [kernel_view(t, info["dtype"] if j in invariant_index else None) for j, t in enumerate(stored)]
     shape = tuple(leaves[0].shape)
     device = leaves[0].device
     for t in leaves:
@@ -314,7 +346,7 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
             raise ValueError(f"fields must be 2D of one shape (got {tuple(t.shape)} vs {shape})")
         if not t.is_contiguous():
             raise ValueError("fields must be contiguous")
-    halo = cell_leaves(halo_cell)
+    halo = [_halo_bits(h, s, v) for h, s, v in zip(cell_leaves(halo_cell), stored, leaves)]
     return KernelFields(
         op=op,
         variant=[leaves[j] for j in variant_index],
@@ -368,6 +400,31 @@ def variant_outputs(arrays: Any, fields: KernelFields, out: Any) -> list[torch.T
         if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
             raise ValueError("out must be contiguous and must not be the input")
     return dst
+
+
+def tdv_pointer(tf: Any, stream: Any, n_iterations: int, device) -> int | None:
+    """The device pointer a kernel takes for the call's TDV stream: NULL
+    (``None``) for a functor without a time-dependent value or a call of no
+    iterations (no step reads it); else the stream's, which must be one
+    contiguous tensor of at least ``n_iterations`` values of the functor's
+    type on ``device``. A stream that is none of this cannot reach a
+    kernel: ``ValueError``."""
+    dtype = getattr(tf, "cuda_tdv", None)
+    if dtype is None or n_iterations == 0:
+        return None
+    if not (
+        isinstance(stream, torch.Tensor) and stream.dtype == dtype and stream.device == device
+        and stream.dim() == 1 and stream.shape[0] >= n_iterations and stream.is_contiguous()
+    ):
+        got = (
+            f"{stream.dtype} {tuple(stream.shape)} on {stream.device}" if isinstance(stream, torch.Tensor)
+            else type(stream).__name__
+        )
+        raise ValueError(
+            f"the time-dependent value of {type(tf).__name__} cannot be streamed to a kernel: it "
+            f"takes one contiguous {dtype} tensor of {n_iterations} values on {device}, got {got}"
+        )
+    return stream.data_ptr()
 
 
 def check(code: int, what: str) -> None:

@@ -18,16 +18,20 @@ band patch.
 * On CPU tensors :func:`line_cache_pass` runs :func:`line_cache_pass_plain`
   (one tile pass's plain version: the same function).
 * On CUDA tensors it launches the kernel, or raises.
+
+Both read a step's time-dependent value from the call's TDV stream ``tdv``
+(element ``i_abs - offset``), the inline strategy's when none is given.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from ..core.cell import cell_field_names, cell_leaves
+from ..tdv import tdv_stream
 from .cuda_lib import (
     DeviceLimits,
     check,
@@ -36,6 +40,7 @@ from .cuda_lib import (
     kernel_fields,
     pointer_array,
     require_device_op,
+    tdv_pointer,
     variant_outputs,
     with_variant,
 )
@@ -59,7 +64,13 @@ launches = 0
 #: NVIDIA H100 80GB HBM3 at 700 W (``tile_sweep.py``, linecache part;
 #: PERF.md), by the bytes of one cell's fields (variant and invariant):
 #: ``(strip rows, window columns, halo r*p*k, CTAs per SM, waves)``. Jacobi
-#: 4 B, HotSpot 8 B, Conway 1 B, the probe 20 B (five int32 fields, k=2).
+#: 4 B, HotSpot 8 B, Conway 1 B, the probe 20 B (five int32 fields, k=2);
+#: FDTD's cells at 1024^2 (k=2), whose passes are short enough that the
+#: host's call shows in the time per iteration: of two geometries within
+#: 5% of each other, the one with more iterations a pass. Render 16 B
+#: (strip 16, window 64, p=4: 95.6 us an iteration back to back, 82.7 us of
+#: kernel, against 110 us of kernel at the 8 B entry's geometry) and coef
+#: 32 B (strip 16, window 96, p=4: 50.5 us).
 #: The window, core plus the halo on either side, is a whole number of
 #: warps, so every level of the narrowing window covers the same 32-column
 #: chunks; at another halo the law keeps the window and moves the panel.
@@ -72,7 +83,9 @@ LINE_LAW = {
     1: (32, 192, 8, 5, 2),
     4: (32, 160, 8, 4, 3),
     8: (32, 192, 8, 2, 3),
+    16: (16, 64, 8, 4, 2),
     20: (8, 128, 4, 3, 3),
+    32: (16, 96, 8, 2, 2),
 }
 #: Columns one warp covers: the narrowest panel the kernel takes.
 WARP = 32
@@ -242,12 +255,12 @@ def line_cache_pass_plain(
     offset: int,
     n_iterations: int,
     iters_per_pass: int,
-    tdv_lookup: Callable[[int, int], Any] | None = None,
+    tdv: Any = None,
 ) -> Any:
     """The plain PyTorch version of one pass: one tile pass's."""
     return tile_pass_plain(
         arrays, tf, halo_cell, i_start=i_start, offset=offset, n_iterations=n_iterations,
-        iters_per_pass=iters_per_pass, tdv_lookup=tdv_lookup,
+        iters_per_pass=iters_per_pass, tdv=tdv,
     )
 
 
@@ -265,9 +278,10 @@ def line_cache_pass(
     panel_cols: int,
     segment_rows: int,
     out: Any = None,
-    tdv_lookup: Callable[[int, int], Any] | None = None,
+    tdv: Any = None,
 ) -> Any:
-    """One pass; returns the new grid cell.
+    """One pass; returns the new grid cell. ``tdv`` is the call's TDV
+    stream (the inline strategy's when ``None``).
 
     The geometry (``strip_rows``, ``panel_cols``, ``segment_rows``) is the
     caller's, as :func:`pick_linecache_config` gives it to ``tiling``; it
@@ -287,9 +301,11 @@ def line_cache_pass(
     if device.type == "cpu":
         return line_cache_pass_plain(
             arrays, tf, halo_cell, i_start=i_start, offset=offset,
-            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv_lookup=tdv_lookup,
+            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv,
         )
     fields = kernel_fields(arrays, tf, halo_cell, offset)
+    if tdv is None:
+        tdv = tdv_stream(tf, offset, n_iterations, device)
     H, W = fields.variant[0].shape
     dst = variant_outputs(arrays, fields, out)
     fn = entry("ss_line_cache_", fields.op)
@@ -297,7 +313,8 @@ def line_cache_pass(
         code = fn(
             pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
             H, W, strip_rows, panel_cols, segment_rows, iters_per_pass, i_start, offset,
-            n_iterations, fields.params, fields.halo, torch.cuda.current_stream(device).cuda_stream,
+            n_iterations, fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     check(code, "line-cache kernel")
     launches += 1

@@ -13,6 +13,9 @@ through L2, waiting on their flags only.
   function on whole grids, built on :mod:`.reference`.
 * On CUDA tensors it launches the kernel, or raises.
 
+Both read a step's time-dependent value from the call's TDV stream ``tdv``
+(element ``i_abs - offset``), the inline strategy's when none is given.
+
 The capacity law replaces the TPU's VMEM budget: with one CTA per SM, a band
 is ``ceil(H / SMs)`` rows (at least r), and the band plus ``2r`` halo rows,
 times the width plus ``2r``, times :func:`~.cuda_lib.cell_smem_bytes` (two
@@ -28,12 +31,13 @@ halo does not fit.
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable, NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
 from ..core.cell import cell_leaves
 from ..core.grid import Grid
+from ..tdv import tdv_stream
 from .base import StencilUpdateBase, resolve_halo
 from .cuda_lib import (
     DeviceLimits,
@@ -44,6 +48,7 @@ from .cuda_lib import (
     kernel_fields,
     pointer_array,
     require_device_op,
+    tdv_pointer,
     with_variant,
 )
 from .reference import run_iterations
@@ -67,7 +72,9 @@ launches = 0
 #: at 700 W (``tile_sweep.py``, monotile part, n=1000; PERF.md), by the
 #: shared-memory bytes of one cell (:func:`~.cuda_lib.cell_smem_bytes`):
 #: ``(q, threads per CTA)``. Jacobi5 8 B and HotSpot 12 B at 1024^2 (8-row
-#: bands), the probe 40 B at 600^2 (5-row bands; q=2 is the most that fits).
+#: bands), the probe 40 B at 600^2 (5-row bands; q=2 is the most that fits),
+#: FDTD's coef cell 48 B at 512^2 (4-row bands; q=2, the most that fits:
+#: 10.70 ms for n=1000 against 13.59 at q=1 and 19.58 with two CTAs of 512).
 #: Two CTAs of 512 threads an SM (bands half as tall) lost at every q, and
 #: q=8 lost to q=4 for Jacobi5. Conway's 2 B cells were not swept and take
 #: the smallest entry.
@@ -75,6 +82,7 @@ MONO_LAW = {
     8: (4, 1024),
     12: (4, 1024),
     40: (2, 1024),
+    48: (2, 1024),
 }
 #: Threads a CTA of the kernel has at most (one CTA an SM).
 MAX_THREADS = 1024
@@ -146,12 +154,12 @@ def monotile_plain(
     *,
     offset: int,
     n_iterations: int,
-    tdv_lookup: Callable[[int, int], Any] | None = None,
+    tdv: Any = None,
 ) -> Any:
     """The plain PyTorch version: ``n_iterations`` whole-grid iterations."""
-    if tdv_lookup is None:
-        tdv_lookup = lambda i_rel, i_abs: tf.get_time_dependent_value(i_abs)  # noqa: E731
-    return run_iterations(arrays, tf, halo_cell, offset, n_iterations, tdv_lookup)
+    if tdv is None:
+        tdv = tdv_stream(tf, offset, n_iterations, cell_leaves(arrays)[0].device)
+    return run_iterations(arrays, tf, halo_cell, offset, n_iterations, tdv)
 
 
 class _Exchange:
@@ -188,10 +196,11 @@ def monotile(
     *,
     offset: int,
     n_iterations: int,
-    tdv_lookup: Callable[[int, int], Any] | None = None,
+    tdv: Any = None,
     plan: MonotilePlan | None = None,
 ) -> Any:
     """All ``n_iterations`` in one launch; returns the new grid cell.
+    ``tdv`` is the call's TDV stream (the inline strategy's when ``None``).
 
     ``plan`` fixes the launch geometry (default: :func:`monotile_plan`'s);
     the kernel refuses one whose CTAs cannot all be resident. On the card
@@ -203,9 +212,11 @@ def monotile(
     device = cell_leaves(arrays)[0].device
     if device.type == "cpu":
         return monotile_plain(
-            arrays, tf, halo_cell, offset=offset, n_iterations=n_iterations, tdv_lookup=tdv_lookup
+            arrays, tf, halo_cell, offset=offset, n_iterations=n_iterations, tdv=tdv
         )
     fields = kernel_fields(arrays, tf, halo_cell, offset)
+    if tdv is None:
+        tdv = tdv_stream(tf, offset, n_iterations, device)
     H, W = fields.variant[0].shape
     if plan is None:
         plan = require_plan(H, W, tf, cell_smem_bytes(arrays, tf), device_limits(device))
@@ -219,7 +230,8 @@ def monotile(
         code = fn(
             pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
             H, W, plan.band, plan.n_ctas, plan.q, plan.threads, offset, n_iterations,
-            fields.params, fields.halo, ex.buffer.data_ptr(), ex.flags.data_ptr(),
+            fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
+            ex.buffer.data_ptr(), ex.flags.data_ptr(),
             ex.epoch & 0xFFFFFFFF, stream,
         )
     check(code, "resident-grid kernel")
@@ -271,7 +283,7 @@ class StencilUpdate(StencilUpdateBase):
         return Grid(
             monotile(
                 grid.arrays, tf, resolve_halo(p.halo_value, grid),
-                offset=int(p.iteration_offset), n_iterations=n, tdv_lookup=self._tdv_lookup(grid),
+                offset=int(p.iteration_offset), n_iterations=n, tdv=self._tdv_stream(grid),
                 plan=plan,
             )
         )

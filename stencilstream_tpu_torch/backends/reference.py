@@ -9,13 +9,14 @@ kernels' plain versions are built from.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any
 
 import torch
 
 from ..core.cell import canonicalize_cell, cell_field_names, cell_leaves, cell_map
 from ..core.grid import Grid
 from ..core.stencil import Stencil
+from ..tdv import step_value
 from .base import StencilUpdateBase, resolve_halo
 from .fused import coordinates, shifted
 
@@ -70,12 +71,13 @@ def run_iterations(
     halo_cell: Any,
     offset: int,
     n_iterations: int,
-    tdv_lookup: Callable[[int, int], Any],
+    tdv_stream: Any,
 ) -> Any:
-    """``n_iterations`` full iterations of ``tf`` over the whole grid."""
+    """``n_iterations`` full iterations of ``tf`` over the whole grid; step
+    ``i`` takes element ``i`` of the call's TDV stream."""
     for i in range(n_iterations):
         i_abs = offset + i
-        tdv = tdv_lookup(i, i_abs)
+        tdv = step_value(tdv_stream, i)
         for sub in range(tf.n_subiterations):
             arrays = single_subiteration(
                 arrays, tf, halo_cell, i_abs, sub, tdv, radius=tf.stencil_radius
@@ -96,7 +98,7 @@ class StencilUpdate(StencilUpdateBase):
                 resolve_halo(p.halo_value, grid),
                 int(p.iteration_offset),
                 int(p.n_iterations),
-                self._tdv_lookup(grid),
+                self._tdv_stream(grid),
             )
         )
 

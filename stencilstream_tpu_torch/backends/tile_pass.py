@@ -7,28 +7,33 @@ the TPU strip-pass kernel (``stencilstream_tpu/backends/strip_pass.py``,
 * On CPU tensors :func:`tile_pass` runs :func:`tile_pass_plain`: the same
   function, one whole-grid sub-step at a time, built on :mod:`.fused`.
 * On CUDA tensors it launches the kernel, or raises: for a transition
-  function without a device functor, for one with a time-dependent value,
-  and for fields the functor does not take.
+  function without a device functor, for a time-dependent value that its
+  functor does not take or that cannot be streamed to it, and for fields
+  the functor does not take.
 
 Both compute ``iters_per_pass`` iterations starting at absolute iteration
 ``i_start``; iterations at or past ``offset + n_iterations`` leave the grid
-unchanged (the last, partial pass of a call).
+unchanged (the last, partial pass of a call). Both read a step's
+time-dependent value from the call's TDV stream ``tdv`` (element ``i_abs -
+offset``; :mod:`..tdv`), the inline strategy's when none is given.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Callable
+from typing import Any
 
 import torch
 
 from ..core.cell import cell_leaves
+from ..tdv import step_value, tdv_stream
 from .cuda_lib import (
     check,
     entry,
     kernel_fields,
     pointer_array,
     require_device_op,
+    tdv_pointer,
     variant_outputs,
     with_variant,
 )
@@ -67,21 +72,17 @@ def tile_pass_plain(
     offset: int,
     n_iterations: int,
     iters_per_pass: int,
-    tdv_lookup: Callable[[int, int], Any] | None = None,
+    tdv: Any = None,
 ) -> Any:
     """The plain PyTorch version of one pass."""
     H, W = cell_leaves(arrays)[0].shape
+    stream = tdv if tdv is not None else tdv_stream(tf, offset, n_iterations, cell_leaves(arrays)[0].device)
     for step in range(iters_per_pass):
         i_abs = i_start + step
         if i_abs >= offset + n_iterations:
             break  # pass-through for the rest of the pass
-        tdv = (
-            tdv_lookup(i_abs - offset, i_abs)
-            if tdv_lookup is not None
-            else tf.get_time_dependent_value(i_abs)
-        )
         arrays = fused_substep(
-            arrays, tf, halo_cell, 0, 0, (H, W), i_abs, tdv, True,
+            arrays, tf, halo_cell, 0, 0, (H, W), i_abs, step_value(stream, i_abs - offset), True,
             radius=tf.stencil_radius, n_subiterations=tf.n_subiterations,
         )
     return arrays
@@ -99,10 +100,11 @@ def tile_pass(
     iters_per_pass: int,
     tile: tuple[int, int],
     out: Any = None,
-    tdv_lookup: Callable[[int, int], Any] | None = None,
+    tdv: Any = None,
 ) -> Any:
     """One pass over ``tile``-sized cores (``tiling.pick_config`` gives the
-    law's); returns the new grid cell.
+    law's); returns the new grid cell. ``tdv`` is the call's TDV stream
+    (the inline strategy's when ``None``).
 
     On the card the variant fields of the result are new tensors, or those
     of ``out`` (a cell from an earlier pass of the same chain, written in
@@ -116,9 +118,11 @@ def tile_pass(
     if device.type == "cpu":
         return tile_pass_plain(
             arrays, tf, halo_cell, i_start=i_start, offset=offset,
-            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv_lookup=tdv_lookup,
+            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv,
         )
     fields = kernel_fields(arrays, tf, halo_cell, offset)
+    if tdv is None:
+        tdv = tdv_stream(tf, offset, n_iterations, device)
     H, W = fields.variant[0].shape
     dst = variant_outputs(arrays, fields, out)
     tile_h, tile_w = tile
@@ -129,7 +133,8 @@ def tile_pass(
         code = fn(
             pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
             H, W, tile_h, tile_w, iters_per_pass, i_start, offset, n_iterations,
-            fields.params, fields.halo, torch.cuda.current_stream(device).cuda_stream,
+            fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
+            torch.cuda.current_stream(device).cuda_stream,
         )
     check(code, f"tile-pass kernel (tile {tile})")
     launches += 1

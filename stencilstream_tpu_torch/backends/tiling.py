@@ -39,7 +39,10 @@ __all__ = ["StencilUpdate", "pick_config", "TILE_LAW"]
 #: NVIDIA H100 80GB HBM3 at 700 W (``tile_sweep.py``; PERF.md), by the
 #: shared-memory bytes of one cell (:func:`.cuda_lib.cell_smem_bytes`):
 #: ``(tile_h, tile_w), halo r*p*k, CTAs per SM the window is sized for``.
-#: HotSpot 12 B, Jacobi 8 B, Conway 2 B, the probe 40 B (five int32 fields).
+#: HotSpot 12 B, Jacobi 8 B, Conway 2 B, the probe 40 B (five int32 fields),
+#: FDTD's coef cell 48 B at 1024^2 (16x128, p=4: 36.6 us an iteration back
+#: to back and 24.2 us of kernel, against 29.6 us of kernel at the 40 B
+#: entry's 16x128, p=2, and half the passes for the host to launch).
 #: Heights are whole 8-cell runs. The one-field cells' windows (core plus
 #: twice the halo) are whole 32-lane warps wide, so the sub-steps' narrowing
 #: windows waste fewer lanes than a core of whole warps would.
@@ -48,6 +51,7 @@ TILE_LAW = {
     8: ((96, 112), 8, 2),
     12: ((56, 112), 8, 2),
     40: ((32, 128), 4, 1),
+    48: ((16, 128), 8, 1),
 }
 
 
@@ -189,7 +193,7 @@ class StencilUpdate(StencilUpdateBase):
             )
             geometry = dict(tile=(th, tw))
             run_pass = tile_pass
-        lookup = self._tdv_lookup(grid)
+        tdv = self._tdv_stream(grid)
         arrays = grid.arrays
         # Pass i writes into pass i-2's result: two buffers, never the input.
         earlier = [None, None]
@@ -197,7 +201,7 @@ class StencilUpdate(StencilUpdateBase):
             arrays = run_pass(
                 arrays, tf, halo_cell,
                 i_start=offset + i_pass * ipp, offset=offset, n_iterations=n,
-                iters_per_pass=ipp, out=earlier[i_pass % 2], tdv_lookup=lookup, **geometry,
+                iters_per_pass=ipp, out=earlier[i_pass % 2], tdv=tdv, **geometry,
             )
             earlier[i_pass % 2] = arrays
         return Grid(arrays)

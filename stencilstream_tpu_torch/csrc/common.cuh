@@ -12,19 +12,55 @@
 //                             it only reads (loop-invariant fields),
 //   kParams                   how many scalar runtime parameters it takes,
 //   from_params(const double*) building the functor from those scalars,
-//   operator()(const Taps<T>&, T* out) writing the new variant fields.
+//   operator()(const Taps<T, tdv_t<Op>>&, T* out) writing the new variant
+//                             fields,
+// and, if its transition function has a time-dependent value (TDV),
+//   using Tdv                 the TDV's type (float for FDTD's source
+//                             amplitude, int for the probe's iteration).
 // Its runtime parameters travel by value as a kernel argument on every
-// launch, so changing them never rebuilds anything.
+// launch, so changing them never rebuilds anything. No kernel evaluates a
+// TDV: each launch gets a pointer to the call's stream of n values, which
+// the TDV strategy (tdv.py) evaluated once per call on the grid's device,
+// and a step of absolute iteration i reads element i - offset (read_tdv);
+// no step at or past offset + n reads it.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace ss {
+
+// The TDV type of a functor that declares none.
+struct NoTdv {};
+
+template <class Op, class = void>
+struct TdvOf {
+  using type = NoTdv;
+};
+template <class Op>
+struct TdvOf<Op, std::void_t<typename Op::Tdv>> {
+  using type = typename Op::Tdv;
+};
+template <class Op>
+using tdv_t = typename TdvOf<Op>::type;
+
+// The value of a step's TDV: element i of the call's stream (i = the step's
+// iteration less the call's offset); nothing for a functor without one.
+template <class Op>
+__device__ __forceinline__ tdv_t<Op> read_tdv(const void* stream, int i) {
+  using D = tdv_t<Op>;
+  if constexpr (std::is_same<D, NoTdv>::value) {
+    return {};
+  } else {
+    return __ldg(static_cast<const D*>(stream) + i);
+  }
+}
 
 // Neighbourhood of one cell. Variant fields come from the current ping-pong
 // plane, invariant fields from their staged plane; all planes share one row
 // pitch and carry the halo value outside the grid.
-template <class T>
+template <class T, class D = NoTdv>
 struct Taps {
   const T* var;       // variant field 0 at the central cell
   const T* inv;       // invariant field 0 at the central cell
@@ -35,6 +71,7 @@ struct Taps {
   int H, W;           // logical grid extent
   int iteration;      // absolute iteration index
   int subiteration;
+  D tdv;              // the iteration's time-dependent value
 
   // Variant field f at signed offset (dr, dc).
   __device__ __forceinline__ T v(int f, int dr, int dc) const {
@@ -113,7 +150,7 @@ __device__ __forceinline__ void run_cells(const Op& op, const Fields<Op>& fields
                                           const typename Op::T* src, typename Op::T* dst,
                                           const typename Op::T* inv, long vstride, long istride,
                                           int pitch, int gr, int gc, int H, int W, int iteration,
-                                          int sub, int n = V) {
+                                          int sub, tdv_t<Op> tdv, int n = V) {
   using T = typename Op::T;
   constexpr int NV = Op::kVariant;
   constexpr int R = Op::kRadius;
@@ -128,8 +165,9 @@ __device__ __forceinline__ void run_cells(const Op& op, const Fields<Op>& fields
     } else {
       if (kRows) __builtin_assume(gr + k >= R && gr + k < H - R);
       if (kCols) __builtin_assume(gc >= R && gc < W - R);
-      const Taps<T> t{src + k * pitch, inv + k * pitch, vstride, istride, pitch,
-                      gr + k,          gc,             H,       W,       iteration, sub};
+      const Taps<T, tdv_t<Op>> t{src + k * pitch, inv + k * pitch, vstride, istride, pitch,
+                                 gr + k,          gc,             H,       W,       iteration,
+                                 sub,             tdv};
       op(t, out[k]);
     }
   }

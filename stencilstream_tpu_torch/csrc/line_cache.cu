@@ -11,7 +11,9 @@
 //
 // What it computes is the function of one tile pass (tile_pass.cu): S =
 // min(p, i_end - i_start) * k sub-steps, halo hp = r * S, out-of-grid cells
-// held at the halo value at every sub-step. What bounds it on Hopper: the
+// held at the halo value at every sub-step, each level reading its
+// iteration's time-dependent value, if the functor takes one, from the
+// call's stream (common.cuh: read_tdv). What bounds it on Hopper: the
 // pass must read every field once and write every variant field once, so
 // HBM traffic sets the floor (Jacobi5 at 8192^2, p=8: 8 B/cell, 537 MB, 0.160
 // ms at 3.35 TB/s; its 4.8 GFLOP take 0.072 ms at 67 TFLOP/s). The work it
@@ -92,6 +94,8 @@ struct LineCacheArgs {
   int halo;      // r * steps
   int steps;     // active sub-steps of this pass
   int i_start;   // absolute iteration of the pass's first step
+  int offset;    // absolute iteration of the call's first step
+  const void* tdv;  // the call's TDV stream: element i - offset for iteration i
   int pitch;     // shared row pitch, in elements
   int vplane;    // elements of one variant field's plane: (2r + strip) x pitch
   int iplane;    // elements of one invariant field's plane: (strip + hp + r) x pitch
@@ -128,7 +132,7 @@ template <class Op>
 __device__ __forceinline__ void level(const LineCacheArgs<Op>& a, const Op& op,
                                       const typename Op::T* src, typename Op::T* dst,
                                       const typename Op::T* inv, int m, int row0, int col0,
-                                      int iteration, int sub) {
+                                      int iteration, int sub, tdv_t<Op> tdv) {
   constexpr int R = Op::kRadius;
   constexpr int V = run_rows<Op>();
   const int ww = a.panel + 2 * a.halo;
@@ -149,10 +153,10 @@ __device__ __forceinline__ void level(const LineCacheArgs<Op>& a, const Op& op,
     const typename Op::T* i = inv + (r + R) * a.pitch + c;
     if (inside)
       run_cells<Op, true, true, false>(op, a.f, s, d, i, a.vplane, a.iplane, a.pitch, gr, gc0 + threadIdx.x,
-                           a.H, a.W, iteration, sub);
+                           a.H, a.W, iteration, sub, tdv);
     else
       run_cells<Op, false, false, true>(op, a.f, s, d, i, a.vplane, a.iplane, a.pitch, gr, gc0 + threadIdx.x,
-                          a.H, a.W, iteration, sub);
+                          a.H, a.W, iteration, sub, tdv);
     jx += kLineWarps;
     while (jx >= n_chunks) jx -= n_chunks, ++jy;
   }
@@ -178,9 +182,12 @@ __device__ __forceinline__ typename Op::T* run_levels(const LineCacheArgs<Op>& a
   constexpr int K = Op::kSubiterations;
   const int n_carry = 2 * R * a.pitch;
   int iteration = a.i_start, sub = 0;
+  tdv_t<Op> tdv{};
   for (int s = 1; s <= a.steps; ++s) {
+    // The pass's active steps all lie before offset + n (launch_line_cache).
+    if (sub == 0) tdv = read_tdv<Op>(a.tdv, iteration - a.offset);
     level(a, op, src, dst, inv + (a.halo - R * s) * a.pitch, R * s, g_in - R * s, x0, iteration,
-          sub);
+          sub, tdv);
     // Carry level s-1's bottom 2r rows to the next strip, and put level s's
     // from the previous strip above the rows this level wrote.
 #pragma unroll
@@ -281,7 +288,7 @@ template <class Op>
 int launch_line_cache(void* const* var_in, void* const* var_out, void* const* inv, int H, int W,
                       int strip, int panel, int segment, int iters_per_pass, int i_start,
                       int offset, int n_iterations, const double* params, const double* halo,
-                      void* stream) {
+                      const void* tdv, void* stream) {
   using T = typename Op::T;
   // Steps at or past offset + n leave every cell unchanged: a partial pass
   // walks with fewer levels (and a narrower halo) uniformly.
@@ -293,6 +300,8 @@ int launch_line_cache(void* const* var_in, void* const* var_out, void* const* in
   a.H = H;
   a.W = W;
   a.i_start = i_start;
+  a.offset = offset;
+  a.tdv = tdv;
   bool aligned = (static_cast<size_t>(W) * sizeof(T)) % 16 == 0;
   for (int f = 0; f < Op::kVariant; ++f)
     aligned = aligned && reinterpret_cast<uintptr_t>(var_in[f]) % 16 == 0;
@@ -332,10 +341,10 @@ int line_cache_residency(int strip, int panel, int steps, int* blocks_per_sm) {
                                       void* const* inv, int H, int W, int strip, int panel,   \
                                       int segment, int iters_per_pass, int i_start,           \
                                       int offset, int n_iterations, const double* params,     \
-                                      const double* halo, void* stream) {                     \
+                                      const double* halo, const void* tdv, void* stream) {    \
     return ss::launch_line_cache<Op>(var_in, var_out, inv, H, W, strip, panel, segment,       \
                                      iters_per_pass, i_start, offset, n_iterations, params,   \
-                                     halo, stream);                                           \
+                                     halo, tdv, stream);                                      \
   }                                                                                           \
   extern "C" int ss_line_cache_residency_##name(int strip, int panel, int steps,             \
                                                 int* blocks_per_sm) {                         \

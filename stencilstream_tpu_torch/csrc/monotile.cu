@@ -9,7 +9,9 @@
 // its variant fields (two ping-pong planes) and its invariant fields (staged
 // once), each with a deep halo of q*r rows above and below the band and r
 // halo columns left and right. Cells outside the grid hold the halo value
-// and are never computed.
+// and are never computed. Each sub-step reads its iteration's
+// time-dependent value, if the functor takes one, from the call's stream of
+// n values (common.cuh: read_tdv).
 //
 // What bounds it on Hopper: the grid never leaves the chip, so device memory
 // is touched once per call (load and store), and the float32 operations set
@@ -80,6 +82,7 @@ struct MonotileArgs {
   int q;            // sub-steps per exchange
   int offset;       // absolute iteration of the first step
   int n_iterations;
+  const void* tdv;  // the call's TDV stream: element i - offset for iteration i
 };
 
 __device__ __forceinline__ void release_flag(unsigned* p, unsigned v) {
@@ -215,8 +218,10 @@ monotile_kernel(const MonotileArgs<Op> a, const Op op) {
       __syncthreads();
     }
     // The group's sub-steps: the band plus m rows a side, m = (group-1)*r
-    // down to 0, within the grid.
+    // down to 0, within the grid. A group never runs past the call's last
+    // sub-step, so no step reads the TDV stream past offset + n.
     for (int m = (group - 1) * R; m >= 0; m -= R) {
+      const tdv_t<Op> tdv = read_tdv<Op>(a.tdv, iteration - a.offset);
       const int lo = max(qr - m, lo_grid);
       const int hi = min(qr + a.band + m, hi_grid);
       const int n_rows = hi - lo;
@@ -246,20 +251,20 @@ monotile_kernel(const MonotileArgs<Op> a, const Op op) {
         const bool cols_in = c0 >= R && c0 + 32 <= a.W - R;
         if (full && rows_in && cols_in) {
           run_cells<Op, true, true, false>(op, a.f, s, d, i, 2L * plane, plane, pitch, gr, c, a.H,
-                                           a.W, iteration, sub);
+                                           a.W, iteration, sub, tdv);
         } else if (c < a.W) {
           if (!full)
             run_cells<Op, false, false, false>(op, a.f, s, d, i, 2L * plane, plane, pitch, gr, c,
-                                               a.H, a.W, iteration, sub, n_rows);
+                                               a.H, a.W, iteration, sub, tdv, n_rows);
           else if (rows_in)
             run_cells<Op, true, false, false>(op, a.f, s, d, i, 2L * plane, plane, pitch, gr, c,
-                                              a.H, a.W, iteration, sub);
+                                              a.H, a.W, iteration, sub, tdv);
           else if (cols_in)
             run_cells<Op, false, true, false>(op, a.f, s, d, i, 2L * plane, plane, pitch, gr, c,
-                                              a.H, a.W, iteration, sub);
+                                              a.H, a.W, iteration, sub, tdv);
           else
             run_cells<Op, false, false, false>(op, a.f, s, d, i, 2L * plane, plane, pitch, gr, c,
-                                               a.H, a.W, iteration, sub);
+                                               a.H, a.W, iteration, sub, tdv);
         }
         jx += nw;
         while (jx >= n_chunks) jx -= n_chunks, ++jy;
@@ -308,8 +313,8 @@ cudaError_t allow_smem(size_t smem) {
 template <class Op>
 int launch_monotile(void* const* var_in, void* const* var_out, void* const* inv, int H, int W,
                     int band, int n_ctas, int q, int threads, int offset, int n_iterations,
-                    const double* params, const double* halo, void* xchg, void* flags,
-                    unsigned epoch, void* stream) {
+                    const double* params, const double* halo, const void* tdv, void* xchg,
+                    void* flags, unsigned epoch, void* stream) {
   if (q < 1 || q * Op::kRadius > band || threads < 32 || threads > kMonoMaxThreads ||
       threads % 32 != 0 || n_ctas != (H + band - 1) / band || n_iterations < 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -324,6 +329,7 @@ int launch_monotile(void* const* var_in, void* const* var_out, void* const* inv,
   a.q = q;
   a.offset = offset;
   a.n_iterations = n_iterations;
+  a.tdv = tdv;
   Op op = Op::from_params(params);
   const size_t smem = monotile_smem_bytes<Op>(band, q, W);
   cudaError_t e = allow_smem<Op>(smem);
@@ -355,10 +361,10 @@ int monotile_residency(int band, int q, int W, int threads, int* blocks_per_sm) 
   extern "C" int ss_monotile_##name(void* const* var_in, void* const* var_out,                  \
                                     void* const* inv, int H, int W, int band, int n_ctas, int q, \
                                     int threads, int offset, int n_iterations,                   \
-                                    const double* params, const double* halo, void* xchg,        \
-                                    void* flags, unsigned epoch, void* stream) {                 \
+                                    const double* params, const double* halo, const void* tdv,   \
+                                    void* xchg, void* flags, unsigned epoch, void* stream) {     \
     return ss::launch_monotile<Op>(var_in, var_out, inv, H, W, band, n_ctas, q, threads, offset, \
-                                   n_iterations, params, halo, xchg, flags, epoch, stream);      \
+                                   n_iterations, params, halo, tdv, xchg, flags, epoch, stream); \
   }                                                                                              \
   extern "C" int ss_monotile_residency_##name(int band, int q, int W, int threads,              \
                                               int* blocks_per_sm) {                              \

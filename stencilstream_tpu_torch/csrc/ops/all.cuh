@@ -7,6 +7,7 @@
 #pragma once
 
 #include "conway.cuh"
+#include "fdtd.cuh"
 #include "hotspot.cuh"
 #include "jacobi.cuh"
 #include "probe.cuh"
@@ -22,4 +23,9 @@
   X(jacobi5_general, ss::Jacobi5GeneralOp)    \
   X(jacobi9_general, ss::Jacobi9GeneralOp)    \
   X(conway, ss::ConwayOp)                     \
-  X(probe, ss::ProbeOp)
+  X(probe, ss::ProbeOp)                       \
+  X(probe_tdv, ss::ProbeTdvOp)                \
+  X(probe_radius2, ss::ProbeRadius2Op)        \
+  X(fdtd_coef, ss::FdtdCoefOp)                \
+  X(fdtd_lut, ss::FdtdLutOp)                  \
+  X(fdtd_render, ss::FdtdRenderOp)

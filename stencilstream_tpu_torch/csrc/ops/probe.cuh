@@ -1,22 +1,26 @@
-// Self-verifying probe device functor: the C++ twin of
-// stencilstream_tpu_torch/probe.py:ProbeKernel (the probe without a
-// time-dependent value).
+// Self-verifying probe device functors: the C++ twins of
+// stencilstream_tpu_torch/probe.py's ProbeKernel (the probe without a
+// time-dependent value) and ProbeTransFunc (the probe whose time-dependent
+// value is the iteration index, at radius 1 or 2).
 //
 // Five int32 cell fields, all updated: r, c, i_iteration, i_subiteration,
-// status; radius 1, two sub-steps per iteration. Every neighbour inside the
+// status; radius R, two sub-steps per iteration. Every neighbour inside the
 // grid must carry its own coordinates, the current iteration and
 // sub-iteration and Normal status; every neighbour outside the grid must
-// equal the probe's halo cell (0, 0, 0, 0, Halo). A cell that sees anything
-// else turns Invalid for good; a valid cell advances its counters.
+// equal the probe's halo cell (0, 0, 0, 0, Halo); a probe with a
+// time-dependent value must see the iteration index there. A cell that sees
+// anything else turns Invalid for good; a valid cell advances its counters.
 #pragma once
 
 #include "../common.cuh"
 
 namespace ss {
 
-struct ProbeOp {
+template <int R, class D, class Self>
+struct ProbeT {
   using T = int;
-  static constexpr int kRadius = 1;
+  using Tdv = D;
+  static constexpr int kRadius = R;
   static constexpr int kSubiterations = 2;
   static constexpr int kVariant = 5;
   static constexpr int kInvariant = 0;
@@ -25,14 +29,15 @@ struct ProbeOp {
   static constexpr int kInvalid = 1;
   static constexpr int kHalo = 2;
 
-  static ProbeOp from_params(const double*) { return {}; }
+  static Self from_params(const double*) { return {}; }
 
-  __device__ __forceinline__ void operator()(const Taps<int>& s, int* out) const {
+  __device__ __forceinline__ void operator()(const Taps<int, D>& s, int* out) const {
     bool valid = true;
+    if constexpr (!std::is_same<D, NoTdv>::value) valid = s.tdv == s.iteration;
 #pragma unroll
-    for (int dr = -1; dr <= 1; ++dr) {
+    for (int dr = -R; dr <= R; ++dr) {
 #pragma unroll
-      for (int dc = -1; dc <= 1; ++dc) {
+      for (int dc = -R; dc <= R; ++dc) {
         const int nr = s.row + dr;
         const int nc = s.col + dc;
         const bool in_grid = nr >= 0 && nc >= 0 && nr < s.H && nc < s.W;
@@ -50,5 +55,11 @@ struct ProbeOp {
     out[4] = valid ? kNormal : kInvalid;
   }
 };
+
+// probe.py:ProbeKernel: no time-dependent value, radius 1.
+struct ProbeOp : ProbeT<1, NoTdv, ProbeOp> {};
+// probe.py:ProbeTransFunc: an int32 time-dependent value, radius 1 or 2.
+struct ProbeTdvOp : ProbeT<1, int, ProbeTdvOp> {};
+struct ProbeRadius2Op : ProbeT<2, int, ProbeRadius2Op> {};
 
 }  // namespace ss

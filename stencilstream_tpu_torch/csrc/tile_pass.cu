@@ -10,6 +10,9 @@
 // between two shared planes per variant field, sub-step s computing only the
 // window narrowed by r*(s+1) per side (the cells the next one needs); the
 // core is written back. A partial pass stops at the call's last iteration.
+// Each step reads its iteration's time-dependent value, if the functor takes
+// one, from the call's stream (common.cuh: read_tdv); the steps of a partial
+// pass past the call's last iteration read nothing.
 //
 // What bounds it on Hopper (PERF.md, measured by tile_sweep.py): not device
 // memory. At HotSpot 8192^2, p=8, the law's 56x112 core stages a window
@@ -70,7 +73,9 @@ struct TilePassArgs {
   int halo;            // r * p * k
   int steps;           // p * k sub-steps
   int i_start;         // absolute iteration of the pass's first step
+  int offset;          // absolute iteration of the call's first step
   int i_end;           // offset + n: steps at or past it leave cells unchanged
+  const void* tdv;     // the call's TDV stream: element i - offset for iteration i
   int tiles_x;
   int pitch, plane;    // shared row pitch and plane size, in elements
   bool vec16;          // rows may be staged in 16-byte copies
@@ -84,7 +89,7 @@ template <class Op, bool kEdge>
 __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const Op& op,
                                         const typename Op::T* src, typename Op::T* dst,
                                         const typename Op::T* inv, int m, int row0, int col0,
-                                        int iteration, int sub) {
+                                        int iteration, int sub, tdv_t<Op> tdv) {
   using T = typename Op::T;
   constexpr int NV = Op::kVariant;
   constexpr int R = Op::kRadius;
@@ -113,8 +118,9 @@ __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const Op& op,
           // neighbours in the grid: let the compiler fold edge tests.
           __builtin_assume(gr + k >= R && gr + k < a.H - R && gc >= R && gc < a.W - R);
         }
-        const Taps<T> t{src + (r + k) * a.pitch + c, inv + (r + k) * a.pitch + c, a.plane,
-                        a.plane, a.pitch, gr + k, gc, a.H, a.W, iteration, sub};
+        const Taps<T, tdv_t<Op>> t{src + (r + k) * a.pitch + c, inv + (r + k) * a.pitch + c,
+                                   a.plane, a.plane, a.pitch, gr + k, gc, a.H, a.W, iteration,
+                                   sub, tdv};
         op(t, out[k]);
       }
     }
@@ -142,7 +148,8 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
     // Past the call's last iteration every cell passes through unchanged,
     // so the core already holds the result (uniform across the CTA).
     if (iteration >= a.i_end) break;
-    substep<Op, kEdge>(a, op, cur, other, inv, R * (s + 1), row0, col0, iteration, s % K);
+    substep<Op, kEdge>(a, op, cur, other, inv, R * (s + 1), row0, col0, iteration, s % K,
+                       read_tdv<Op>(a.tdv, iteration - a.offset));
     __syncthreads();
     typename Op::T* t = cur;
     cur = other;
@@ -228,14 +235,16 @@ template <class Op>
 int launch_tile_pass(void* const* var_in, void* const* var_out, void* const* inv, int H,
                      int W, int tile_h, int tile_w, int iters_per_pass, int i_start,
                      int offset, int n_iterations, const double* params,
-                     const double* halo, void* stream) {
+                     const double* halo, const void* tdv, void* stream) {
   using T = typename Op::T;
   TilePassArgs<Op> a;
   if (!tile_args(a, H, W, tile_h, tile_w, iters_per_pass))
     return static_cast<int>(cudaErrorInvalidValue);
   a.f = make_fields<Op>(var_in, var_out, inv, halo);
   a.i_start = i_start;
+  a.offset = offset;
   a.i_end = offset + n_iterations;
+  a.tdv = tdv;
   bool aligned = (static_cast<size_t>(W) * sizeof(T)) % 16 == 0;
   for (int f = 0; f < Op::kVariant; ++f)
     aligned = aligned && reinterpret_cast<uintptr_t>(var_in[f]) % 16 == 0;
@@ -271,9 +280,12 @@ int tile_pass_residency(int tile_h, int tile_w, int iters_per_pass, int* blocks_
 
 // Shape of a functor, for the Python wrapper's checks: {radius,
 // n_subiterations, n_variant, n_invariant, n_params, element bytes,
-// element is floating point}.
+// element is floating point, TDV bytes (0: it takes none), TDV is floating
+// point}.
 template <class Op>
 int op_info(int* info) {
+  using D = tdv_t<Op>;
+  constexpr bool kTdv = !std::is_same<D, NoTdv>::value;
   info[0] = Op::kRadius;
   info[1] = Op::kSubiterations;
   info[2] = Op::kVariant;
@@ -281,6 +293,8 @@ int op_info(int* info) {
   info[4] = Op::kParams;
   info[5] = static_cast<int>(sizeof(typename Op::T));
   info[6] = std::is_floating_point<typename Op::T>::value ? 1 : 0;
+  info[7] = kTdv ? static_cast<int>(sizeof(D)) : 0;
+  info[8] = std::is_floating_point<D>::value ? 1 : 0;
   return 0;
 }
 
@@ -291,10 +305,10 @@ int op_info(int* info) {
                                      void* const* inv, int H, int W, int tile_h,        \
                                      int tile_w, int iters_per_pass, int i_start,       \
                                      int offset, int n_iterations, const double* params, \
-                                     const double* halo, void* stream) {                \
+                                     const double* halo, const void* tdv, void* stream) { \
     return ss::launch_tile_pass<Op>(var_in, var_out, inv, H, W, tile_h, tile_w,         \
                                     iters_per_pass, i_start, offset, n_iterations,      \
-                                    params, halo, stream);                              \
+                                    params, halo, tdv, stream);                         \
   }                                                                                     \
   extern "C" int ss_tile_pass_residency_##name(int tile_h, int tile_w,                 \
                                                int iters_per_pass, int* blocks_per_sm) { \

@@ -3,7 +3,9 @@
 The caller converts on the JAX side — a transition function's fields with
 ``dataclasses.asdict`` and a grid with ``Grid.to_numpy()`` — and this module
 turns those numpy values into the port's objects on a given device, so both
-packages compute from identical inputs. It never imports JAX.
+packages compute from identical inputs. A time-dependent value crosses as a
+numpy stream of per-iteration values (:class:`StreamTDV`). It never imports
+JAX.
 """
 
 from __future__ import annotations
@@ -12,20 +14,25 @@ import dataclasses
 from typing import Any
 
 import numpy as np
+import torch
 
 from .core.grid import Grid
-from .models import jacobi
+from .models import fdtd, jacobi
 from .models.hotspot import HotspotCell, HotspotKernel
 from .probe import ProbeCell
+from .tdv import PrecomputeOnHostTDV
 
 __all__ = [
-    "grid_from_numpy",
-    "transition_function_from_fields",
+    "StreamTDV",
     "conway_grid",
+    "fdtd_grid",
+    "fdtd_kernel",
+    "grid_from_numpy",
     "hotspot_grid",
     "hotspot_kernel",
     "jacobi_kernel",
     "probe_grid",
+    "transition_function_from_fields",
 ]
 
 
@@ -80,3 +87,44 @@ def conway_grid(cells: Any, *, device) -> Grid:
 def probe_grid(arrays: Any, *, device) -> Grid:
     """The port's probe grid from a JAX probe grid's ``to_numpy()``."""
     return grid_from_numpy(ProbeCell, arrays, device=device)
+
+
+def fdtd_kernel(resolver_name: str, fields: Any) -> fdtd.FDTDKernel:
+    """The port's :class:`~.models.fdtd.FDTDKernel` from a JAX one's fields
+    (its ``resolver`` is replaced by the port's resolver of that name; its
+    ``resolver_state``, a dict of arrays or ``None``, arrives as numpy)."""
+    values = _as_dict(fields)
+    state = values.get("resolver_state")
+    if state is not None:
+        state = {k: np.asarray(v) for k, v in state.items()}
+    values.update(resolver=fdtd.RESOLVERS[resolver_name](), resolver_state=state)
+    return transition_function_from_fields(fdtd.FDTDKernel, values)
+
+
+def fdtd_grid(resolver_name: str, arrays: Any, *, device) -> Grid:
+    """The port's FDTD grid for a resolver from a JAX FDTD grid's
+    ``to_numpy()``."""
+    return grid_from_numpy(fdtd.RESOLVERS[resolver_name].MaterialCell, arrays, device=device)
+
+
+class StreamTDV(PrecomputeOnHostTDV):
+    """A precompute-on-host TDV strategy (``Params.tdv_strategy``) whose
+    values come from a numpy stream, such as the JAX package's amplitudes:
+    iteration ``i`` takes ``values[i - first_iteration]``, whatever the
+    transition function's own ``get_time_dependent_value`` says."""
+
+    def __init__(self, values: Any, first_iteration: int = 0):
+        self.values = np.array(values)  # a writable copy, which torch can share
+        self.first_iteration = int(first_iteration)
+
+    def prepare(self, tf, offset, n_iterations, device=None):
+        if n_iterations == 0:
+            return None
+        lo = int(offset) - self.first_iteration
+        if lo < 0 or lo + n_iterations > len(self.values):
+            raise ValueError(
+                f"the stream holds iterations {self.first_iteration}.."
+                f"{self.first_iteration + len(self.values) - 1}; the call needs "
+                f"{offset}..{offset + n_iterations - 1}"
+            )
+        return torch.from_numpy(np.ascontiguousarray(self.values[lo : lo + n_iterations])).to(device)

@@ -11,10 +11,12 @@ for good. A run is right when every output cell is Normal and advanced to
 exactly ``iteration_offset + n_iterations`` (:func:`check_probe_grid`).
 
 * :class:`ProbeTransFunc` is ``tests/probe.py``'s probe: its time-dependent
-  value must equal the iteration index. It runs on the plain PyTorch paths
-  (the CUDA kernels take no time-dependent value yet).
+  value must equal the iteration index. At radius 1 and 2 with two
+  sub-steps it names a device functor of ``csrc/ops/probe.cuh`` that reads
+  the value from the call's int32 TDV stream, so on the card it checks the
+  stream each kernel reads as well as the kernel's index algebra.
 * :class:`ProbeKernel` is the same probe without a time-dependent value. It
-  names the device functor ``csrc/ops/probe.cuh``, which checks the
+  names the device functor ``csrc/ops/probe.cuh:ProbeOp``, which checks the
   neighbours' iteration counters against the kernel's own iteration
   index, so the probe runs on every kernel.
 """
@@ -33,6 +35,7 @@ __all__ = [
     "ProbeCell",
     "ProbeKernel",
     "ProbeTransFunc",
+    "TDV_FUNCTORS",
     "check_probe_grid",
     "make_probe_grid",
     "probe_halo_cell",
@@ -94,12 +97,27 @@ def probe_step(stencil, radius: int, n_subiterations: int, tdv_ok=True) -> Probe
     )
 
 
+#: Device functors of :class:`ProbeTransFunc` by radius (two sub-steps).
+TDV_FUNCTORS = {1: "probe_tdv", 2: "probe_radius2"}
+
+
 @transition_function
 class ProbeTransFunc:
-    """The probe with a time-dependent value equal to the iteration index."""
+    """The probe with a time-dependent value equal to the iteration index.
+    With two sub-steps at radius 1 or 2 it runs on the CUDA kernels
+    (:data:`TDV_FUNCTORS`); all five fields are variant."""
 
     radius_: int = static_field(default=1)
     n_subiterations_: int = static_field(default=2)
+    cuda_variant = ("r", "c", "i_iteration", "i_subiteration", "status")
+    cuda_tdv = torch.int32
+
+    @property
+    def cuda_op(self):
+        return TDV_FUNCTORS.get(self.radius_) if self.n_subiterations_ == 2 else None
+
+    def cuda_params(self) -> tuple:
+        return ()
 
     @property
     def stencil_radius(self):

@@ -5,7 +5,9 @@
 Drives each main-path run (:func:`main_paths`, which ``chip_smoke.py``
 drives too) through the entry point a user calls (HotSpot 1024² and
 8192², Jacobi5 8192² in both tiling window modes, Jacobi5 1024², Conway
-8192²): one warm-up call, five calls timed on
+8192², and FDTD's mono-benchmark with its time axis cut: coef 1024² and
+512², render 1024² through the line cache, lut 1024²): one warm-up call,
+five calls timed on
 the host clock (``blocking=True``, so each ends in a synchronize), then
 one call under ``torch.profiler``. Prints one JSON line per run: the five
 walltimes and GCell/s, the device time and count of each kernel in the
@@ -27,9 +29,9 @@ import numpy as np
 import torch
 
 from . import Grid
-from .models import conway, hotspot, jacobi
+from .models import conway, fdtd, hotspot, jacobi
 
-__all__ = ["main", "main_paths"]
+__all__ = ["fdtd_run", "main", "main_paths"]
 
 JACOBI5_COEFS = [0.15, 0.2, 0.25, 0.1, 0.3]  # the JAX package's bench.py:244
 
@@ -64,7 +66,30 @@ def main_paths(device) -> dict:
         "conway 8192^2 auto": (
             Grid(torch.tensor(rng.random((8192, 8192)) < 0.35, device=device)), conway.run, 200, auto,
         ),
+        "fdtd coef 1024^2 auto": fdtd_run("coef", 1024, "inline", device, **auto),
+        "fdtd coef 512^2 auto": fdtd_run("coef", 512, "precompute_on_host", device, **auto),
+        "fdtd render 1024^2 tiling linecache": fdtd_run(
+            "render", 1024, "precompute_on_device", device, backend="tiling", window_mode="linecache"),
+        "fdtd lut 1024^2 auto": fdtd_run("lut", 1024, "inline", device, **auto),
     }
+
+
+def fdtd_run(resolver: str, side: int, strategy, device, **options) -> tuple:
+    """FDTD's mono-benchmark with its time axis cut, on a side^2 grid, as
+    one main-path run ``(grid, run, n, options)``: the experiment's whole
+    run (~8.2k iterations) in one call of ``build_simulation``'s updater
+    with the TDV ``strategy`` (``run`` also takes the call's
+    ``iteration_offset``)."""
+    parameters = fdtd.Parameters.from_json(fdtd.mono_benchmark(side))
+    res = fdtd.RESOLVERS[resolver](parameters)
+
+    def run_fdtd(grid, n, iteration_offset=0, **kw):
+        update, _ = fdtd.build_simulation(parameters, res, n_iterations=n, **kw)
+        update.get_params().iteration_offset = iteration_offset
+        return update(grid), update
+
+    return (fdtd.init_grid(parameters, res, device=device), run_fdtd, parameters.n_timesteps(),
+            {"tdv_strategy": strategy, **options})
 
 
 def _device_us(event) -> float:
@@ -138,7 +163,7 @@ def monotile_host_split(grid, tf, n, reps: int = 20) -> dict:
         "require_plan_us": mean_us(
             lambda: mt.require_plan(H, W, tf, cuda_lib.cell_smem_bytes(grid.arrays, tf),
                                     cuda_lib.device_limits(grid.device))),
-        "halo_and_tdv_us": mean_us(lambda: (resolve_halo(None, grid), update._tdv_lookup(grid))),
+        "halo_and_tdv_us": mean_us(lambda: (resolve_halo(None, grid), update._tdv_stream(grid))),
         "kernel_fields_us": mean_us(lambda: cuda_lib.kernel_fields(grid.arrays, tf, halo, 0)),
         "buffers_us": mean_us(lambda: ([torch.empty_like(t) for t in fields.variant],
                                        mt._exchange(grid.device, stream, 4 * plan.n_ctas * side

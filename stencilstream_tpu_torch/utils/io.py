@@ -2,7 +2,8 @@
 
 Counterpart of ``stencilstream_tpu/utils/io.py``, in numpy: Conway's
 ``X``/``.`` character grids, whitespace-separated text and raw float32
-binary grids, and HotSpot's ``<flat index>\\t<value>`` text output.
+binary grids, HotSpot's ``<flat index>\\t<value>`` text output, and FDTD's
+comma-separated frames.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ __all__ = [
     "read_float_grid_binary",
     "write_float_grid_binary",
     "write_indexed_text",
+    "write_csv_frame",
 ]
 
 
@@ -70,3 +72,9 @@ def write_indexed_text(path: str, grid: np.ndarray) -> None:
     with open(path, "w") as f:
         for i, v in enumerate(flat):
             f.write(f"{i}\t{v:g}\n")
+
+
+def write_csv_frame(path: str, grid: np.ndarray, fmt: str = "%g") -> None:
+    """One field as comma-separated rows of ``fmt``-formatted values (FDTD's
+    frames)."""
+    np.savetxt(path, np.asarray(grid), fmt=fmt, delimiter=",")

@@ -13,9 +13,13 @@ Tolerance on the card: atol 1e-4 at HotSpot's temperatures in [70, 90] and
 the same float32 operations in the same order, with the same fused
 multiply-adds, so they agree to a few ulps (7.6e-6 at 80, 4.8e-7 at 5);
 with the strong coefficients one iteration moves temperatures by ~1e-1.
-Conway's and the probe's integer cells must agree exactly.
+Conway's and the probe's integer cells must agree exactly, and so must
+FDTD's fields: the kernel and its plain version read one TDV stream, and
+FDTD's update has no operation whose rounding could differ (each fused
+multiply-add is explicit in both).
 """
 
+import dataclasses
 import re
 
 import numpy as np
@@ -28,8 +32,9 @@ from stencilstream_tpu_torch.backends import line_cache as lc
 from stencilstream_tpu_torch.backends import monotile as mt
 from stencilstream_tpu_torch.backends import tile_pass as tp
 from stencilstream_tpu_torch.core.cell import cell_leaves
-from stencilstream_tpu_torch.models import conway, jacobi
+from stencilstream_tpu_torch.models import conway, fdtd, jacobi
 from stencilstream_tpu_torch.models import hotspot as hs
+from stencilstream_tpu_torch.tdv import tdv_stream
 
 STRONG = dict(Rx_1=np.float32(0.1), Ry_1=np.float32(0.1), Rz_1=np.float32(0.05), Cap_1=np.float32(0.5))
 ATOL = 1e-4
@@ -52,6 +57,12 @@ JACOBI_COEFS = {
 }
 #: Every device functor: HotSpot, the eight Jacobi variants, Conway, the probe.
 OPS = ["hotspot", *sorted(jacobi.VARIANTS), "conway", "probe"]
+#: The functors whose transition functions have a time-dependent value: the
+#: probe's at radius 1 and 2, FDTD's for each material resolver.
+TDV_OPS = ["probe_tdv", "probe_radius2", "fdtd_coef", "fdtd_lut", "fdtd_render"]
+ALL_OPS = OPS + TDV_OPS
+#: The probes, whose cells must all stay Normal.
+PROBES = ("probe", "probe_tdv", "probe_radius2")
 
 
 def _case(op, shape, seed, device, iteration=0):
@@ -66,8 +77,49 @@ def _case(op, shape, seed, device, iteration=0):
         return x, jacobi.make_kernel(op, JACOBI_COEFS.get(op, [])), 5.0, 1e-5
     if op == "conway":
         return torch.tensor(rng.random(shape) < 0.4, device=device), conway.ConwayKernel(), False, 0
+    if op.startswith("fdtd_"):
+        return _fdtd_case(op[len("fdtd_"):], shape, rng, device, iteration)
     grid = probe.make_probe_grid(*shape, iteration, device=device)
+    if op in ("probe_tdv", "probe_radius2"):
+        return grid.arrays, probe.ProbeTransFunc(radius_=1 if op == "probe_tdv" else 2), probe.probe_halo_cell(), 0
     return grid.arrays, probe.ProbeKernel(), probe.probe_halo_cell(), 0
+
+
+def _fdtd_case(resolver, shape, rng, device, iteration):
+    """FDTD with random fields and random coefficients (the coef cells', the
+    lut indices, some outside the table, and the lut and render tables), a
+    disk source of radius 3 cells at the grid's centre that switches off two
+    iterations after ``iteration``, detection from the one after it, and a
+    non-zero halo (the lut index's halo 3, as float32 bits a denormal)."""
+    h, w = shape
+    p = _fdtd_parameters(20)
+    res = fdtd.RESOLVERS[resolver](p)
+    tf = fdtd.make_kernel(p, res)
+    sr, sc = h // 2, w // 2
+    state = tf.resolver_state
+    if state is not None:
+        state = {**state, **{f: rng.uniform(0, 1, 16).astype(np.float32) for f in ("ca", "cb", "da", "db")}}
+        if "bounds" in state:
+            state["bounds"] = np.sort(rng.uniform(-h * h / 2, 0, 16)).astype(np.float32)
+    tf = dataclasses.replace(
+        tf, source_r=np.float32(sr), source_c=np.float32(sc), source_radius_squared=9.0,
+        source_distance_bound=np.float32(9 - sr * sr - sc * sc), double_center_rc=np.float32(h),
+        cutoff_iteration=iteration + 2, detect_iteration=iteration + 1, resolver_state=state,
+    )
+    fields = {f.name: torch.tensor(rng.uniform(-1, 1, shape).astype(np.float32), device=device)
+              for f in dataclasses.fields(res.MaterialCell)}
+    halo = dict(ex=0.25, ey=-0.5, hz=0.75, hz_sum=1.0)
+    if resolver == "lut":
+        fields["index"] = torch.tensor(rng.integers(-1, 17, shape).astype(np.int32), device=device)
+        halo["index"] = 3
+    if resolver == "coef":
+        halo.update(ca=0.5, cb=0.125, da=0.5, db=0.125)
+    return res.MaterialCell(**fields), tf, res.MaterialCell(**halo), 0
+
+
+def _fdtd_parameters(side):
+    """The mono-benchmark's FDTD experiment, time axis cut, on a side^2 grid."""
+    return fdtd.Parameters.from_json(fdtd.mono_benchmark(side))
 
 
 def _max_err(a, b):
@@ -111,10 +163,12 @@ def test_every_functor_is_instantiated_in_every_kernel():
     kernel source expands its entry macro over that list."""
     listed = re.findall(r"X\((\w+), ss::(\w+)\)", (cuda_lib.CSRC / "ops" / "all.cuh").read_text())
     names = [name for name, _ in listed]
-    assert sorted(names) == sorted(OPS) and len(set(names)) == len(names)
+    assert sorted(names) == sorted(OPS + TDV_OPS) and len(set(names)) == len(names)
     assert len({op for _, op in listed}) == len(listed)
     for tf in (hs.HotspotKernel(), conway.ConwayKernel(), probe.ProbeKernel(),
-               *(jacobi.make_kernel(v, JACOBI_COEFS.get(v, [])) for v in jacobi.VARIANTS)):
+               *(jacobi.make_kernel(v, JACOBI_COEFS.get(v, [])) for v in jacobi.VARIANTS),
+               *(probe.ProbeTransFunc(radius_=r) for r in (1, 2)),
+               *(fdtd.make_kernel(_fdtd_parameters(20), cls(_fdtd_parameters(20))) for cls in fdtd.RESOLVERS.values())):
         assert tf.cuda_op in names
     for src in cuda_lib.SOURCES:
         assert re.search(r"^SS_FOR_EACH_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
@@ -130,7 +184,7 @@ def test_bool_fields_reach_the_kernels_as_uint8_views():
     assert cuda_lib._DTYPES[(1, 0)] == torch.uint8
 
 
-@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("op", ALL_OPS)
 def test_cpu_line_cache_pass_is_one_tile_pass(op):
     """On the CPU the line-cache wrapper runs its plain version, which is one
     tile pass's, and launches nothing."""
@@ -140,6 +194,76 @@ def test_cpu_line_cache_pass_is_one_tile_pass(op):
     got = lc.line_cache_pass(cell, tf, halo, strip_rows=8, panel_cols=32, segment_rows=8, **kw)
     assert lc.launches == before
     assert _max_err(got, tp.tile_pass_plain(cell, tf, halo, **kw)) == 0
+
+
+def test_int32_invariant_fields_reach_float_functors_as_bit_views():
+    index = torch.tensor([[0, 3], [15, -1]], dtype=torch.int32)
+    view = cuda_lib.kernel_view(index, torch.float32)
+    assert view.dtype == torch.float32 and view.data_ptr() == index.data_ptr()
+    assert view.view(torch.int32).tolist() == index.tolist()
+    assert cuda_lib.kernel_view(index) is index and cuda_lib.kernel_view(index, torch.int32) is index
+    assert cuda_lib._halo_bits(3, index, view) == float(np.array(3, np.int32).view(np.float32))
+    assert cuda_lib._halo_bits(0, index, view) == 0.0
+    assert cuda_lib._halo_bits(0.5, torch.zeros(1), torch.zeros(1)) == 0.5
+
+
+def test_tdv_pointer_takes_only_a_stream_of_the_functors_type():
+    """A functor without a time-dependent value gets NULL; one with a value
+    gets the stream's pointer, which must be one contiguous tensor of at
+    least n values of its type on the grid's device."""
+    assert cuda_lib.tdv_pointer(hs.HotspotKernel(), None, 5, torch.device("cpu")) is None
+    tf = probe.ProbeTransFunc()
+    cpu = torch.device("cpu")
+    stream = torch.arange(5, dtype=torch.int32)
+    assert cuda_lib.tdv_pointer(tf, stream, 5, cpu) == stream.data_ptr()
+    assert cuda_lib.tdv_pointer(tf, None, 0, cpu) is None  # no step reads a call of 0
+    for bad in (None, stream.float(), stream[:4], torch.arange(10, dtype=torch.int32)[::2],
+                stream.view(1, 5), (stream,)):
+        with pytest.raises(ValueError, match="cannot be streamed"):
+            cuda_lib.tdv_pointer(tf, bad, 5, cpu)
+
+
+def test_transition_functions_name_a_tdv_type_for_their_functor():
+    """A time-dependent value needs a functor that takes one: the probes
+    and FDTD name their stream's type, HotSpot with a TDV is refused."""
+    assert cuda_lib.require_device_op(probe.ProbeTransFunc(radius_=2), 3) == "probe_radius2"
+    assert probe.ProbeTransFunc(radius_=3).cuda_op is None
+    with pytest.raises(NotImplementedError, match="ProbeTransFunc"):
+        cuda_lib.require_device_op(probe.ProbeTransFunc(radius_=3))
+
+    class WithTDV(hs.HotspotKernel):
+        def get_time_dependent_value(self, i):
+            return 1.0
+
+    with pytest.raises(NotImplementedError, match="time-dependent value"):
+        cuda_lib.require_device_op(WithTDV())
+
+
+@pytest.mark.parametrize("resolver,n_params", [("coef", 8), ("lut", 8 + 64), ("render", 8 + 80)])
+def test_fdtd_kernel_names_its_resolvers_functor(resolver, n_params):
+    """``fdtd_<resolver>`` with the common parameters, then the table (and
+    the render bounds), as csrc/ops/fdtd.cuh reads them."""
+    p = _fdtd_parameters(1024)
+    tf = fdtd.make_kernel(p, fdtd.RESOLVERS[resolver](p))
+    params = tf.cuda_params()
+    assert tf.cuda_op == f"fdtd_{resolver}" and len(params) == n_params
+    assert params[:2] == (tf.cutoff_iteration, tf.detect_iteration) and params[5] == 0.0
+    assert tf.cuda_tdv == torch.float32 and tf.cuda_variant == ("ex", "ey", "hz", "hz_sum")
+
+
+@pytest.mark.parametrize("side,expect", [(1024, "tiling"), (512, "monotile")])
+def test_auto_sends_fdtd_1024_to_tiling_and_512_to_monotile(side, expect):
+    """The coef cell takes 48 B of shared memory (16 B variant twice, 16 B
+    invariant): 1024^2 does not fit the resident grid on an H100, 512^2
+    does."""
+    from stencilstream_tpu_torch.backends.auto import choose_backend
+
+    p = _fdtd_parameters(side)
+    res = fdtd.CoefResolver(p)
+    grid = fdtd.init_grid(p, res, device="cpu")
+    tf = fdtd.make_kernel(p, res)
+    assert cuda_lib.cell_smem_bytes(grid.arrays, tf) == 48
+    assert choose_backend(grid, tf) == expect
 
 
 def test_cell_smem_bytes_counts_variant_fields_twice():
@@ -199,14 +323,25 @@ def _band_plan(shape, q, limits, band=None):
     return mt.MonotilePlan(band, -(-shape[0] // band), 0, q, mt.MAX_THREADS)
 
 
+#: (op, shape, q) of the band checks: the probe, HotSpot, Jacobi5 and the
+#: functors with a time-dependent value on every band shape, but for those
+#: where q*r exceeds the band (the radius-2 probe's one-row and 5-row bands
+#: at q >= 1 and 4).
+BAND_CASES = [
+    (op, shape, q)
+    for op in ["hotspot", "jacobi5_general", "probe", *TDV_OPS]
+    for shape, q in MONO_BANDS
+    if q * (2 if op == "probe_radius2" else 1) <= -(-shape[0] // 132)
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["hotspot", "jacobi5_general", "probe"])
-@pytest.mark.parametrize("shape,q", MONO_BANDS, ids=[f"{h}x{w}-q{q}" for (h, w), q in MONO_BANDS])
+@pytest.mark.parametrize("op,shape,q", BAND_CASES, ids=[f"{op}-{h}x{w}-q{q}" for op, (h, w), q in BAND_CASES])
 def test_monotile_bands_match_plain_version(cuda, op, shape, q):
-    """n=5 (the probe n=3, k=2) from iteration 3, so that the last group of
-    q sub-steps is short for q=2 and 4 (but for the probe at q=2)."""
+    """n=5 (the k=2 functors n=3) from iteration 3, so that the last group of
+    q sub-steps is short for q=2 and 4 (but for k=2 at q=2)."""
     cell, tf, halo, tol = _case(op, shape, 21, cuda, iteration=3)
-    n = 3 if op == "probe" else 5
+    n = 3 if tf.n_subiterations == 2 else 5
     plan = _band_plan(shape, q, cuda_lib.device_limits(cuda))
     before = mt.launches
     got = mt.monotile(cell, tf, halo, offset=3, n_iterations=n, plan=plan)
@@ -214,12 +349,12 @@ def test_monotile_bands_match_plain_version(cuda, op, shape, q):
     torch.cuda.synchronize()
     assert mt.launches == before + 1
     assert _max_err(got, want) <= tol
-    if op == "probe":
+    if op in PROBES:
         assert int(got.status.abs().max()) == probe.NORMAL
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", ["hotspot", "probe"])
+@pytest.mark.parametrize("op", ["hotspot", "probe", "probe_tdv", "fdtd_render"])
 def test_monotile_single_cta(cuda, op):
     """One CTA holds the whole grid: no neighbour to wait for."""
     cell, tf, halo, tol = _case(op, (37, 53), 22, cuda, iteration=2)
@@ -356,7 +491,7 @@ def test_line_cache_kernel_matches_plain_version(cuda, op, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", LINE_CACHE_GEOMETRY,
                          ids=lambda c: "x".join(map(str, c[0])) + f"-p{c[4]}-s{c[1]}-w{c[2]}-g{c[3]}")
-@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("op", ALL_OPS)
 def test_line_cache_geometry_on_every_functor(cuda, op, case):
     shape, strip, panel, segment, p, i_start, offset, n = case
     cell, tf, halo, tol = _case(op, shape, 14, cuda, iteration=i_start)
@@ -368,7 +503,7 @@ def test_line_cache_geometry_on_every_functor(cuda, op, case):
     torch.cuda.synchronize()
     assert lc.launches == before + 1
     assert _max_err(got, want) <= tol
-    if op == "probe":
+    if op in PROBES:
         assert int(got.status.abs().max()) == probe.NORMAL
 
 
@@ -382,7 +517,7 @@ def test_line_cache_refuses_a_geometry_the_kernel_cannot_take(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("op", ALL_OPS)
 def test_every_functor_on_every_kernel(cuda, op):
     cell, tf, halo, tol = _case(op, (45, 70), 12, cuda, iteration=1)
     kw = dict(i_start=1, offset=1, n_iterations=5, iters_per_pass=3)
@@ -397,6 +532,8 @@ def test_every_functor_on_every_kernel(cuda, op):
     assert _max_err(got, want) <= tol
     if op == "conway":
         assert got.dtype == torch.bool
+    if op in PROBES:
+        assert int(got.status.abs().max()) == probe.NORMAL
 
 
 #: (shape, tile, p, i_start, offset, n) for the tile-pass kernel's geometry:
@@ -425,7 +562,7 @@ def _fitted(tile, p, cell, tf, limits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", TILE_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-t{c[1][0]}x{c[1][1]}-p{c[2]}")
-@pytest.mark.parametrize("op", OPS)
+@pytest.mark.parametrize("op", ALL_OPS)
 def test_tile_pass_geometry_on_every_functor(cuda, op, case):
     shape, tile, p, i_start, offset, n = case
     cell, tf, halo, tol = _case(op, shape, 13, cuda, iteration=i_start)
@@ -439,7 +576,7 @@ def test_tile_pass_geometry_on_every_functor(cuda, op, case):
     assert _max_err(got, want) <= tol
     if op == "hotspot":
         assert got.power is cell.power
-    if op == "probe":
+    if op in PROBES:
         assert int(got.status.abs().max()) == probe.NORMAL
 
 
@@ -492,3 +629,86 @@ def test_linecache_mode_launches_only_the_line_cache_kernel(cuda):
     assert launched == (2, 0, 0)  # p = 8: one full pass and one partial
     want, _ = jacobi.run(Grid(x), kernel, 13, backend="reference")
     assert float((got.arrays - want.arrays).abs().max()) <= 1e-5
+
+
+# -- the time-dependent value on the card -------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("strategy", ["inline", "precompute_on_device", "precompute_on_host"])
+@pytest.mark.parametrize("op", ["probe_tdv", "probe_radius2"])
+def test_tdv_probe_reads_each_strategys_stream(cuda, op, strategy):
+    """The probe checks its time-dependent value against the iteration in
+    every cell. A call of n=5 from iteration 3 under each strategy: the
+    tile pass and the line cache on the second pass of p=4 (1 of 4 steps
+    active), the resident grid at q = 1, 2 and 4; every cell stays Normal
+    and equals the plain version given the same stream. A stream shifted by
+    one turns every cell Invalid, on the card as in the plain version."""
+    offset, n = 3, 5
+    cell, tf, halo, _ = _case(op, (45, 70), 16, cuda, iteration=7)
+    stream = tdv_stream(tf, offset, n, cuda, strategy)
+    assert stream.dtype == torch.int32 and stream.tolist() == list(range(offset, offset + n))
+    kw = dict(i_start=7, offset=offset, n_iterations=n, iters_per_pass=4)
+    want = tp.tile_pass_plain(cell, tf, halo, tdv=stream, **kw)
+    for got in (tp.tile_pass(cell, tf, halo, tile=(16, 32), tdv=stream, **kw),
+                lc.line_cache_pass(cell, tf, halo, strip_rows=8, panel_cols=32, segment_rows=20, tdv=stream, **kw)):
+        torch.cuda.synchronize()
+        assert _max_err(got, want) == 0 and int(got.status.abs().max()) == probe.NORMAL
+        assert int(got.i_iteration.min()) == offset + n
+    shifted = tp.tile_pass(cell, tf, halo, tile=(16, 32), tdv=stream + 1, **kw)
+    assert bool((shifted.status == probe.INVALID).all())
+    assert _max_err(shifted, tp.tile_pass_plain(cell, tf, halo, tdv=stream + 1, **kw)) == 0
+    cell, tf, halo, _ = _case(op, (1030, 64), 17, cuda, iteration=offset)
+    stream = tdv_stream(tf, offset, 3, cuda, strategy)
+    want = mt.monotile_plain(cell, tf, halo, offset=offset, n_iterations=3, tdv=stream)
+    for q in (1, 2, 4):
+        plan = _band_plan((1030, 64), q, cuda_lib.device_limits(cuda))
+        got = mt.monotile(cell, tf, halo, offset=offset, n_iterations=3, tdv=stream, plan=plan)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) == 0 and int(got.status.abs().max()) == probe.NORMAL
+
+
+@pytest.mark.gpu
+def test_kernels_refuse_a_stream_they_cannot_read(cuda):
+    cell, tf, halo, _ = _case("probe_tdv", (45, 70), 18, cuda, iteration=0)
+    kw = dict(i_start=0, offset=0, n_iterations=4, iters_per_pass=2)
+    for bad in (torch.arange(4, dtype=torch.float32, device=cuda), torch.arange(3, dtype=torch.int32, device=cuda),
+                torch.arange(4, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="cannot be streamed"):
+            tp.tile_pass(cell, tf, halo, tile=(16, 32), tdv=bad, **kw)
+        with pytest.raises(ValueError, match="cannot be streamed"):
+            mt.monotile(cell, tf, halo, offset=0, n_iterations=4, tdv=bad)
+
+
+#: The FDTD paths of chip_smoke.py at a reduced n: (resolver, side, backend,
+#: options, TDV strategy, the kernel it must launch).
+FDTD_PATHS = [
+    ("coef", 1024, "auto", {}, "inline", "tile_pass"),
+    ("coef", 512, "auto", {}, "precompute_on_host", "monotile"),
+    ("render", 1024, "tiling", {"window_mode": "linecache"}, "precompute_on_device", "line_cache"),
+    ("lut", 1024, "auto", {}, "inline", "tile_pass"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("resolver,side,backend,kw,strategy,expect", FDTD_PATHS,
+                         ids=[f"{r}-{s}-{b}-{e}" for r, s, b, _, _, e in FDTD_PATHS])
+def test_fdtd_paths_launch_their_kernel(cuda, resolver, side, backend, kw, strategy, expect):
+    """Twelve iterations across the detect iteration, through the backend a
+    user calls: only the expected kernel launches, and the fields equal the
+    reference backend's on the card."""
+    p = _fdtd_parameters(side)
+    res = fdtd.RESOLVERS[resolver](p)
+    grid = fdtd.init_grid(p, res, device=cuda)
+    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
+    outs = {}
+    for name in (backend, "reference"):
+        update, _ = fdtd.build_simulation(p, res, backend=name, tdv_strategy=strategy, n_iterations=12, **(
+            kw if name == backend else {}))
+        update.get_params().iteration_offset = update.get_params().transition_function.detect_iteration - 6
+        before = {k: m.launches for k, m in counters.items()}
+        outs[name] = update(grid)
+        launched = {k for k, m in counters.items() if m.launches != before[k]}
+        assert launched == (set() if name == "reference" else {expect}), (name, launched)
+    assert _max_err(outs[backend].arrays, outs["reference"].arrays) == 0
+    assert float(outs[backend].arrays.hz_sum.abs().max()) > 0

@@ -32,7 +32,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    starts, inside the run; the probe whose TDV must equal the iteration, at
    radius 1 and 2 (the first radius-2 functor on the card), each also under
    every TDV strategy, with a stream shifted by one that must turn every
-   cell Invalid;
+   cell Invalid. The six convection functors (pseudo-transient full and
+   lean, thermal; float32 and float64: the first 8-byte cells and the first
+   ten-variant-field, k=3 functors) run random fields and parameters with a
+   halo of 0.5 on all three kernels: the mask rows nx-1, nx and columns
+   ny-1, ny on tile, segment and band boundaries, odd shapes, an active
+   region smaller than the grid, partial passes from an offset, the
+   resident grid at q = 1 and 2; and n = nerr - 1 = 49 at p=2 through
+   ``tiling`` in both window modes at 384x128, against ``reference``;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
@@ -49,7 +56,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    reduced n (FDTD's also from an offset across the detect iteration).
    Last, FDTD coef 1024^2 through ``fdtd.run`` as a user calls it: three
    snapshots, paused and resumed through ``iteration_offset``, each writing
-   an ``hz`` frame, which must equal one call of as many iterations;
+   an ``hz`` frame, which must equal one call of as many iterations.
+   Then ``convection.run`` of the JAX bench's experiment (2 timesteps of at
+   most 400 pseudo-transient iterations in blocks of 50): 3072x1024 in
+   float32 and float64 through ``auto`` (the tile pass), 384x128 in float64
+   through ``auto`` (the resident grid), 3072x1024 in float32 through
+   ``tiling(window_mode="linecache")`` (the line cache); each path also runs
+   one block and one thermal step against ``reference`` on the card,
+   exactly, statistics included;
 5. time the kernels, their plain versions and, where one exists, the
    PyTorch call that computes the same function, with CUDA events at the
    main paths' shapes and the config laws' geometry: the tile pass at
@@ -65,7 +79,11 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    beside them: the tile pass on one pass of the coef 1024^2 path, the
    line cache on one pass of the render 1024^2 path, the resident grid on
    coef 512^2 at n=1000, each with its plain version (device time by
-   ``torch.profiler``: a pass is shorter than its host call).
+   ``torch.profiler``: a pass is shorter than its host call). The
+   convection kernels at the four paths' shapes and geometry, one pass (the
+   resident grid: one call) of each of their updates (lean, full, thermal),
+   beside their plain versions and bounds (``convection kernels:`` line;
+   float64 operations over 34 TFLOP/s).
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
@@ -109,10 +127,17 @@ LIBRARY_ATOL = 1e-5
 #: extra source step moves hz at the source by the amplitude (~1).
 FDTD_ATOL = 0.0
 
-#: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s and float32
-#: FLOP/s outside the tensor cores.
+#: Convection kernel against plain version and against the reference
+#: backend, float32 and float64: exact. Both evaluate the same operations in
+#: the same order, with the same fused multiply-adds (``__fma_rn`` on the
+#: card, an exact emulation in the plain version).
+CONVECTION_ATOL = 0.0
+
+#: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, and float32 and
+#: float64 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+FP64_FLOP_PER_S = 34e12
 
 #: (shape, q) of the resident grid's band checks: one-row bands, 8-row
 #: bands with a ragged last band of 6 rows, 5-row bands.
@@ -123,6 +148,15 @@ MONO_BANDS = [((37, 53), 1), ((1030, 64), 1), ((1030, 64), 2), ((1030, 64), 4),
 PROBES = ("probe", "probe_tdv", "probe_radius2")
 #: The functors whose transition functions have a time-dependent value.
 TDV_OPS = ["probe_tdv", "probe_radius2", "fdtd_coef", "fdtd_lut", "fdtd_render"]
+#: The convection functors.
+CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "thermal") for width in ("f32", "f64")]
+#: Convection main paths: name -> the kernel each must launch alone.
+CONVECTION_PATHS = {
+    "convection f32 3072x1024 auto": "tile_pass",
+    "convection f64 3072x1024 auto": "tile_pass",
+    "convection f64 384x128 auto": "monotile",
+    "convection f32 3072x1024 tiling linecache": "line_cache",
+}
 
 JACOBI_COEFS = {
     "jacobi1_general": [0.9],
@@ -193,6 +227,14 @@ def fdtd_case(resolver, shape, rng, device, iteration):
     return res.MaterialCell(**fields), tf, res.MaterialCell(**halo), FDTD_ATOL
 
 
+def convection_case(op, shape, rng, device, active=None):
+    """``tile_sweep.convection_case`` (random fields and parameters, a halo
+    of 0.5) with the tolerance."""
+    from stencilstream_tpu_torch.tile_sweep import convection_case as case
+
+    return (*case(op, shape, rng, device, active), CONVECTION_ATOL)
+
+
 def op_case(op, shape, seed, device, iteration=0):
     """(cell, transition function, halo cell, tolerance) for a device
     functor: non-zero halos (HotSpot 5.0 and 0.25 for the power, Jacobi
@@ -216,6 +258,8 @@ def op_case(op, shape, seed, device, iteration=0):
         return torch.tensor(rng.random(shape) < 0.4, device=device), conway.ConwayKernel(), False, 0.0
     if op.startswith("fdtd_"):
         return fdtd_case(op[len("fdtd_"):], shape, rng, device, iteration)
+    if op.startswith("convection_"):
+        return convection_case(op, shape, rng, device)
     grid = probe.make_probe_grid(*shape, iteration, device=device)
     if op in ("probe_tdv", "probe_radius2"):
         tf = probe.ProbeTransFunc(radius_=1 if op == "probe_tdv" else 2)
@@ -224,11 +268,18 @@ def op_case(op, shape, seed, device, iteration=0):
 
 
 def max_err(a, b) -> float:
+    """Largest absolute difference of two cells' fields; a NaN on one side
+    only counts as an infinite difference, NaN on both as none."""
+    import torch
+
     from stencilstream_tpu_torch.core.cell import cell_leaves
 
-    return max(
-        float((x.double() - y.double()).abs().max()) for x, y in zip(cell_leaves(a), cell_leaves(b))
-    )
+    def err(x, y):
+        x, y = x.double(), y.double()
+        d = (x - y).abs().nan_to_num(nan=float("inf"))
+        return float(torch.where(x.isnan() & y.isnan(), 0.0, d).max())
+
+    return max(err(x, y) for x, y in zip(cell_leaves(a), cell_leaves(b)))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -246,10 +297,11 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float, flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
     """The least time, in ms, the card could take: the larger of the bytes
-    over HBM's rate and the operations over float32's."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / FP32_FLOP_PER_S
+    over HBM's rate and the operations over ``flop_rate`` (float32's unless
+    given)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -330,6 +382,81 @@ def check_tdv_probes(device, errs) -> None:
                 assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
 
+def check_convection(device, errs) -> None:
+    """Phase 3, the convection functors on all three kernels, exactly: the
+    mask rows nx-1, nx and columns ny-1, ny on the boundaries of 16x32 tile
+    cores, of 16-row segments and of 8-row bands (33x65, active 32x64), an
+    odd shape (45x70), an active region smaller than the grid (40x72,
+    active 32x64); the tile pass and the line cache on both passes of p=2
+    of a call of n=5 from 1; the resident grid at q = 1 and 2 on 8-row
+    bands and at the plan's geometry. Then n = nerr - 1 = 49 at p=2 through
+    ``tiling`` in both window modes from iteration 7 at 384x128, against
+    the reference backend; and each functor with NaN in the invariant fields
+    it does not read."""
+    import dataclasses
+
+    import torch
+
+    from stencilstream_tpu_torch import Grid, Params, create_update
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends.monotile import MAX_THREADS, MonotilePlan, monotile, monotile_plain
+    from stencilstream_tpu_torch.models import convection
+    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+
+    shapes = [((33, 65), (32, 64)), ((45, 70), (44, 69)), ((40, 72), (32, 64))]
+    for seed, op in enumerate(CONVECTION_OPS, start=800):
+        for shape, active in shapes:
+            cell, tf, halo, tol = convection_case(op, shape, np.random.default_rng(seed), device, active)
+            strip = 16 if "thermal" in op else 8
+            for i_start in (1, 3):
+                kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=2)
+                want = tile_pass_plain(cell, tf, halo, **kw)
+                got = tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+                torch.cuda.synchronize()
+                check(errs, "tile_pass", f"{op} {shape} active {active} tile=(16, 32) p=2 i_start={i_start} "
+                      f"offset=1 n=5", got, want, tol)
+                got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=32, segment_rows=16, **kw)
+                torch.cuda.synchronize()
+                check(errs, "line_cache", f"{op} {shape} active {active} strip={strip} panel=32 segment=16 p=2 "
+                      f"i_start={i_start} offset=1 n=5", got, want, tol)
+            want = monotile_plain(cell, tf, halo, offset=1, n_iterations=3)
+            for q in (1, 2, None):
+                plan = MonotilePlan(8, -(-shape[0] // 8), 0, q, MAX_THREADS) if q else None
+                got = monotile(cell, tf, halo, offset=1, n_iterations=3, plan=plan)
+                torch.cuda.synchronize()
+                check(errs, "monotile", f"{op} {shape} active {active} " + (f"band=8 q={q}" if q else "plan")
+                      + " offset=1 n=3", got, want, tol)
+        cell, tf, halo, tol = convection_case(op, (384, 128), np.random.default_rng(seed), device)
+        grid = Grid(cell)
+
+        def update(backend, **kw):
+            return create_update(Params(tf, halo_value=halo, iteration_offset=7, n_iterations=49), backend=backend,
+                                 **kw)
+
+        want = update("reference")(grid)
+        for kernel, kw in (("tile_pass", {}), ("line_cache", {"window_mode": "linecache"})):
+            got = update("tiling", iters_per_pass=2, **kw)(grid)
+            check(errs, kernel, f"{op} (384, 128) tiling {kw} p=2 offset=7 n=49 against reference", got.arrays,
+                  want.arrays, tol)
+    # The invariant fields a functor does not read (cuda_invariant_reads,
+    # which the bounds count on) can hold NaN without changing a cell.
+    for seed, op in enumerate(CONVECTION_OPS, start=820):
+        cell, tf, halo, tol = convection_case(op, (33, 65), np.random.default_rng(seed), device)
+        kw = dict(i_start=0, offset=0, n_iterations=2, iters_per_pass=2)
+        want = tile_pass_plain(cell, tf, halo, **kw)
+        unread = [f for f in convection.FIELDS if f not in tf.cuda_variant and f not in tf.cuda_invariant_reads]
+        poisoned = dataclasses.replace(cell, **{f: torch.full_like(getattr(cell, f), float("nan")) for f in unread})
+        got = tile_pass(poisoned, tf, halo, tile=(16, 32), **kw)
+        torch.cuda.synchronize()
+        got = dataclasses.replace(got, **{f: getattr(cell, f) for f in unread})  # the inputs, passed through
+        check(errs, "tile_pass", f"{op} (33, 65) with NaN in its unread fields {unread}", got, want, tol)
+    limits = cuda_lib.device_limits(device)
+    log(f"  convection cell bytes in shared memory: " + ", ".join(
+        f"{op} {cuda_lib.cell_smem_bytes(*convection_case(op, (2, 2), np.random.default_rng(0), 'cpu')[:2])} B"
+        for op in CONVECTION_OPS) + f" (limits {limits})")
+
+
 def check_kernels(device) -> dict:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -406,6 +533,7 @@ def check_kernels(device) -> dict:
             assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
     check_tdv_probes(device, errs)
+    check_convection(device, errs)
 
     # Every other functor on every kernel.
     others = [*sorted(jacobi.VARIANTS), "conway", "probe", *TDV_OPS]
@@ -551,6 +679,94 @@ def fdtd_user_run(path, counters, card, side: int = 1024) -> tuple[dict, float]:
     return counts, e
 
 
+def convection_paths(paths, counters, card) -> tuple[dict, dict, dict]:
+    """Phase 4, the four convection paths through ``convection.run`` as a
+    user calls it, each with the launch counters set to 0 just before it:
+    only the expected kernel launches; the fields are finite and the flow
+    has started. Then each path at one block and one thermal step against
+    the reference backend on the card: the same grid and statistics,
+    exactly. Returns the runs, their launch counts and their final grids."""
+    import torch
+
+    from stencilstream_tpu_torch.core.cell import cell_leaves
+
+    from stencilstream_tpu_torch.trace_cells import convection_experiment, convection_updates
+
+    nerr = convection_experiment(1).nerr
+    runs, counts, outs = {}, {}, {}
+    for name, expect in CONVECTION_PATHS.items():
+        grid, run, n, options = paths[name]
+        for module in counters.values():
+            module.launches = 0
+        out, info = run(grid, n, **options)
+        counts[name] = {k: m.launches for k, m in counters.items()}
+        runs[name], outs[name] = info, out
+        H, W = grid.shape
+        pt, wall = info["pt_update"], info["pt_walltime"]
+        cell_iterations = H * W * sum(s["iters"] for s in info["stats"])
+        log(f"  {name}: {[(s['iters'], round(s['errV'], 6), round(s['errP'], 6)) for s in info['stats']]} "
+            f"-> {getattr(pt, 'resolved_backend', 'tiling')} "
+            f"{[getattr(u, 'resolved_config', None) for u in convection_updates(info)]} (lean, full, thermal); "
+            f"launches {counts[name]}; pseudo-transient walltime {wall:.6f} s, "
+            f"{cell_iterations / wall / 1e9:.3f} GCell/s, whole run {info['total_time']:.6f} s (host clock, "
+            f"build excluded) [{card}]")
+        assert {k for k, c in counts[name].items() if c} == {expect}, (name, counts[name])
+        for field in cell_leaves(out.arrays):
+            assert tuple(field.shape) == (H, W) and bool(torch.isfinite(field).all()), name
+        assert float(out.arrays.Vy.abs().max()) > 0, name
+        got, info1 = run(grid, nerr, nt=1, **options)
+        want, ref1 = run(grid, nerr, nt=1, **{**options, "backend": "reference"})
+        e = max_err(got.arrays, want.arrays)
+        same = info1["stats"] == ref1["stats"]
+        log(f"  {name}, one block and one thermal step: against reference max_abs_err={e:.3g} "
+            f"(tol {CONVECTION_ATOL}), statistics equal: {same}")
+        assert e <= CONVECTION_ATOL and same, (name, e, info1["stats"], ref1["stats"])
+        del got, want
+    return runs, counts, outs
+
+
+def convection_kernel_rows(runs, counts, outs, device, card) -> dict:
+    """Phase 5, the convection kernels on each path's final grid at the
+    path's geometry: one pass of each of its updates (lean, full, thermal;
+    the resident grid: one call of the update's n), device time by
+    ``torch.profiler``, beside the plain version. Bound: each variant field
+    read and written once, and each invariant field the functor reads read
+    once (``cuda_lib.cell_traffic_bytes``; float32: full 44 + 40 B a cell,
+    lean 36 + 32, thermal 12 + 4; float64 twice that), or ``n_operations``
+    a cell-iteration (the pseudo-transient kernel: the reference harness's
+    50) over 67 TFLOP/s in float32 and 34 in float64. No single PyTorch call
+    computes a pass. Returns one row a (path, update)."""
+    from stencilstream_tpu_torch.backends.cuda_lib import cell_traffic_bytes
+    from stencilstream_tpu_torch.models import convection
+    from stencilstream_tpu_torch.tile_sweep import device_ms
+    from stencilstream_tpu_torch.trace_cells import convection_updates, kernel_launch
+
+    rows = {}
+    halo = convection.zero_cell()
+    for name, kernel in CONVECTION_PATHS.items():
+        cell = outs[name].arrays
+        H, W = cell.T.shape
+        for update in convection_updates(runs[name]):
+            tf = update.params.transition_function
+            launched, fn, plain, what, n = kernel_launch(update, cell, halo)
+            assert launched == kernel, (name, launched)
+            ms, call_ms, plain_ms = device_ms(fn, 5), cuda_ms(fn, 5), cuda_ms(plain, 1)
+            assert ms > 0, f"the profiler saw no {kernel} kernel"
+            e = max_err(fn(), plain())
+            read, written = cell_traffic_bytes(cell, tf)
+            wide = tf.dtype.itemsize == 8
+            b, by = bound((read + written) * H * W, tf.n_operations * n * H * W,
+                          FP64_FLOP_PER_S if wide else FP32_FLOP_PER_S)
+            row = f"{name} {tf.cuda_op}"
+            log(f"  {kernel} {row} {H}x{W}, {what}: kernel {ms:.4f} ms (device time; {call_ms:.4f} ms a call back "
+                f"to back) = {b / ms:.1%} of its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, library none: no "
+                f"single PyTorch call, max_abs_err={e:.3g}, {counts[name][kernel]} launches on the path [{card}]")
+            assert e <= CONVECTION_ATOL, (row, e)
+            rows[row] = dict(kernel=kernel, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                             max_abs_err=e, launches=counts[name][kernel], workload=f"{tf.cuda_op} {H}x{W}, {what}")
+    return rows
+
+
 def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) -> dict:
     """Phase 5, FDTD's kernels on the main paths' state after their runs and
     at their geometry (no single PyTorch call computes FDTD): one pass of
@@ -653,6 +869,12 @@ def main() -> int:
     for line in report.splitlines():
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
+    from stencilstream_tpu_torch.tile_sweep import kernel_report
+
+    for kernel in ("tile_pass_kernel", "monotile_kernel", "line_cache_kernel"):
+        for functor, lines in kernel_report(report, kernel).items():
+            if "Convection" in functor:
+                log(f"  ptxas {kernel} {functor}: {' | '.join(lines)}")
 
     # Phase 3: kernels against their plain versions.
     log("kernel checks:")
@@ -675,11 +897,13 @@ def main() -> int:
         "fdtd lut 1024^2 auto": (12, FDTD_ATOL, {"tile_pass"}),
     }
     paths = main_paths(device)
-    assert set(paths) == set(checks), sorted(paths)
+    assert set(paths) == set(checks) | set(CONVECTION_PATHS), sorted(paths)
     totals = dict.fromkeys(counters, 0)
     path_errs = dict.fromkeys(counters, 0.0)
     runs, path_counts, fdtd_outs = {}, {}, {}
     for name, (grid, run, n, options) in paths.items():
+        if name in CONVECTION_PATHS:
+            continue
         n_small, tol, expect = checks[name]
         for module in counters.values():
             module.launches = 0
@@ -722,6 +946,10 @@ def main() -> int:
     for k in counters:
         totals[k] += counts[k]
     path_errs["tile_pass"] = max(path_errs["tile_pass"], e)
+    conv_runs, conv_counts, conv_outs = convection_paths(paths, counters, card)
+    for name, kernel in CONVECTION_PATHS.items():
+        for k in counters:
+            totals[k] += conv_counts[name][k]
     log(f"main path launches: {totals}")
     del paths
     torch.cuda.empty_cache()
@@ -906,6 +1134,11 @@ def main() -> int:
     log("fdtd kernels: " + json.dumps(fdtd_kernels))
     for k, row in fdtd_kernels.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], row["max_abs_err"])
+    conv_kernels = convection_kernel_rows(conv_runs, conv_counts, conv_outs, device, card)
+    log("convection kernels: " + json.dumps(conv_kernels))
+    for row in conv_kernels.values():
+        kernels[row["kernel"]]["max_abs_err"] = max(kernels[row["kernel"]]["max_abs_err"], row["max_abs_err"])
+    del conv_outs
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     order = ("tile_pass", "monotile", "line_cache")

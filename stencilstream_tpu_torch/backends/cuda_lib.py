@@ -109,14 +109,14 @@ def device_limits(device) -> DeviceLimits:
     return DeviceLimits(props.multi_processor_count, props.shared_memory_per_block_optin)
 
 
-def fit_shared_memory(need, geometry, p: int, auto_p: bool, shrink, limits: DeviceLimits, describe):
+def fit_shared_memory(need, geometry, p: int, auto_p: bool, shrink, limits: DeviceLimits, sized_for: int, describe):
     """The line-cache law's shrinking loop. While ``need(geometry, p)``
-    bytes exceed half the shared memory a block may use (so that two CTAs
-    share an SM), shrink the geometry (``shrink(geometry)``, ``None`` when it
-    is smallest), then ``p`` when it was not given. Returns ``(geometry,
-    p)``; raises ``ValueError``, naming ``describe(geometry, p)``, when the
-    result exceeds all of it."""
-    while need(geometry, p) > limits.smem_per_block // 2:
+    bytes exceed the shared memory a block may use divided by ``sized_for``
+    (so that that many CTAs share an SM), shrink the geometry
+    (``shrink(geometry)``, ``None`` when it is smallest), then ``p`` when it
+    was not given. Returns ``(geometry, p)``; raises ``ValueError``, naming
+    ``describe(geometry, p)``, when the result exceeds all of it."""
+    while need(geometry, p) > limits.smem_per_block // sized_for:
         if (smaller := shrink(geometry)) is not None:
             geometry = smaller
         elif auto_p and p > 1:
@@ -366,6 +366,24 @@ def cell_field_bytes(arrays: Any, tf: Any) -> tuple[int, int]:
     for j, t in enumerate(cell_leaves(arrays)):
         sizes[bool(names) and names[j] not in variant] += t.element_size()
     return sizes[0], sizes[1]
+
+
+def cell_traffic_bytes(arrays: Any, tf: Any) -> tuple[int, int]:
+    """Bytes of one cell that a pass must read and write at the least: each
+    variant field read and written, and of the invariant fields those the
+    functor reads (``tf.cuda_invariant_reads``, every one when it names
+    none). The kernels stage every invariant field all the same."""
+    names = cell_field_names(arrays)
+    variant = getattr(tf, "cuda_variant", names)
+    reads = getattr(tf, "cuda_invariant_reads", None)
+    read = written = 0
+    for j, t in enumerate(cell_leaves(arrays)):
+        if not names or names[j] in variant:
+            read += t.element_size()
+            written += t.element_size()
+        elif reads is None or names[j] in reads:
+            read += t.element_size()
+    return read, written
 
 
 def cell_smem_bytes(arrays: Any, tf: Any) -> int:

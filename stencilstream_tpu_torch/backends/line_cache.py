@@ -60,17 +60,34 @@ __all__ = [
 #: Kernel launches made by :func:`line_cache_pass` (CUDA tensors only).
 launches = 0
 
+
+class LineLaw(NamedTuple):
+    """One :data:`LINE_LAW` entry."""
+
+    strip_rows: int
+    window_cols: int
+    halo: int
+    ctas_per_sm: int
+    waves: int
+    sized_for: int
+
 #: The line-cache geometry that ran fastest per iteration at 8192^2 on an
 #: NVIDIA H100 80GB HBM3 at 700 W (``tile_sweep.py``, linecache part;
 #: PERF.md), by the bytes of one cell's fields (variant and invariant):
-#: ``(strip rows, window columns, halo r*p*k, CTAs per SM, waves)``. Jacobi
+#: :class:`LineLaw` ``(strip rows, window columns, halo r*p*k, CTAs per SM,
+#: waves, CTAs a window is sized for)``. Jacobi
 #: 4 B, HotSpot 8 B, Conway 1 B, the probe 20 B (five int32 fields, k=2);
 #: FDTD's cells at 1024^2 (k=2), whose passes are short enough that the
 #: host's call shows in the time per iteration: of two geometries within
 #: 5% of each other, the one with more iterations a pass. Render 16 B
 #: (strip 16, window 64, p=4: 95.6 us an iteration back to back, 82.7 us of
 #: kernel, against 110 us of kernel at the 8 B entry's geometry) and coef
-#: 32 B (strip 16, window 96, p=4: 50.5 us).
+#: 32 B (strip 16, window 96, p=4: 50.5 us). Convection's float32 cells
+#: at 3072x1024, 44 B each (pseudo-transient full and lean, thermal), by
+#: the lean one, which runs 49 of every 50 iterations: strip 16, window
+#: 128, p=2, one CTA an SM, one wave (299.7 us an iteration of device
+#: time, against 337.9 at the 32 B entry's geometry shrunk to a window of
+#: 64 for two CTAs).
 #: The window, core plus the halo on either side, is a whole number of
 #: warps, so every level of the narrowing window covers the same 32-column
 #: chunks; at another halo the law keeps the window and moves the panel.
@@ -78,14 +95,17 @@ launches = 0
 #: occupancy calculator reported at that geometry (registers and shared
 #: memory). Segments are cut so that the CTAs make ``waves`` waves: with
 #: one wave, the CTAs that walk edge panels or the grid's top set the pass's
-#: time.
+#: time. The window shrinks until a CTA fits the shared memory a block may
+#: use divided by the CTAs it is sized for: two where the sweep found two
+#: or more CTAs an SM best, one for the one-CTA entry.
 LINE_LAW = {
-    1: (32, 192, 8, 5, 2),
-    4: (32, 160, 8, 4, 3),
-    8: (32, 192, 8, 2, 3),
-    16: (16, 64, 8, 4, 2),
-    20: (8, 128, 4, 3, 3),
-    32: (16, 96, 8, 2, 2),
+    1: LineLaw(32, 192, 8, 5, 2, 2),
+    4: LineLaw(32, 160, 8, 4, 3, 2),
+    8: LineLaw(32, 192, 8, 2, 3, 2),
+    16: LineLaw(16, 64, 8, 4, 2, 2),
+    20: LineLaw(8, 128, 4, 3, 3, 2),
+    32: LineLaw(16, 96, 8, 2, 2, 2),
+    44: LineLaw(16, 128, 6, 1, 1, 1),
 }
 #: Columns one warp covers: the narrowest panel the kernel takes.
 WARP = 32
@@ -200,8 +220,8 @@ def pick_linecache_config(
     * Unless given, the largest ``p`` whose halo ``r*p*k`` stays within the
       law's. Panels of :func:`law_panel`; then the window (down to two
       warps), the strip (when not given, down to one run) and ``p`` (when
-      not given) shrink until a CTA fits half the shared memory a block may
-      use.
+      not given) shrink until a CTA fits the shared memory a block may use
+      divided by the entry's ``sized_for``.
     * Segments (:func:`segment_rows`): as many per panel as the law's waves
       of CTAs hold, at the law's CTAs per SM, or as many as the shared
       memory holds if fewer (:func:`ctas_per_sm`);
@@ -211,7 +231,7 @@ def pick_linecache_config(
     Raises ``ValueError`` for a strip shorter than ``2r`` or a CTA that
     cannot fit.
     """
-    strip, law_window, halo, ctas, waves = law_entry(variant_bytes + invariant_bytes)
+    strip, law_window, halo, ctas, waves, sized_for = law_entry(variant_bytes + invariant_bytes)
     given_strip = strip_rows is not None
     T = int(strip_rows) if given_strip else strip
     check_geometry(T, WARP, radius, 1)
@@ -236,7 +256,7 @@ def pick_linecache_config(
         return None
 
     (T, window), p = fit_shared_memory(
-        smem, (T, law_window), p, auto_p, shrink, limits,
+        smem, (T, law_window), p, auto_p, shrink, limits, sized_for,
         lambda g, p: f"a line-cache CTA of {g[0]} rows x a {g[1]}-column window at iters_per_pass={p}",
     )
     steps = p * n_subiterations

@@ -77,12 +77,17 @@ launches = 0
 #: 10.70 ms for n=1000 against 13.59 at q=1 and 19.58 with two CTAs of 512).
 #: Two CTAs of 512 threads an SM (bands half as tall) lost at every q, and
 #: q=8 lost to q=4 for Jacobi5. Conway's 2 B cells were not swept and take
-#: the smallest entry.
+#: the smallest entry. Convection's cells, 76-168 B, at 384x128 (3-row
+#: bands, so q=3 is the most a band takes; n=200): q=3 beat q=2 by 14-25%
+#: in every cell, the float64 lean cell, 152 B, 2.58 ms against 3.35, and
+#: two CTAs of 512 (2-row bands) lost at every q; the float32 thermal cell,
+#: 48 B, shares FDTD's entry.
 MONO_LAW = {
     8: (4, 1024),
     12: (4, 1024),
     40: (2, 1024),
     48: (2, 1024),
+    76: (3, 1024),
 }
 #: Threads a CTA of the kernel has at most (one CTA an SM).
 MAX_THREADS = 1024

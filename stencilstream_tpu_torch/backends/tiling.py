@@ -43,6 +43,14 @@ __all__ = ["StencilUpdate", "pick_config", "TILE_LAW"]
 #: FDTD's coef cell 48 B at 1024^2 (16x128, p=4: 36.6 us an iteration back
 #: to back and 24.2 us of kernel, against 29.6 us of kernel at the 40 B
 #: entry's 16x128, p=2, and half the passes for the host to launch).
+#: Convection's cells at 3072x1024 (k=3, ten variant fields; k=2 thermal),
+#: by profiler device time an iteration: the lean pseudo-transient cell,
+#: 76 B in float32, 24x64 at p=2 (241.6 us, against 272.3 at the 48 B
+#: entry's shrunk 16x64); its full cell, 84 B, runs one iteration a call,
+#: so p=1: 8x128 (287.7 us); in float64 the lean cell, 152 B, 16x32 at p=2
+#: (399.6 us), the full one, 168 B, 8x64 at p=1 (553.7 us), and the thermal
+#: cell, 96 B, one iteration a call: 24x64 (196.7 us, against 247.8 at the
+#: shrunk 8x128). The float32 thermal cell, 48 B, shares FDTD's entry.
 #: Heights are whole 8-cell runs. The one-field cells' windows (core plus
 #: twice the halo) are whole 32-lane warps wide, so the sub-steps' narrowing
 #: windows waste fewer lanes than a core of whole warps would.
@@ -52,6 +60,11 @@ TILE_LAW = {
     12: ((56, 112), 8, 2),
     40: ((32, 128), 4, 1),
     48: ((16, 128), 8, 1),
+    76: ((24, 64), 6, 1),
+    84: ((8, 128), 3, 1),
+    96: ((24, 64), 2, 1),
+    152: ((16, 32), 6, 1),
+    168: ((8, 64), 3, 1),
 }
 
 

@@ -17,13 +17,17 @@ import numpy as np
 import torch
 
 from .core.grid import Grid
-from .models import fdtd, jacobi
+from .models import convection, fdtd, jacobi
 from .models.hotspot import HotspotCell, HotspotKernel
 from .probe import ProbeCell
 from .tdv import PrecomputeOnHostTDV
 
 __all__ = [
     "StreamTDV",
+    "convection_experiment",
+    "convection_grid",
+    "convection_pt_kernel",
+    "convection_thermal_kernel",
     "conway_grid",
     "fdtd_grid",
     "fdtd_kernel",
@@ -105,6 +109,29 @@ def fdtd_grid(resolver_name: str, arrays: Any, *, device) -> Grid:
     """The port's FDTD grid for a resolver from a JAX FDTD grid's
     ``to_numpy()``."""
     return grid_from_numpy(fdtd.RESOLVERS[resolver_name].MaterialCell, arrays, device=device)
+
+
+def convection_experiment(fields: Any) -> convection.Experiment:
+    """The port's convection :class:`~.models.convection.Experiment` from a
+    JAX one's fields."""
+    return convection.Experiment(**_as_dict(fields))
+
+
+def convection_grid(arrays: Any, *, device) -> Grid:
+    """The port's convection grid (float32 or float64, as given) from a JAX
+    convection grid's ``to_numpy()``."""
+    return grid_from_numpy(convection.ThermalConvectionCell, arrays, device=device)
+
+
+def convection_pt_kernel(fields: Any) -> convection.PseudoTransientKernel:
+    """The port's pseudo-transient kernel from a JAX one's fields
+    (``with_err`` included); its parameters' dtype names the functor's."""
+    return transition_function_from_fields(convection.PseudoTransientKernel, fields)
+
+
+def convection_thermal_kernel(fields: Any) -> convection.ThermalSolverKernel:
+    """The port's thermal kernel from a JAX one's fields."""
+    return transition_function_from_fields(convection.ThermalSolverKernel, fields)
 
 
 class StreamTDV(PrecomputeOnHostTDV):

@@ -2,6 +2,7 @@
 
     python -m stencilstream_tpu_torch.tile_sweep [--out sweep.jsonl]
         [--parts grid,sass,linecache,linecache-sass,monotile] [--ops hotspot,jacobi5,conway,probe,fdtd]
+        (also --ops convection_pt_f32,convection_pt_lean_f64,convection_thermal_f32,...)
         [--passes 2,4,8] [--strips 16,32,64] [--windows 64,128] [--waves 1,2,3]
         [--qs 1,2,4,8] [--threads 1024,512]
 
@@ -11,7 +12,9 @@ Five parts, each printing one JSON line per measurement:
   memory, for HotSpot (12 B a cell in shared memory), Jacobi5 (8 B), Conway
   (2 B) and the probe (40 B) at 8192^2, and FDTD's coef cell (48 B) at
   1024^2 on smaller tiles (:data:`FDTD_TILES`; also its lut and render
-  cells, ``fdtd_lut`` and ``fdtd_render``), with the CTAs per SM that
+  cells, ``fdtd_lut`` and ``fdtd_render``), and the convection functors
+  (``convection_{pt,pt_lean,thermal}_{f32,f64}``, 48-168 B, k=3 and 2) at
+  the JAX bench's 3072x1024 on :data:`CONVECTION_TILES`, with the CTAs per SM that
   the CUDA occupancy calculator reports, the time of a pass with no step
   active (staging and write-back alone, ``copy_ms``), and the cells the
   thread map computes per useful cell-step (:func:`thread_map_work`).
@@ -36,7 +39,8 @@ Five parts, each printing one JSON line per measurement:
   bodies together).
 * ``monotile``: the resident-grid kernel, one call of n=1000 iterations, at
   each (threads per CTA, q) that fits: HotSpot and Jacobi5 at 1024^2, the
-  probe at 600^2, FDTD's coef cell at 512^2 (:data:`MONO_SIZES`); one CTA
+  probe at 600^2, FDTD's coef cell at 512^2, the convection functors at
+  384x128 (:data:`MONO_SIZES`); one CTA
   of 1024 threads an SM, or
   two of 512 (bands half as tall), and q sub-steps per exchange with q*r
   at most the band. With the lane-cells the thread map computes per useful
@@ -66,9 +70,9 @@ from .core.cell import cell_leaves
 from .backends import line_cache as lc
 from .backends import monotile as mt
 from .backends import tile_pass as tp
-from .models import conway, fdtd, hotspot, jacobi
+from .models import convection, conway, fdtd, hotspot, jacobi
 from .tdv import tdv_stream
-from .trace_cells import JACOBI5_COEFS
+from .trace_cells import JACOBI5_COEFS, convection_experiment
 from . import probe
 
 __all__ = ["main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "TILES", "PASSES"]
@@ -84,6 +88,13 @@ TILES = [(32, 64), (64, 64), (64, 96), (32, 128), (64, 128), (128, 64), (96, 96)
 #: windows of ~4.8k cells; one cell a thread, so heights need not be runs.
 FDTD_TILES = [(8, 64), (8, 128), (16, 64), (16, 96), (16, 128), (16, 192), (24, 64), (24, 96),
               (24, 128), (32, 64), (32, 96), (32, 128), (48, 64), (64, 64)]
+#: Core tiles of the convection functors' geometry sweep: their 48-168 B
+#: cells (k=3 for the pseudo-transient ones) leave room for windows of 1.4k
+#: to 4.8k cells; one cell a thread for ten variant fields.
+CONVECTION_TILES = [(8, 32), (8, 64), (8, 96), (8, 128), (16, 32), (16, 64), (16, 96), (16, 128), (24, 32),
+                    (24, 64), (32, 32), (32, 64), (48, 32)]
+#: The convection functors' grid: the JAX bench's 3072x1024 (res 1024).
+CONVECTION_SHAPE = (3072, 1024)
 #: Iterations per pass of the geometry sweep.
 PASSES = [2, 4, 6, 8, 12, 16]
 SIZE = 8192
@@ -94,8 +105,9 @@ SIZES = {"fdtd": 1024}
 #: sweep: whole runs, and whole warps.
 STRIPS = [16, 32, 64]
 WINDOWS = [64, 96, 128, 160, 192, 256]
-#: Grid side of each resident-grid case (the probe's 40 B a cell fit at 600^2).
-MONO_SIZES = {"hotspot": 1024, "jacobi5": 1024, "probe": 600, "fdtd": 512}
+#: Grid side, or shape, of each resident-grid case (the probe's 40 B a cell
+#: fit at 600^2; convection at res 128).
+MONO_SIZES = {"hotspot": 1024, "jacobi5": 1024, "probe": 600, "fdtd": 512, "convection": (384, 128)}
 #: Device functor of each swept case, as ptxas names its instantiation.
 FUNCTORS = {"hotspot": "HotspotOp", "jacobi5": "Jacobi5GeneralOp", "conway": "ConwayOp", "probe": "ProbeOp",
             "fdtd": "FdtdCoefOp"}
@@ -111,6 +123,49 @@ def fdtd_case(device, size, resolver="coef"):
     for f in ("ex", "ey", "hz", "hz_sum"):
         setattr(cell, f, torch.tensor(rng.uniform(-1, 1, (size, size)).astype(np.float32), device=device))
     return cell, fdtd.make_kernel(parameters, res), res.halo_cell()
+
+
+def convection_sweep_case(device, op, shape=CONVECTION_SHAPE):
+    """A convection functor's cell on ``shape``: random fields (a flow in
+    progress), the JAX bench experiment's parameters at that size, the
+    active region the grid less its last row and column."""
+    rng = np.random.default_rng(6)
+    dtype = np.float64 if op.endswith("f64") else np.float32
+    e = convection_experiment(shape[1])
+    assert (e.nx + 1, e.ny + 1) == tuple(shape), shape
+    cell = convection.ThermalConvectionCell(**{
+        f: torch.tensor(rng.standard_normal(shape).astype(dtype), device=device) for f in convection.FIELDS})
+    if "thermal" in op:
+        tf = convection.make_thermal_kernel(e, dtype, dt=e.dt_diff)
+    else:
+        tf = convection.make_pseudo_transient_kernel(e, dtype, with_err="lean" not in op)
+    assert tf.cuda_op == op, (tf.cuda_op, op)
+    return cell, tf, convection.zero_cell()
+
+
+def convection_case(op, shape, rng, device, active=None):
+    """(cell, transition function, halo cell) of convection functor ``op``
+    for holding a kernel against its plain version: random fields and
+    random parameters that are not powers of two (the viscosity's
+    temperature coefficient of order 0.1), the active region ``active =
+    (nx, ny)`` (default: the grid less its last row and column) and a halo
+    of 0.5 in every field."""
+    dtype = np.float64 if op.endswith("f64") else np.float32
+    nx, ny = active or (shape[0] - 1, shape[1] - 1)
+    fields = {f: torch.tensor(rng.standard_normal(shape).astype(dtype), device=device) for f in convection.FIELDS}
+    u = lambda lo, hi: dtype(rng.uniform(lo, hi))  # noqa: E731
+    if "thermal" in op:
+        tf = convection.ThermalSolverKernel(nx=nx, ny=ny, dx=u(.05, .2), dy=u(.05, .2), dt=u(1e-3, 1e-2),
+                                            DcT=u(.3, 1.5))
+    else:
+        tf = convection.PseudoTransientKernel(
+            nx=nx, ny=ny, roh0_g_alpha=u(30, 300), delta_eta_delta_T=u(.05, .2), eta0=u(.5, 2),
+            deltaT=u(.5, 2), dx=u(.05, .2), dy=u(.05, .2), delta_tau_iter=u(.01, .1), beta=u(.5, 2),
+            rho=u(.5, 2), dampX=u(.8, 1), dampY=u(.8, 1), with_err="lean" not in op,
+        )
+    assert tf.cuda_op == op, (tf.cuda_op, op)
+    halo = convection.ThermalConvectionCell(**{f: 0.5 for f in convection.FIELDS})
+    return convection.ThermalConvectionCell(**fields), tf, halo
 
 
 def cases(device, size=SIZE, ops=("hotspot", "jacobi5", "conway", "probe")):
@@ -131,8 +186,10 @@ def cases(device, size=SIZE, ops=("hotspot", "jacobi5", "conway", "probe")):
         "conway": (torch.tensor(rng.random(shape) < 0.35, device=device), conway.ConwayKernel(), False),
         "probe": (probe.make_probe_grid(*shape, 0, device=device).arrays, probe.ProbeKernel(),
                   probe.probe_halo_cell()),
-    } if any(not op.startswith("fdtd") for op in ops) else {}
+    } if any(not op.startswith(("fdtd", "convection")) for op in ops) else {}
     for op in ops:
+        if op.startswith("convection"):
+            work[op] = convection_sweep_case(device, op)
         if op.startswith("fdtd"):
             work[op] = fdtd_case(device, SIZES["fdtd"] if size == SIZE else size,
                                  "coef" if op == "fdtd" else op[len("fdtd_"):])
@@ -233,24 +290,28 @@ def timed(fn, reps: int) -> float:
 
 
 def device_ms(fn, reps: int, attempts: int = 3) -> float:
-    """Mean device time, in ms, of the package's kernels that ``fn()``
-    launches, by ``torch.profiler`` over ``reps`` calls after a warm-up.
-    Unlike :func:`timed` it leaves out the card's idle time between calls,
-    which a kernel shorter than its host call leaves. A profiled window in
-    which the profiler saw no kernel (it missed some early in a process) is
+    """Mean device time, in ms, of the package's kernels that one call of
+    ``fn()`` launches, by ``torch.profiler`` over ``reps`` calls after a
+    warm-up. Unlike :func:`timed` it leaves out the card's idle time
+    between calls, which a kernel shorter than its host call leaves. The
+    profiler can miss a launch (one of five in some windows), so the time
+    is the mean of the launches it saw, times the launches a call makes. A
+    window in which it saw none (it missed some early in a process) is
     profiled again, up to ``attempts`` times; 0 if it never sees one."""
+    from .trace_cells import profiled
+
+    def calls():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     for _ in range(attempts):
-        with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-                 for e in prof.key_averages() if "ss::" in e.key and "_kernel" in e.key)
-        if us > 0:
-            return us / 1e3 / reps
+        _, kernels, _ = profiled(calls)
+        count = sum(k["count"] for k in kernels.values())
+        if count:
+            return sum(k["ms"] for k in kernels.values()) / count * max(1, round(count / reps))
     return 0.0
 
 
@@ -303,11 +364,14 @@ def main(argv=None) -> int:
     limits = cuda_lib.device_limits(device)
     if "monotile" in parts:
         emit(dict(part="monotile-build", ptxas=kernel_report(cuda_lib.build()[2], "monotile_kernel")))
-        for op in ("hotspot", "jacobi5", "probe", "fdtd"):
-            if op not in args.ops.split(","):
+        for op in args.ops.split(","):
+            if op.startswith("convection"):
+                cell, tf, halo = convection_sweep_case(device, op, MONO_SIZES["convection"])
+            elif op in MONO_SIZES:
+                cell, tf, halo = cases(device, MONO_SIZES[op], ops=(op,))[op]
+            else:
                 continue
-            size = MONO_SIZES[op]
-            cell, tf, halo = cases(device, size, ops=(op,))[op]
+            H, W = cell_leaves(cell)[0].shape
             r, k, n = tf.stencil_radius, tf.n_subiterations, args.mono_n
             cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
             stream = tdv_stream(tf, 0, n, device)
@@ -315,19 +379,19 @@ def main(argv=None) -> int:
             run = tp.RUN_ROWS if cuda_lib.op_info(tf.cuda_op)["n_variant"] == 1 else 1
             for threads in map(int, args.threads.split(",")):
                 per_sm = mt.MAX_THREADS // threads
-                band = max(r, -(-size // (limits.sm_count * per_sm)))
+                band = max(r, -(-H // (limits.sm_count * per_sm)))
                 for q in map(int, args.qs.split(",")):
-                    smem = mt.monotile_smem_bytes(band, q, size, r, cell_bytes)
+                    smem = mt.monotile_smem_bytes(band, q, W, r, cell_bytes)
                     if q * r > band or smem > mt.smem_budget(limits, per_sm):
                         continue
-                    plan = mt.MonotilePlan(band, -(-size // band), mt.monotile_smem_bytes(band, 1, size, r, cell_bytes),
+                    plan = mt.MonotilePlan(band, -(-H // band), mt.monotile_smem_bytes(band, 1, W, r, cell_bytes),
                                            q, threads)
                     fn = lambda: mt.monotile(cell, tf, halo, offset=0, n_iterations=n, plan=plan, tdv=stream)  # noqa: E731
                     e = max_err(fn(), want)
                     ms = timed(fn, 5)
-                    emit(dict(part="monotile", op=op, size=size, cell_bytes=cell_bytes, threads=threads, q=q,
+                    emit(dict(part="monotile", op=op, size=[H, W], cell_bytes=cell_bytes, threads=threads, q=q,
                               band=band, n_ctas=plan.n_ctas, n=n, ms=ms, us_per_substep=ms * 1e3 / (n * k),
-                              smem=smem, ctas_per_sm=mt.monotile_residency(tf, plan, size, device),
+                              smem=smem, ctas_per_sm=mt.monotile_residency(tf, plan, W, device),
                               lane_cells_per_cell_step=mono_work(band, q, r, run), max_abs_err=e))
             del cell, want
         if parts == {"monotile"}:
@@ -351,7 +415,8 @@ def main(argv=None) -> int:
             run = tp.RUN_ROWS if cuda_lib.op_info(tf.cuda_op)["n_variant"] == 1 else 1
             for p in map(int, args.passes.split(",")):
                 stream = tdv_stream(tf, 0, p, device)
-                for tile in FDTD_TILES if op.startswith("fdtd") else TILES:
+                tiles = FDTD_TILES if op.startswith("fdtd") else CONVECTION_TILES if op.startswith("convection") else TILES
+                for tile in tiles:
                     hp = tf.stencil_radius * p * tf.n_subiterations
                     smem = tp.tile_smem_bytes(*tile, hp, cell_bytes)
                     if smem > limits.smem_per_block or hp > min(tile):
@@ -362,7 +427,7 @@ def main(argv=None) -> int:
                     dev_ms = device_ms(fn, 5)
                     copy_ms = timed(lambda: run_pass(cell, tf, halo, tile, p, 0), 5)
                     lanes, window = thread_map_work(tile, hp, tf.stencil_radius, run)
-                    emit(dict(part="grid", op=op, size=cell_leaves(cell)[0].shape[0], cell_bytes=cell_bytes,
+                    emit(dict(part="grid", op=op, size=list(cell_leaves(cell)[0].shape), cell_bytes=cell_bytes,
                               tile=list(tile), p=p, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
                               device_ms_per_iteration=dev_ms / p, copy_ms=copy_ms, smem=smem,
                               ctas_per_sm=tp.tile_pass_residency(tf, tile, p, device),
@@ -386,17 +451,18 @@ def main(argv=None) -> int:
                     smem = lc.line_cache_smem_bytes(strip, panel, r, steps, variant, invariant)
                     if panel < lc.WARP or smem > limits.smem_per_block or strip < 2 * r:
                         continue
+                    if strip % lc.run_rows(cell, tf):
+                        continue
                     per_sm = lc.line_cache_residency(tf, strip, panel, p, device)
                     warmup = lc.warmup_rows(r, steps, strip)
-                    size = cell_leaves(cell)[0].shape[0]
-                    segment = lc.segment_rows(size, strip, -(-size // panel), per_sm * limits.sm_count * waves,
-                                              warmup)
+                    H, W = cell_leaves(cell)[0].shape
+                    segment = lc.segment_rows(H, strip, -(-W // panel), per_sm * limits.sm_count * waves, warmup)
                     fn = lambda: run_line_cache(cell, tf, halo, strip, panel, segment, p, tdv=stream)  # noqa: E731
                     e = max_err(fn(), plain(op, p))
                     ms = timed(fn, 5)
                     dev_ms = device_ms(fn, 5)
                     copy_ms = timed(lambda: run_line_cache(cell, tf, halo, strip, panel, segment, p, 0), 5)
-                    emit(dict(part="linecache", op=op, size=size, strip=strip, window=window, panel=panel, p=p,
+                    emit(dict(part="linecache", op=op, size=[H, W], strip=strip, window=window, panel=panel, p=p,
                               waves=waves, segment=segment, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
                               device_ms_per_iteration=dev_ms / p, copy_ms=copy_ms, smem=smem,
                               ctas_per_sm=per_sm,

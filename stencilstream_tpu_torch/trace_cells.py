@@ -5,21 +5,29 @@
 Drives each main-path run (:func:`main_paths`, which ``chip_smoke.py``
 drives too) through the entry point a user calls (HotSpot 1024² and
 8192², Jacobi5 8192² in both tiling window modes, Jacobi5 1024², Conway
-8192², and FDTD's mono-benchmark with its time axis cut: coef 1024² and
-512², render 1024² through the line cache, lut 1024²): one warm-up call,
-five calls timed on
+8192², FDTD's mono-benchmark with its time axis cut: coef 1024² and
+512², render 1024² through the line cache, lut 1024²; and ``convection.run``
+of the JAX bench's experiment: 3072×1024 in float32 and float64 through
+``auto``, 384×128 in float64 through ``auto``, 3072×1024 in float32 through
+the line cache): one warm-up call, five calls timed on
 the host clock (``blocking=True``, so each ends in a synchronize), then
 one call under ``torch.profiler``. Prints one JSON line per run: the five
-walltimes and GCell/s, the device time and count of each kernel in the
-profiled call, and the kernels' share of the mean unprofiled walltime.
-For each run that resolves to ``monotile`` it then prints the host time of
-each stage of the call (:func:`monotile_host_split`). Needs a CUDA card;
+walltimes and GCell/s, the card's SM clock and power draw meanwhile
+(:class:`CardSampler`), the device time and count of each of the package's
+kernels in the profiled call, the device time of everything else the call
+ran on the card, and the kernels' share of the mean unprofiled walltime
+(for convection, :func:`trace_convection`: the pseudo-transient updates'
+walltime and GCell/s, as the JAX CLI's "transient computation time", and
+the whole run's device share and idle time a block).
+For each stencil run that resolves to ``monotile`` it then prints the host
+time of each stage of the call (:func:`monotile_host_split`). Needs a CUDA card;
 there is no CPU fallback.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -29,9 +37,12 @@ import numpy as np
 import torch
 
 from . import Grid
-from .models import conway, fdtd, hotspot, jacobi
+from .models import convection, conway, fdtd, hotspot, jacobi
 
-__all__ = ["fdtd_run", "main", "main_paths"]
+__all__ = [
+    "CardSampler", "convection_experiment", "convection_run", "convection_updates", "fdtd_run", "kernel_launch",
+    "main", "main_paths", "profiled",
+]
 
 JACOBI5_COEFS = [0.15, 0.2, 0.25, 0.1, 0.3]  # the JAX package's bench.py:244
 
@@ -71,6 +82,11 @@ def main_paths(device) -> dict:
         "fdtd render 1024^2 tiling linecache": fdtd_run(
             "render", 1024, "precompute_on_device", device, backend="tiling", window_mode="linecache"),
         "fdtd lut 1024^2 auto": fdtd_run("lut", 1024, "inline", device, **auto),
+        "convection f32 3072x1024 auto": convection_run(1024, np.float32, device, **auto),
+        "convection f64 3072x1024 auto": convection_run(1024, np.float64, device, **auto),
+        "convection f64 384x128 auto": convection_run(128, np.float64, device, **auto),
+        "convection f32 3072x1024 tiling linecache": convection_run(
+            1024, np.float32, device, backend="tiling", window_mode="linecache"),
     }
 
 
@@ -92,6 +108,96 @@ def fdtd_run(resolver: str, side: int, strategy, device, **options) -> tuple:
             {"tdv_strategy": strategy, **options})
 
 
+def convection_experiment(res: int) -> convection.Experiment:
+    """The JAX bench's convection experiment
+    (``stencilstream_tpu/bench/__main__.py:116-150``) at ``res``: an
+    ``(3 res) x res`` grid, 2 timesteps of at most 400 pseudo-transient
+    iterations in blocks of 50."""
+    return convection.Experiment(
+        lx=3.0, ly=1.0, px=1.5, py=0.5, eta0=1.0, DcT=1.0, deltaT=1.0, Ra=1e7, Pra=1e3, res=res,
+        iterMax=400, nt=2, nout=1, nerr=50, epsilon=1e-3, dmp=2.0,
+    )
+
+
+def convection_run(res: int, dtype, device, **options) -> tuple:
+    """``convection.run`` of :func:`convection_experiment` at ``res`` in
+    ``dtype`` as one main-path run ``(grid, run, n, options)``: ``grid`` is
+    the run's initial grid (``init_grid``; the run makes its own from the
+    experiment), ``n`` the experiment's ``iterMax``; ``run(grid, n,
+    nt=None, **kw)`` runs it with ``iterMax = n`` (and ``nt`` timesteps when
+    given) and returns ``convection.run``'s ``(grid, info)``."""
+    e = convection_experiment(res)
+
+    def run_convection(grid, n, nt=None, **kw):
+        cut = dataclasses.replace(e, iterMax=n, nt=e.nt if nt is None else nt)
+        return convection.run(cut, dtype=dtype, verbose=False, device=device, **kw)
+
+    return convection.init_grid(e, dtype, device=device), run_convection, e.iterMax, options
+
+
+def convection_updates(info: dict) -> list:
+    """The updaters of one ``convection.run``: the lean one (when the run
+    split its blocks), the full one, the thermal one."""
+    return [u for u in (info["lean_update"], info["pt_update"], info["thermal_update"]) if u is not None]
+
+
+def kernel_launch(update, cell, halo) -> tuple:
+    """One launch of the kernel ``update`` resolved to, at its geometry, on
+    ``cell``: ``(kernel, fn, plain, what, n)``. The tile pass and the line
+    cache run one pass of the update's ``p`` iterations from 0, the
+    resident grid one call of its ``n``; ``plain`` is the same work in the
+    plain version, ``n`` the iterations it runs."""
+    from .backends import line_cache as lc
+    from .backends import monotile as mt
+    from .backends import tile_pass as tp
+
+    tf = update.params.transition_function
+    cfg = getattr(update, "resolved_config", None) or {}
+    if getattr(update, "resolved_backend", None) == "monotile" or isinstance(update, mt.StencilUpdate):
+        n = update.params.n_iterations
+        return ("monotile", lambda: mt.monotile(cell, tf, halo, offset=0, n_iterations=n),
+                lambda: mt.monotile_plain(cell, tf, halo, offset=0, n_iterations=n), f"one call of n={n}", n)
+    n = cfg["iters_per_pass"]
+    kw = dict(i_start=0, offset=0, n_iterations=n, iters_per_pass=n)
+    plain = lambda: tp.tile_pass_plain(cell, tf, halo, **kw)  # noqa: E731
+    if cfg["window_mode"] == "linecache":
+        geometry = {k: cfg[k] for k in ("strip_rows", "panel_cols", "segment_rows")}
+        return ("line_cache", lambda: lc.line_cache_pass(cell, tf, halo, **geometry, **kw), plain,
+                f"one pass of p={n}, {geometry}", n)
+    tile = (cfg["tile_rows"], cfg["tile_cols"])
+    return ("tile_pass", lambda: tp.tile_pass(cell, tf, halo, tile=tile, **kw), plain,
+            f"one pass of p={n}, tile {tile}", n)
+
+
+class CardSampler:
+    """The card's SM clock (MHz) and power draw (W), sampled by
+    ``nvidia-smi`` every ``period_ms`` while the ``with`` block runs (the
+    block starts once the first sample is in); ``summary`` holds each
+    one's minimum, median and maximum and the number of samples."""
+
+    def __init__(self, period_ms: int = 20):
+        self.period_ms = period_ms
+        self.summary: dict = {}
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw", "--format=csv,noheader,nounits",
+             f"-lms={self.period_ms}"], stdout=subprocess.PIPE, text=True)
+        self.first = self.proc.stdout.readline()
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        rest, _ = self.proc.communicate(timeout=30)
+        rows = [tuple(float(v) for v in line.split(",")) for line in (self.first + rest).splitlines()[1:]
+                if line.strip()]
+        for j, key in enumerate(("sm_clock_mhz", "power_w")):
+            values = sorted(row[j] for row in rows)
+            self.summary[key] = [values[0], values[len(values) // 2], values[-1]] if values else []
+        self.summary["samples"] = len(rows)
+        return False
+
+
 def _device_us(event) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -99,20 +205,30 @@ def _device_us(event) -> float:
     return 0.0
 
 
+def profiled(fn) -> tuple:
+    """``fn()`` under ``torch.profiler``: its result, and the device time
+    and count of each of the package's kernels (``ss::..._kernel``) and of
+    every other operation on the card (copies, fills, PyTorch's own
+    kernels), in ms."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        result = fn()
+    kernels, other = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA or _device_us(e) <= 0:
+            continue
+        ours = "ss::" in e.key and "_kernel" in e.key
+        (kernels if ours else other)[e.key] = {"ms": _device_us(e) / 1e3, "count": e.count}
+    return result, kernels, other
+
+
 def trace(name, grid, run, n, options) -> tuple[dict, object]:
     """The run's record, and its transition function."""
     run(grid, n, **options)  # warm up
-    walltimes = [run(grid, n, **options)[1].get_walltime() for _ in range(5)]
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        _, update = run(grid, n, **options)
-    kernels = {
-        e.key: {"ms": _device_us(e) / 1e3, "count": e.count}
-        for e in prof.key_averages()
-        if _device_us(e) > 0
-    }
+    with CardSampler() as card:
+        walltimes = [run(grid, n, **options)[1].get_walltime() for _ in range(5)]
+    (_, update), kernels, other = profiled(lambda: run(grid, n, **options))
     device_ms = sum(k["ms"] for k in kernels.values())
-    mean_s = sum(walltimes) / len(walltimes)
     cells = grid.shape[0] * grid.shape[1] * n
     return {
         "run": name,
@@ -120,11 +236,66 @@ def trace(name, grid, run, n, options) -> tuple[dict, object]:
         "config": update.resolved_config,
         "walltime_s": walltimes,
         "gcell_per_s": [cells / t / 1e9 for t in walltimes],
+        "card_during_runs": card.summary,
         "profiled_walltime_s": update.get_walltime(),
         "device_kernels": kernels,
         "device_ms": device_ms,
-        "kernel_share_of_walltime": device_ms / 1e3 / mean_s,
+        "other_device_ms": sum(k["ms"] for k in other.values()),
+        "kernel_share_of_walltime": device_ms / 1e3 / (sum(walltimes) / len(walltimes)),
     }, update.params.transition_function
+
+
+def trace_convection(name, grid, run, n, options) -> dict:
+    """A convection run's record: walltime and GCell/s of its
+    pseudo-transient updates (``pt_walltime``, as the JAX CLI's "transient
+    computation time") and the whole run's ``total_time``, five calls each,
+    with the card's clock and power meanwhile; in the profiled call the
+    device time of the pseudo-transient kernels, of the thermal kernels, of
+    the initial grid's upload (``init_grid``, before the run's clock
+    starts) and of every other operation on the card (the error
+    reductions and their host reads); the pseudo-transient kernels' share
+    of the mean pseudo-transient walltime, the device's share of the mean
+    whole run, and the whole run's time a block of ``nerr`` iterations in
+    which the card was busy with nothing."""
+    run(grid, n, **options)  # warm up
+    with CardSampler() as card:
+        infos = [run(grid, n, **options)[1] for _ in range(5)]
+    (_, info), kernels, other = profiled(lambda: run(grid, n, **options))
+    updates = convection_updates(info)
+    pt_updates = updates[:-1]
+    cells = grid.shape[0] * grid.shape[1] * sum(s["iters"] for s in info["stats"])
+    walltimes = [i["pt_walltime"] for i in infos]
+    totals = [i["total_time"] for i in infos]
+    thermal_ms = sum(k["ms"] for key, k in kernels.items() if "Thermal" in key)
+    pt_ms = sum(k["ms"] for k in kernels.values()) - thermal_ms
+    upload_ms = sum(k["ms"] for key, k in other.items() if "HtoD" in key)
+    other_ms = sum(k["ms"] for k in other.values()) - upload_ms
+    # A block: nerr - 1 lean iterations and one full one, or nerr full ones.
+    n_blocks = sum(s["iters"] for s in info["stats"]) // sum(u.params.n_iterations for u in pt_updates)
+    mean_total = sum(totals) / len(totals)
+    return {
+        "run": name,
+        "backend": getattr(info["pt_update"], "resolved_backend", "tiling"),
+        "config": {"lean": getattr(info["lean_update"], "resolved_config", None),
+                   "full": getattr(info["pt_update"], "resolved_config", None),
+                   "thermal": getattr(info["thermal_update"], "resolved_config", None)},
+        "stats": info["stats"],
+        "walltime_s": walltimes,
+        "gcell_per_s": [cells / t / 1e9 for t in walltimes],
+        "total_time_s": totals,
+        "card_during_runs": card.summary,
+        "profiled_walltime_s": info["pt_walltime"],
+        "profiled_total_time_s": info["total_time"],
+        "device_kernels": kernels,
+        "other_device": other,
+        "pt_device_ms": pt_ms,
+        "thermal_device_ms": thermal_ms,
+        "upload_device_ms": upload_ms,
+        "other_device_ms": other_ms,
+        "kernel_share_of_walltime": pt_ms / 1e3 / (sum(walltimes) / len(walltimes)),
+        "device_share_of_total_time": (pt_ms + thermal_ms + other_ms) / 1e3 / mean_total,
+        "idle_ms_per_block": (mean_total * 1e3 - pt_ms - thermal_ms - other_ms) / n_blocks,
+    }
 
 
 def monotile_host_split(grid, tf, n, reps: int = 20) -> dict:
@@ -217,11 +388,15 @@ def main(argv=None) -> int:
     for name, (grid, run, n, options) in main_paths(torch.device("cuda", 0)).items():
         if wanted and not any(w in name for w in wanted):
             continue
-        result, tf = trace(name, grid, run, n, options)
+        tf = None
+        if name.startswith("convection"):
+            result = trace_convection(name, grid, run, n, options)
+        else:
+            result, tf = trace(name, grid, run, n, options)
         result["card"] = card
         lines.append(json.dumps(result))
         print(lines[-1], flush=True)
-        if result["backend"] == "monotile":
+        if tf is not None and result["backend"] == "monotile":
             split = monotile_host_split(grid, tf, n)
             lines.append(json.dumps({"run": name, "monotile_host_split": split, "card": card}))
             print(lines[-1], flush=True)

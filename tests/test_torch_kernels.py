@@ -32,9 +32,11 @@ from stencilstream_tpu_torch.backends import line_cache as lc
 from stencilstream_tpu_torch.backends import monotile as mt
 from stencilstream_tpu_torch.backends import tile_pass as tp
 from stencilstream_tpu_torch.core.cell import cell_leaves
-from stencilstream_tpu_torch.models import conway, fdtd, jacobi
+from stencilstream_tpu_torch.models import convection, conway, fdtd, jacobi
 from stencilstream_tpu_torch.models import hotspot as hs
 from stencilstream_tpu_torch.tdv import tdv_stream
+from stencilstream_tpu_torch.tile_sweep import convection_case
+from stencilstream_tpu_torch.trace_cells import convection_experiment
 
 STRONG = dict(Rx_1=np.float32(0.1), Ry_1=np.float32(0.1), Rz_1=np.float32(0.05), Cap_1=np.float32(0.5))
 ATOL = 1e-4
@@ -63,6 +65,9 @@ TDV_OPS = ["probe_tdv", "probe_radius2", "fdtd_coef", "fdtd_lut", "fdtd_render"]
 ALL_OPS = OPS + TDV_OPS
 #: The probes, whose cells must all stay Normal.
 PROBES = ("probe", "probe_tdv", "probe_radius2")
+#: The convection functors: pseudo-transient (full and lean) and thermal, in
+#: float32 and float64.
+CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "thermal") for width in ("f32", "f64")]
 
 
 def _case(op, shape, seed, device, iteration=0):
@@ -79,6 +84,8 @@ def _case(op, shape, seed, device, iteration=0):
         return torch.tensor(rng.random(shape) < 0.4, device=device), conway.ConwayKernel(), False, 0
     if op.startswith("fdtd_"):
         return _fdtd_case(op[len("fdtd_"):], shape, rng, device, iteration)
+    if op.startswith("convection_"):
+        return (*convection_case(op, shape, rng, device), 0)
     grid = probe.make_probe_grid(*shape, iteration, device=device)
     if op in ("probe_tdv", "probe_radius2"):
         return grid.arrays, probe.ProbeTransFunc(radius_=1 if op == "probe_tdv" else 2), probe.probe_halo_cell(), 0
@@ -163,12 +170,13 @@ def test_every_functor_is_instantiated_in_every_kernel():
     kernel source expands its entry macro over that list."""
     listed = re.findall(r"X\((\w+), ss::(\w+)\)", (cuda_lib.CSRC / "ops" / "all.cuh").read_text())
     names = [name for name, _ in listed]
-    assert sorted(names) == sorted(OPS + TDV_OPS) and len(set(names)) == len(names)
+    assert sorted(names) == sorted(OPS + TDV_OPS + CONVECTION_OPS) and len(set(names)) == len(names)
     assert len({op for _, op in listed}) == len(listed)
     for tf in (hs.HotspotKernel(), conway.ConwayKernel(), probe.ProbeKernel(),
                *(jacobi.make_kernel(v, JACOBI_COEFS.get(v, [])) for v in jacobi.VARIANTS),
                *(probe.ProbeTransFunc(radius_=r) for r in (1, 2)),
-               *(fdtd.make_kernel(_fdtd_parameters(20), cls(_fdtd_parameters(20))) for cls in fdtd.RESOLVERS.values())):
+               *(fdtd.make_kernel(_fdtd_parameters(20), cls(_fdtd_parameters(20))) for cls in fdtd.RESOLVERS.values()),
+               *(_case(op, (2, 2), 0, "cpu")[1] for op in CONVECTION_OPS)):
         assert tf.cuda_op in names
     for src in cuda_lib.SOURCES:
         assert re.search(r"^SS_FOR_EACH_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
@@ -712,3 +720,102 @@ def test_fdtd_paths_launch_their_kernel(cuda, resolver, side, backend, kw, strat
         assert launched == (set() if name == "reference" else {expect}), (name, launched)
     assert _max_err(outs[backend].arrays, outs["reference"].arrays) == 0
     assert float(outs[backend].arrays.hz_sum.abs().max()) > 0
+
+
+# -- convection: float64 cells and ten variant fields on the card --------------
+
+#: (shape, active region (nx, ny)): the mask rows nx-1, nx and columns ny-1,
+#: ny on the boundaries of 16x32 tile cores, of 16-row segments and of
+#: 8-row bands (33x65: 32 and 64); odd shapes; an active region smaller
+#: than the grid.
+CONVECTION_SHAPES = [((33, 65), (32, 64)), ((45, 70), (44, 69)), ((40, 72), (32, 64))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,active", CONVECTION_SHAPES, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("op", CONVECTION_OPS)
+def test_convection_functors_on_every_kernel(cuda, op, shape, active):
+    """Exact against the plain versions: the tile pass at 16x32 cores, p=2
+    from iteration 1 of a call of 5 from 1 (the second pass partial); the
+    line cache at strips of 8 (one-row runs) or 16 (the thermal functor's
+    8-row runs), panels of 32, segments of 16; the resident grid at q=1 and
+    2 on 8-row bands, and the plan's geometry."""
+    cell, tf, halo = convection_case(op, shape, np.random.default_rng(31), cuda, active)
+    for i_start in (1, 3):
+        kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=2)
+        want = tp.tile_pass_plain(cell, tf, halo, **kw)
+        before = (tp.launches, lc.launches)
+        got = tp.tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+        assert _max_err(got, want) == 0, ("tile_pass", i_start)
+        strip = 16 if "thermal" in op else 8
+        got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=32, segment_rows=16, **kw)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) == 0, ("line_cache", i_start)
+        assert (tp.launches, lc.launches) == (before[0] + 1, before[1] + 1)
+    want = mt.monotile_plain(cell, tf, halo, offset=1, n_iterations=3)
+    for plan in (_band_plan(shape, 1, cuda_lib.device_limits(cuda), band=8),
+                 _band_plan(shape, 2, cuda_lib.device_limits(cuda), band=8), None):
+        got = mt.monotile(cell, tf, halo, offset=1, n_iterations=3, plan=plan)
+        torch.cuda.synchronize()
+        assert _max_err(got, want) == 0, ("monotile", plan)
+    assert got.T is cell.T if "pt" in op else got.Vx is cell.Vx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", CONVECTION_OPS)
+def test_convection_partial_passes_through_tiling(cuda, op):
+    """n = nerr - 1 = 49 at p=2 (24 full passes and a partial one) through
+    ``tiling`` in both window modes, against the reference backend on the
+    card: exact. 384x128 (res 128), an iteration offset of 7."""
+    cell, tf, halo = convection_case(op, (384, 128), np.random.default_rng(32), cuda)
+    grid = Grid(cell)
+
+    def update(backend, **kw):
+        return create_update(Params(tf, halo_value=halo, iteration_offset=7, n_iterations=49), backend=backend, **kw)
+
+    want = update("reference")(grid)
+    for kw in ({"iters_per_pass": 2}, {"iters_per_pass": 2, "window_mode": "linecache"}):
+        before = (tp.launches, lc.launches)
+        got = update("tiling", **kw)(grid)
+        launched = (tp.launches - before[0], lc.launches - before[1])
+        assert launched == ((0, 25) if "window_mode" in kw else (25, 0))
+        assert _max_err(got.arrays, want.arrays) == 0, kw
+
+
+@pytest.mark.gpu
+def test_convection_refuses_a_grid_of_another_dtype(cuda):
+    cell, tf, halo = convection_case("convection_pt_f32", (33, 65), np.random.default_rng(33), cuda)
+    wide = convection.ThermalConvectionCell(**{f: getattr(cell, f).double() for f in convection.FIELDS})
+    with pytest.raises(TypeError, match="float32"):
+        tp.tile_pass(wide, tf, halo, tile=(16, 32), i_start=0, offset=0, n_iterations=1, iters_per_pass=1)
+    with pytest.raises(TypeError, match="float32"):
+        mt.monotile(wide, tf, halo, offset=0, n_iterations=1)
+
+
+#: The convection paths of chip_smoke.py at one block and one thermal step:
+#: (res, dtype, backend, options, the kernel it must launch).
+CONVECTION_PATHS = [
+    (1024, np.float32, "auto", {}, "tile_pass"),
+    (1024, np.float64, "auto", {}, "tile_pass"),
+    (128, np.float64, "auto", {}, "monotile"),
+    (1024, np.float32, "tiling", {"window_mode": "linecache"}, "line_cache"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res,dtype,backend,kw,expect", CONVECTION_PATHS,
+                         ids=[f"{r}-{d.__name__}-{b}-{e}" for r, d, b, _, e in CONVECTION_PATHS])
+def test_convection_paths_launch_their_kernel(cuda, res, dtype, backend, kw, expect):
+    """``convection.run`` of the JAX bench's experiment, cut to one block of
+    nerr iterations and one thermal step, through the backend a user calls:
+    only the expected kernel launches, and the grid and the statistics equal
+    the reference backend's run on the card."""
+    e = dataclasses.replace(convection_experiment(res), iterMax=50, nt=1)
+    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
+    before = {k: m.launches for k, m in counters.items()}
+    got, info = convection.run(e, backend=backend, dtype=dtype, verbose=False, device=cuda, **kw)
+    launched = {k for k, m in counters.items() if m.launches != before[k]}
+    assert launched == {expect}
+    want, want_info = convection.run(e, backend="reference", dtype=dtype, verbose=False, device=cuda)
+    assert info["stats"] == want_info["stats"]
+    assert _max_err(got.arrays, want.arrays) == 0

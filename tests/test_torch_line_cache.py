@@ -263,10 +263,10 @@ def test_law_window_is_whole_warps(cell, shape, limits):
     hp = cfg.iters_per_pass * k
     window = cfg.panel_cols + 2 * hp
     assert window % lc.WARP == 0 and cfg.panel_cols >= lc.WARP
-    law_window = lc.law_entry(variant + invariant)[1]
-    fits = lc.line_cache_smem_bytes(cfg.strip_rows, law_window - 2 * hp, 1, hp, variant, invariant)
-    if shape[1] + 2 * hp >= law_window and fits <= limits.smem_per_block // 2:
-        assert window == law_window
+    law = lc.law_entry(variant + invariant)
+    fits = lc.line_cache_smem_bytes(cfg.strip_rows, law.window_cols - 2 * hp, 1, hp, variant, invariant)
+    if shape[1] + 2 * hp >= law.window_cols and fits <= limits.smem_per_block // law.sized_for:
+        assert window == law.window_cols
 
 
 @pytest.mark.parametrize("cell,shape,limits", _law_cases())

@@ -193,3 +193,22 @@ def test_thread_map_work_counts_whole_chunks_and_runs(tile, halo, radius, run, w
     from stencilstream_tpu_torch.tile_sweep import thread_map_work
 
     assert thread_map_work(tile, halo, radius, run) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("seen,want", [(5, 0.8), (4, 0.8), (10, 1.6), (9, 1.6)])
+def test_device_ms_averages_the_launches_the_profiler_saw(monkeypatch, seen, want):
+    """``tile_sweep.device_ms`` is the mean device time of the launches the
+    profiler recorded (0.8 ms each here), times the launches a call makes
+    (1 where it saw about 5 in 5 calls, 2 where about 10): a launch it
+    missed (one of five in some windows) does not shorten the mean."""
+    from stencilstream_tpu_torch import tile_sweep, trace_cells
+
+    def fake_profiled(fn):
+        fn()
+        return None, {"void ss::tile_pass_kernel<ss::HotspotOp>(args)": {"ms": 0.8 * seen, "count": seen}}, {}
+
+    monkeypatch.setattr(trace_cells, "profiled", fake_profiled)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    calls = []
+    assert tile_sweep.device_ms(lambda: calls.append(1), 5) == pytest.approx(want)
+    assert len(calls) == 6

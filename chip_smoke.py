@@ -39,7 +39,13 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    ny-1, ny on tile, segment and band boundaries, odd shapes, an active
    region smaller than the grid, partial passes from an offset, the
    resident grid at q = 1 and 2; and n = nerr - 1 = 49 at p=2 through
-   ``tiling`` in both window modes at 384x128, against ``reference``;
+   ``tiling`` in both window modes at 384x128, against ``reference``. The
+   narrow-storage instantiations (bfloat16 HotSpot, Jacobi5 and FDTD coef,
+   float8 e4m3 Jacobi5) run every case of the other functors' tile-pass,
+   line-cache and band loops, exactly, NaN equal to NaN (widths 1001-1003
+   leave a bfloat16 row that is not a whole number of 16-byte copies); and
+   float8 overflow must come out NaN on every kernel as in the plain
+   version;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
@@ -63,7 +69,15 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    through ``auto`` (the resident grid), 3072x1024 in float32 through
    ``tiling(window_mode="linecache")`` (the line cache); each path also runs
    one block and one thermal step against ``reference`` on the card,
-   exactly, statistics included;
+   exactly, statistics included. Then the narrow paths the JAX bench's
+   ``bf16_storage`` rows run, their cells cast with ``cast_storage`` and
+   their kernels wrapped in ``CastStorageKernel``: Jacobi5 8192^2 in
+   bfloat16 through ``auto`` (the tile pass, the bench's pinned
+   ``jacobi_tiling_bf16``) and through ``tiling(window_mode="linecache")``
+   (the line cache), HotSpot 8192^2 and FDTD coef 1024^2 in bfloat16
+   through ``auto`` (the tile pass), Jacobi5 1024^2 in bfloat16 through
+   ``auto`` (the resident grid), Jacobi5 8192^2 in float8 e4m3 through
+   ``tiling``; each at a reduced n against ``reference``, exactly;
 5. time the kernels, their plain versions and, where one exists, the
    PyTorch call that computes the same function, with CUDA events at the
    main paths' shapes and the config laws' geometry: the tile pass at
@@ -83,11 +97,17 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    convection kernels at the four paths' shapes and geometry, one pass (the
    resident grid: one call) of each of their updates (lean, full, thermal),
    beside their plain versions and bounds (``convection kernels:`` line;
-   float64 operations over 34 TFLOP/s).
+   float64 operations over 34 TFLOP/s). The bfloat16 kernels
+   (:func:`narrow_kernel_rows`): one Jacobi5 8192^2 pass through the tile
+   pass and the line cache in turns against p ``conv2d`` calls on bfloat16
+   tensors, Jacobi5 1024^2 on the resident grid, and beside them HotSpot
+   bf16, Jacobi5 float8 and FDTD coef bf16 passes.
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
-resident grid: HotSpot 1024^2; line cache: Jacobi5 8192^2), with its bound:
+resident grid: HotSpot 1024^2; line cache: Jacobi5 8192^2), and each again
+on bfloat16 cells (``<kernel>_bf16``: Jacobi5 8192^2 on the tile pass and
+the line cache, Jacobi5 1024^2 on the resident grid), with its bound:
 the larger of the bytes it must move over 3.35 TB/s and its float32
 operations (the transition function's ``n_operations``, a fused
 multiply-add counted as two) over 67 TFLOP/s (H100 SXM at 700 W). The last
@@ -133,6 +153,17 @@ FDTD_ATOL = 0.0
 #: card, an exact emulation in the plain version).
 CONVECTION_ATOL = 0.0
 
+#: Narrow storage (bfloat16, float8 e4m3) kernel against plain version and
+#: against the reference backend: exact, a NaN equal to a NaN. Both compute
+#: the same float32 operations and round each result to the storage type to
+#: nearest even (float8 overflow to NaN).
+NARROW_ATOL = 0.0
+#: The bfloat16 conv2d yardstick against the plain version, values in
+#: [0, 1]: cuDNN accumulates each call in float32 in its own order and
+#: rounds once, the kernels round each multiply-add as the JAX package
+#: does, so the two part by up to an ulp at 1 (2^-7) a step, p=8 steps.
+LIBRARY_BF16_ATOL = 8 * 2.0 ** -7
+
 #: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, and float32 and
 #: float64 FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
@@ -156,6 +187,19 @@ CONVECTION_PATHS = {
     "convection f64 3072x1024 auto": "tile_pass",
     "convection f64 384x128 auto": "monotile",
     "convection f32 3072x1024 tiling linecache": "line_cache",
+}
+
+#: The narrow instantiations (csrc/ops/all.cuh: SS_FOR_EACH_NARROW_OP), by
+#: their entry points' names.
+NARROW_OPS = ["hotspot__bf16", "jacobi5_general__bf16", "fdtd_coef__bf16", "jacobi5_general__e4m3"]
+#: Narrow main paths: name -> the kernel each must launch alone.
+NARROW_PATHS = {
+    "jacobi5 bf16 8192^2 auto": "tile_pass",
+    "jacobi5 bf16 8192^2 tiling linecache": "line_cache",
+    "hotspot bf16 8192^2 auto": "tile_pass",
+    "fdtd coef bf16 1024^2 auto": "tile_pass",
+    "jacobi5 bf16 1024^2 auto": "monotile",
+    "jacobi5 e4m3 8192^2 tiling": "tile_pass",
 }
 
 JACOBI_COEFS = {
@@ -239,12 +283,21 @@ def op_case(op, shape, seed, device, iteration=0):
     """(cell, transition function, halo cell, tolerance) for a device
     functor: non-zero halos (HotSpot 5.0 and 0.25 for the power, Jacobi
     5.0, FDTD's :func:`fdtd_case`); the probes' cells sit at
-    ``iteration``."""
+    ``iteration``. A narrow instantiation, ``<functor>__<storage>``, gets
+    the functor's case with its float32 fields cast to the storage type
+    and its transition function wrapped (``CastStorageKernel``)."""
     import torch
 
     from stencilstream_tpu_torch import probe
+    from stencilstream_tpu_torch.backends.cuda_lib import STORAGE_SUFFIX
+    from stencilstream_tpu_torch.backends.storage_cast import CastStorageKernel, cast_storage
     from stencilstream_tpu_torch.models import conway, hotspot, jacobi
 
+    functor, _, suffix = op.partition("__")
+    if suffix:
+        (storage,) = [d for d, s in STORAGE_SUFFIX.items() if s == suffix]
+        cell, tf, halo, _ = op_case(functor, shape, seed, device, iteration)
+        return cast_storage(cell, storage), CastStorageKernel(tf, storage), halo, NARROW_ATOL
     rng = np.random.default_rng(seed)
     if op == "hotspot":
         strong = hotspot.HotspotKernel(
@@ -303,6 +356,21 @@ def bound(n_bytes: float, n_flops: float, flop_rate: float = FP32_FLOP_PER_S) ->
     given)."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def library_jacobi(y, steps):
+    """``steps`` Jacobi5 iterations of the JAX bench's coefficients at halo
+    0 as ``conv2d`` calls on ``y``'s dtype: the PyTorch yardstick."""
+    import torch
+
+    from stencilstream_tpu_torch.trace_cells import JACOBI5_COEFS
+
+    c = JACOBI5_COEFS
+    w = torch.tensor([[0, c[0], 0], [c[1], c[4], c[3]], [0, c[2], 0]], dtype=y.dtype, device=y.device)
+    w, y = w.view(1, 1, 3, 3), y.view(1, 1, *y.shape)
+    for _ in range(steps):
+        y = torch.nn.functional.conv2d(y, w, padding=1)
+    return y.view(y.shape[2:])
 
 
 def in_turns(cell, tf, halo, tile, p, limits, reps) -> dict:
@@ -457,6 +525,41 @@ def check_convection(device, errs) -> None:
         for op in CONVECTION_OPS) + f" (limits {limits})")
 
 
+def check_float8_overflow(device, errs) -> None:
+    """Phase 3, float8 overflow: Jacobi5 in float8 e4m3 with coefficients
+    summing to 2.5 on values in [20, 260] and in [10, 150] must come out NaN
+    where the plain version does (not saturated to 448), on all three
+    kernels."""
+    import torch
+
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends.monotile import monotile
+    from stencilstream_tpu_torch.backends.storage_cast import CastStorageKernel, cast_storage
+    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+    from stencilstream_tpu_torch.models import jacobi
+
+    # Values in [20, 260] overflow on the first step (the second reads NaN),
+    # in [10, 150] on the second (beside results that round to 448).
+    e4m3 = torch.float8_e4m3fn
+    tf = CastStorageKernel(jacobi.make_kernel("jacobi5_general", [0.5] * 5), e4m3)
+    kw = dict(i_start=0, offset=0, n_iterations=2, iters_per_pass=2)
+    for lo, hi in ((20, 260), (10, 150)):
+        x = torch.tensor(np.random.default_rng(950).uniform(lo, hi, (96, 160)).astype(np.float32), device=device)
+        cell = cast_storage(x, e4m3)
+        want = tile_pass_plain(cell, tf, 1.0, **kw)
+        n_nan = int(want.float().isnan().sum())
+        assert 0 < n_nan < want.numel(), n_nan
+        runs = {"tile_pass": lambda: tile_pass(cell, tf, 1.0, tile=(32, 64), **kw),
+                "line_cache": lambda: lc.line_cache_pass(cell, tf, 1.0, strip_rows=16, panel_cols=64,
+                                                         segment_rows=32, **kw),
+                "monotile": lambda: monotile(cell, tf, 1.0, offset=0, n_iterations=2)}
+        for kernel, run in runs.items():
+            got = run()
+            torch.cuda.synchronize()
+            check(errs, kernel, f"jacobi5_general float8_e4m3fn overflow, values in [{lo}, {hi}], (96, 160) n=2: "
+                  f"{n_nan} NaN cells", got, want, NARROW_ATOL)
+
+
 def check_kernels(device) -> dict:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -509,7 +612,7 @@ def check_kernels(device) -> dict:
     # (37), but none with q*r beyond the band; every probe cell must stay
     # Normal. Then a single CTA that holds the whole grid, q=4, from
     # iteration 2.
-    for seed, op in enumerate(["hotspot", "jacobi5_general", "probe", *TDV_OPS], start=600):
+    for seed, op in enumerate(["hotspot", "jacobi5_general", "probe", *TDV_OPS, *NARROW_OPS], start=600):
         for shape, q in MONO_BANDS:
             cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=3)
             n = 3 if tf.n_subiterations == 2 else 5
@@ -534,9 +637,10 @@ def check_kernels(device) -> dict:
 
     check_tdv_probes(device, errs)
     check_convection(device, errs)
+    check_float8_overflow(device, errs)
 
     # Every other functor on every kernel.
-    others = [*sorted(jacobi.VARIANTS), "conway", "probe", *TDV_OPS]
+    others = [*sorted(jacobi.VARIANTS), "conway", "probe", *TDV_OPS, *NARROW_OPS]
     for seed, op in enumerate(others, start=200):
         # 600^2: the probe's 40 B a cell still fit the resident grid there.
         for shape in ((45, 70), (600, 600)):
@@ -616,7 +720,7 @@ def check_kernels(device) -> dict:
         torch.cuda.synchronize()
         check(errs, "line_cache", f"{op} {shape} strip={strip} panel={panel} segment={segment} "
               f"p={p} i_start={i_start} offset={offset} n={n}", got, want, tol)
-        if op == "hotspot":
+        if op.partition("__")[0] == "hotspot":
             assert got.power is cell.power, "invariant field must be passed through"
         if op in PROBES:
             assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
@@ -767,14 +871,141 @@ def convection_kernel_rows(runs, counts, outs, device, card) -> dict:
     return rows
 
 
+def narrow_kernel_rows(runs, path_counts, device, card, limits, n_mono: int) -> dict:
+    """Phase 5, the three kernels on bfloat16 cells at the narrow paths'
+    geometry: one Jacobi5 8192^2 pass through the tile pass (at the bf16
+    ``auto`` path's tile and p) and the line cache (at its law's geometry
+    for that p) in turns, against p ``conv2d`` calls on bfloat16 tensors;
+    Jacobi5 1024^2, n=``n_mono``, on the resident grid, against as many
+    ``conv2d`` calls. Bound: 2 B read and 2 B written a cell
+    (``cuda_lib.cell_traffic_bytes``), or n_operations a cell-iteration.
+    Beside them, logged: HotSpot 8192^2 bf16 and Jacobi5 8192^2 float8 one
+    pass of the tile pass, FDTD coef 1024^2 bf16 one pass (device time by
+    ``torch.profiler``), each against its plain version. Returns one row a
+    kernel."""
+    import torch
+
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends import monotile as mt
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.backends.storage_cast import CastStorageKernel, cast_storage
+    from stencilstream_tpu_torch.models import hotspot, jacobi
+    from stencilstream_tpu_torch.tdv import tdv_stream
+    from stencilstream_tpu_torch.tile_sweep import device_ms
+    from stencilstream_tpu_torch.trace_cells import JACOBI5_COEFS
+
+    launches = dict.fromkeys(("tile_pass", "line_cache", "monotile"), 0)
+    for name in NARROW_PATHS:
+        for k in launches:
+            launches[k] += path_counts[name][k]
+    j5 = CastStorageKernel(jacobi.make_kernel("jacobi5_general", JACOBI5_COEFS))
+    x = cast_storage(torch.tensor(np.random.default_rng(11).random((8192, 8192), np.float32), device=device))
+    cells = 8192 * 8192
+    cfg = runs["jacobi5 bf16 8192^2 auto"].resolved_config
+    p, tile = cfg["iters_per_pass"], (cfg["tile_rows"], cfg["tile_cols"])
+    kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
+    t = in_turns(x, j5, 0.0, tile, p, limits, 20)
+    plain = tp.tile_pass_plain(x, j5, 0.0, **kw)
+    plain_ms = cuda_ms(lambda: tp.tile_pass_plain(x, j5, 0.0, **kw), 2)
+    errs = {k: max_err(out, plain) for k, out in t["out"].items()}
+    torch.backends.cudnn.benchmark = True
+    lib_ms = cuda_ms(lambda: library_jacobi(x, p), 10)
+    lib_err = max_err(library_jacobi(x, p), plain)
+    read, written = cuda_lib.cell_traffic_bytes(x, j5)
+    b, by = bound((read + written) * cells, j5.n_operations * p * cells)
+    lc_geometry = {k: runs["jacobi5 bf16 8192^2 tiling linecache"].resolved_config[k] for k in t["geometry"]}
+    log(f"  jacobi5 bf16 8192x8192 p={p}: tile_pass {t['times']['tile_pass']} ms at {tile}, line_cache "
+        f"{t['times']['line_cache']} ms at {t['geometry']} (in turns; the path ran {lc_geometry}), plain "
+        f"{plain_ms:.4f} ms, {p} x bf16 conv2d {lib_ms:.4f} ms tuned, against plain max_abs_err={lib_err:.3g} (tol "
+        f"{LIBRARY_BF16_ATOL}: cuDNN rounds once a call); kernels against plain {errs}; bound {b:.4f} ms ({by}, "
+        f"{read} + {written} B a cell): tile_pass {b / t['ms']['tile_pass']:.1%}, line_cache "
+        f"{b / t['ms']['line_cache']:.1%}; {tp.tile_pass_residency(j5, tile, p, device)} tile-pass and "
+        f"{lc.line_cache_residency(j5, t['geometry']['strip_rows'], t['geometry']['panel_cols'], p, device)} "
+        f"line-cache CTAs resident per SM [{card}]")
+    assert max(errs.values()) <= NARROW_ATOL and lib_err <= LIBRARY_BF16_ATOL, (errs, lib_err)
+    rows = {}
+    for k in ("tile_pass", "line_cache"):
+        where = f"tile {tile}" if k == "tile_pass" else str(t["geometry"])
+        rows[k] = dict(ms=t["ms"][k], plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms,
+                       max_abs_err=errs[k], launches=launches[k],
+                       workload=f"jacobi5_general bf16 8192x8192, one pass of p={p}, {where}")
+    del x, plain, t
+
+    y = cast_storage(torch.tensor(np.random.default_rng(12).random((1024, 1024), np.float32), device=device))
+    cells = 1024 * 1024
+    ms = cuda_ms(lambda: mt.monotile(y, j5, 0.0, offset=0, n_iterations=n_mono), 5)
+    plain_ms = cuda_ms(lambda: mt.monotile_plain(y, j5, 0.0, offset=0, n_iterations=n_mono), 1)
+    e = max_err(mt.monotile(y, j5, 0.0, offset=0, n_iterations=n_mono),
+                mt.monotile_plain(y, j5, 0.0, offset=0, n_iterations=n_mono))
+    lib_ms = cuda_ms(lambda: library_jacobi(y, n_mono), 2)
+    b, by = bound((read + written) * cells, j5.n_operations * n_mono * cells)
+    plan = mt.monotile_plan(1024, 1024, 1, cuda_lib.cell_smem_bytes(y, j5), limits)
+    log(f"  monotile jacobi5 bf16 1024x1024 n={n_mono} (band {plan.band}, q={plan.q}, {plan.threads} threads): "
+        f"kernel {ms:.4f} ms = {b / ms:.1%} of its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, {n_mono} x bf16 "
+        f"conv2d {lib_ms:.4f} ms tuned, max_abs_err={e:.3g} [{card}]")
+    assert e <= NARROW_ATOL, e
+    rows["monotile"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, library_ms=lib_ms, max_abs_err=e,
+                            launches=launches["monotile"],
+                            workload=f"jacobi5_general bf16 1024x1024, n={n_mono} in one launch")
+    del y
+
+    # Beside them: HotSpot bf16 and Jacobi5 float8 on the tile pass, FDTD
+    # coef bf16's pass (shorter than its host call: device time).
+    hs_cfg = runs["hotspot bf16 8192^2 auto"].resolved_config
+    e8_cfg = runs["jacobi5 e4m3 8192^2 tiling"].resolved_config
+    rng = np.random.default_rng(13)
+    hot = cast_storage(hotspot_cell((8192, 8192), 13, device))
+    cases = {
+        "hotspot bf16": (hot, CastStorageKernel(hotspot.derive_coefficients(8192, 8192)),
+                         hotspot.HotspotCell(temp=0.0, power=0.0), hs_cfg),
+        "jacobi5_general float8_e4m3fn": (
+            cast_storage(torch.tensor(rng.random((8192, 8192), np.float32), device=device), torch.float8_e4m3fn),
+            CastStorageKernel(j5.tf, torch.float8_e4m3fn), 0.0, e8_cfg),
+    }
+    for what, (cell, tf, halo, cfg) in cases.items():
+        p, tile = cfg["iters_per_pass"], (cfg["tile_rows"], cfg["tile_cols"])
+        kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
+        ms = cuda_ms(lambda: tp.tile_pass(cell, tf, halo, tile=tile, **kw), 10)
+        plain_ms = cuda_ms(lambda: tp.tile_pass_plain(cell, tf, halo, **kw), 2)
+        e = max_err(tp.tile_pass(cell, tf, halo, tile=tile, **kw), tp.tile_pass_plain(cell, tf, halo, **kw))
+        read, written = cuda_lib.cell_traffic_bytes(cell, tf)
+        b, by = bound((read + written) * 8192 * 8192, tf.n_operations * p * 8192 * 8192)
+        log(f"  tile_pass {what} 8192x8192 tile={tile} p={p}: kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
+            f"{b:.4f} ms ({by}, {read} + {written} B a cell), plain {plain_ms:.4f} ms, max_abs_err={e:.3g}; "
+            f"{tp.tile_pass_residency(tf, tile, p, device)} CTAs resident per SM [{card}]")
+        assert e <= NARROW_ATOL, (what, e)
+        rows["tile_pass"]["max_abs_err"] = max(rows["tile_pass"]["max_abs_err"], e)
+    del hot, cases
+    name = "fdtd coef bf16 1024^2 auto"
+    update = runs[name]
+    tf, cfg = update.params.transition_function, update.resolved_config
+    p, tile = cfg["iters_per_pass"], (cfg["tile_rows"], cfg["tile_cols"])
+    cell = cast_storage(fdtd_case("coef", (1024, 1024), np.random.default_rng(14), device, 0)[0])
+    halo = tf.resolver.halo_cell()
+    kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p, tdv=tdv_stream(tf, 0, p, device))
+    fn = lambda: tp.tile_pass(cell, tf, halo, tile=tile, **kw)  # noqa: E731
+    ms, call_ms = device_ms(fn, 50), cuda_ms(fn, 50)
+    plain_ms = cuda_ms(lambda: tp.tile_pass_plain(cell, tf, halo, **kw), 1)
+    e = max_err(fn(), tp.tile_pass_plain(cell, tf, halo, **kw))
+    read, written = cuda_lib.cell_traffic_bytes(cell, tf)
+    b, by = bound((read + written) * 1024 * 1024, tf.n_operations * p * 1024 * 1024)
+    log(f"  tile_pass fdtd coef bf16 1024x1024 tile={tile} p={p}: kernel {ms:.4f} ms (device time; {call_ms:.4f} ms a "
+        f"call back to back) = {b / ms:.1%} of its bound {b:.4f} ms ({by}, {read} + {written} B a cell), plain "
+        f"{plain_ms:.4f} ms, max_abs_err={e:.3g}, {path_counts[name]['tile_pass']} launches on the path [{card}]")
+    assert ms > 0 and e <= NARROW_ATOL, (ms, e)
+    rows["tile_pass"]["max_abs_err"] = max(rows["tile_pass"]["max_abs_err"], e)
+    return rows
+
+
 def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) -> dict:
     """Phase 5, FDTD's kernels on the main paths' state after their runs and
     at their geometry (no single PyTorch call computes FDTD): one pass of
-    the coef 1024^2 path on the tile pass, one pass of the render 1024^2
-    path on the line cache, coef 512^2 at n=``n_mono`` on the resident grid,
-    each beside its plain version. Bound: 32 B read and 16 B written a coef
-    cell (render 16 and 16), or n_operations a cell-iteration. Returns one
-    row a kernel."""
+    the coef and of the lut 1024^2 path on the tile pass, one pass of the
+    render 1024^2 path on the line cache, coef 512^2 at n=``n_mono`` on the
+    resident grid, each beside its plain version. Bound: 32 B read and 16 B
+    written a coef cell (lut 20 and 16, render 16 and 16), or n_operations
+    a cell-iteration. Returns one row a kernel and workload."""
     from stencilstream_tpu_torch.backends import cuda_lib
     from stencilstream_tpu_torch.backends import line_cache as lc
     from stencilstream_tpu_torch.backends import monotile as mt
@@ -793,11 +1024,13 @@ def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) ->
             f"{b / ms:.1%} of its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, library none: no single "
             f"PyTorch call, max_abs_err={e:.3g}, {path_counts[name][kernel]} launches on the path [{card}]")
         assert e <= FDTD_ATOL, (kernel, e)
-        return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by, max_abs_err=e,
-                    launches=path_counts[name][kernel], workload=what)
+        return dict(kernel=kernel, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                    max_abs_err=e, launches=path_counts[name][kernel], workload=what)
 
     fdtd_kernels = {}
-    for kernel, name in (("tile_pass", "fdtd coef 1024^2 auto"), ("line_cache", "fdtd render 1024^2 tiling linecache")):
+    for key, kernel, name in (("tile_pass", "tile_pass", "fdtd coef 1024^2 auto"),
+                              ("tile_pass lut", "tile_pass", "fdtd lut 1024^2 auto"),
+                              ("line_cache", "line_cache", "fdtd render 1024^2 tiling linecache")):
         cfg, tf = runs[name].resolved_config, runs[name].params.transition_function
         cell = fdtd_outs[name].arrays
         halo = tf.resolver.halo_cell()
@@ -814,8 +1047,8 @@ def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) ->
             what = f"fdtd {tf.resolver.name} {h}x{w}, one pass of p={p}, {geometry}"
         cells = h * w
         n_bytes = (sum(t.element_size() for t in cell_leaves(cell)) + 16) * cells
-        fdtd_kernels[kernel] = fdtd_row(kernel, name, fn, lambda: tp.tile_pass_plain(cell, tf, halo, **kw),
-                                        n_bytes, p * cells, 50, what)
+        fdtd_kernels[key] = fdtd_row(kernel, name, fn, lambda: tp.tile_pass_plain(cell, tf, halo, **kw),
+                                     n_bytes, p * cells, 50, what)
     name = "fdtd coef 512^2 auto"
     tf = runs[name].params.transition_function
     cell, halo = fdtd_outs[name].arrays, tf.resolver.halo_cell()
@@ -895,6 +1128,7 @@ def main() -> int:
         "fdtd coef 512^2 auto": (12, FDTD_ATOL, {"monotile"}),
         "fdtd render 1024^2 tiling linecache": (12, FDTD_ATOL, {"line_cache"}),
         "fdtd lut 1024^2 auto": (12, FDTD_ATOL, {"tile_pass"}),
+        **{name: (12, NARROW_ATOL, {kernel}) for name, kernel in NARROW_PATHS.items()},
     }
     paths = main_paths(device)
     assert set(paths) == set(checks) | set(CONVECTION_PATHS), sorted(paths)
@@ -919,9 +1153,9 @@ def main() -> int:
         for k in counters:
             totals[k] += counts[k]
         fields = cell_leaves(out.arrays)
-        for field in fields:
-            assert tuple(field.shape) == grid.shape, name
-            assert field.dtype == torch.bool or bool(torch.isfinite(field).all()), name
+        for field, before in zip(fields, cell_leaves(grid.arrays)):
+            assert tuple(field.shape) == grid.shape and field.dtype == before.dtype, name
+            assert field.dtype == torch.bool or bool(torch.isfinite(field.float()).all()), name
         if name.startswith("conway"):
             assert fields[0].dtype == torch.bool and 0 < int(fields[0].sum()) < fields[0].numel(), name
         if name.startswith("fdtd"):
@@ -1040,16 +1274,6 @@ def main() -> int:
     geometry, turns, jac_ms = t["geometry"], t["times"], t["ms"]
     assert geometry == {k: lc_cfg[k] for k in geometry}, (geometry, lc_cfg)
     jac_plain_ms = cuda_ms(lambda: tp.tile_pass_plain(x, j5, 0.0, **kw), 2)
-    c = JACOBI5_COEFS
-    w = torch.tensor([[0, c[0], 0], [c[1], c[4], c[3]], [0, c[2], 0]], dtype=torch.float32,
-                     device=device).view(1, 1, 3, 3)
-
-    def library_jacobi(y, steps):
-        y = y.view(1, 1, *y.shape)
-        for _ in range(steps):
-            y = torch.nn.functional.conv2d(y, w, padding=1)
-        return y.view(y.shape[2:])
-
     # The yardstick with cuDNN's default choice of algorithm, then with
     # `cudnn.benchmark`, whose first call per shape times the candidates and
     # keeps the fastest (cuda_ms's warm-up call); the tuned time is reported.
@@ -1130,10 +1354,17 @@ def main() -> int:
         f"kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
         f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, {n_mono} x conv2d {lib_ms:.4f} ms tuned [{card}]")
 
+    # The same kernels on bfloat16 cells: one more row each in the
+    # `kernels` line.
+    for k, row in narrow_kernel_rows(runs, path_counts, device, card, limits, n_mono).items():
+        kernels[f"{k}_bf16"] = dict(name=f"{k}_bf16", route="cuda", source=kernels[k]["source"],
+                                    replaces=kernels[k]["replaces"], **row)
+        kernels[f"{k}_bf16"]["max_abs_err"] = max(row["max_abs_err"], errs[k], path_errs[k])
+
     fdtd_kernels = fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono)
     log("fdtd kernels: " + json.dumps(fdtd_kernels))
-    for k, row in fdtd_kernels.items():
-        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], row["max_abs_err"])
+    for row in fdtd_kernels.values():
+        kernels[row["kernel"]]["max_abs_err"] = max(kernels[row["kernel"]]["max_abs_err"], row["max_abs_err"])
     conv_kernels = convection_kernel_rows(conv_runs, conv_counts, conv_outs, device, card)
     log("convection kernels: " + json.dumps(conv_kernels))
     for row in conv_kernels.values():
@@ -1141,7 +1372,7 @@ def main() -> int:
     del conv_outs
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    order = ("tile_pass", "monotile", "line_cache")
+    order = ("tile_pass", "monotile", "line_cache", "tile_pass_bf16", "monotile_bf16", "line_cache_bf16")
     log(json.dumps({"kernels": [kernels[k] for k in order]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -13,9 +13,7 @@ from __future__ import annotations
 import time
 from typing import Any
 
-import torch
-
-from ..core.cell import cell_dtypes, cell_field_names, cell_map, cell_zeros
+from ..core.cell import cell_dtypes, cell_field_names, cell_map, cell_zeros, storage_scalar
 from ..core.grid import Grid
 from ..core.params import Params
 from ..core.transition import validate_transition_function
@@ -27,7 +25,8 @@ __all__ = ["StencilUpdateBase", "resolve_halo"]
 
 def resolve_halo(halo_value: Any, grid: Grid) -> Any:
     """Resolve ``Params.halo_value`` to a cell of Python scalars, each
-    rounded to its grid field's dtype (default: the zero cell)."""
+    rounded to its grid field's dtype, a narrow one through float32
+    (default: the zero cell)."""
     if halo_value is None:
         return cell_zeros(grid.arrays)
     if cell_field_names(halo_value) != cell_field_names(grid.arrays):
@@ -35,11 +34,7 @@ def resolve_halo(halo_value: Any, grid: Grid) -> Any:
             f"halo_value structure {type(halo_value).__name__} does not match "
             f"the grid's cell structure {type(grid.arrays).__name__}"
         )
-    return cell_map(
-        lambda h, d: torch.tensor(h.item() if hasattr(h, "item") else h, dtype=d).item(),
-        halo_value,
-        cell_dtypes(grid.arrays),
-    )
+    return cell_map(storage_scalar, halo_value, cell_dtypes(grid.arrays))
 
 
 class StencilUpdateBase:

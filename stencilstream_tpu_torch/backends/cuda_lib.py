@@ -12,7 +12,10 @@ Each kernel entry point takes raw device pointers, ints and doubles, launches
 on the stream it is given, allocates nothing, and returns the CUDA error code
 of the launch (0 on success); :func:`check` turns a non-zero code into an
 exception. A functor with a time-dependent value takes the call's TDV stream
-as one more device pointer (:func:`tdv_pointer`).
+as one more device pointer (:func:`tdv_pointer`). A transition function on
+narrow storage (``backends/storage_cast.py``: ``cuda_storage``) runs the
+entry points ``<prefix><functor>__<storage>`` of the pairs in
+:data:`NARROW_OPS`.
 """
 
 from __future__ import annotations
@@ -38,8 +41,10 @@ __all__ = [
     "CSRC",
     "BUILD_DIR",
     "KernelFields",
+    "NARROW_OPS",
     "build",
     "check",
+    "check_field_dtypes",
     "kernel_fields",
     "library",
     "op_info",
@@ -224,7 +229,26 @@ def entry(prefix: str, op: str):
     return fn
 
 
-_DTYPES = {(4, 1): torch.float32, (8, 1): torch.float64, (4, 0): torch.int32, (1, 0): torch.uint8}
+#: Element dtypes by (bytes, kind) as ``ss_op_info_`` reports them: kind 0
+#: integer, 1 IEEE float, 2 bfloat16, 3 float8 e4m3fn
+#: (``csrc/tile_pass.cu:element_kind``).
+_DTYPES = {
+    (4, 1): torch.float32, (8, 1): torch.float64, (4, 0): torch.int32, (1, 0): torch.uint8,
+    (2, 2): torch.bfloat16, (1, 3): torch.float8_e4m3fn,
+}
+
+#: The suffix of a narrow storage dtype in an entry point's name.
+STORAGE_SUFFIX = {torch.bfloat16: "bf16", torch.float8_e4m3fn: "e4m3"}
+
+#: The (device functor, storage dtype) pairs built on narrow storage
+#: (``csrc/ops/all.cuh:SS_FOR_EACH_NARROW_OP``): the cells the JAX package's
+#: bench stores as bfloat16, and Jacobi5 in float8 e4m3.
+NARROW_OPS = frozenset({
+    ("hotspot", torch.bfloat16),
+    ("jacobi5_general", torch.bfloat16),
+    ("fdtd_coef", torch.bfloat16),
+    ("jacobi5_general", torch.float8_e4m3fn),
+})
 
 
 def kernel_view(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
@@ -279,10 +303,12 @@ class KernelFields:
 
 
 def require_device_op(tf: Any, offset: int = 0) -> str:
-    """The name of ``tf``'s device functor. Raises ``NotImplementedError``,
-    naming the transition function, when it has none, or when it has a
+    """The name of ``tf``'s device functor: ``<cuda_op>__<storage>`` for one
+    on narrow storage (``cuda_storage``). Raises ``NotImplementedError``,
+    naming the transition function, when it has none, when it has a
     time-dependent value (at ``offset``) but names no type for it
-    (``cuda_tdv``, the torch dtype of the stream its functor reads)."""
+    (``cuda_tdv``, the torch dtype of the stream its functor reads), and
+    when its functor is not built on its storage (:data:`NARROW_OPS`)."""
     op = getattr(tf, "cuda_op", None)
     if not isinstance(op, str) or not callable(getattr(tf, "cuda_params", None)):
         raise NotImplementedError(
@@ -295,7 +321,16 @@ def require_device_op(tf: Any, offset: int = 0) -> str:
             f"transition function {type(tf).__name__} has a time-dependent value, but "
             f"its device functor {op!r} takes none (cuda_tdv names the type of one)"
         )
-    return op
+    storage = getattr(tf, "cuda_storage", None)
+    if storage is None:
+        return op
+    if (op, storage) not in NARROW_OPS:
+        built = ", ".join(f"{o} on {d}" for o, d in sorted(NARROW_OPS, key=str))
+        raise NotImplementedError(
+            f"device functor {op!r} is not built on {storage} storage (the narrow kernels "
+            f"are {built}: csrc/ops/all.cuh); use the 'reference' backend for it"
+        )
+    return f"{op}__{STORAGE_SUFFIX[storage]}"
 
 
 def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFields:
@@ -337,11 +372,10 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
     leaves = [kernel_view(t, info["dtype"] if j in invariant_index else None) for j, t in enumerate(stored)]
     shape = tuple(leaves[0].shape)
     device = leaves[0].device
+    check_field_dtypes(op, info["dtype"], names, stored, leaves)
     for t in leaves:
         if t.device != device or t.device.type != "cuda":
             raise ValueError(f"every field must lie on one CUDA device (got {t.device})")
-        if t.dtype != info["dtype"]:
-            raise TypeError(f"functor {op!r} takes {info['dtype']} fields, got {t.dtype}")
         if tuple(t.shape) != shape or t.dim() != 2:
             raise ValueError(f"fields must be 2D of one shape (got {tuple(t.shape)} vs {shape})")
         if not t.is_contiguous():
@@ -355,6 +389,17 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
         halo=double_array([halo[j] for j in variant_index + invariant_index]),
         variant_index=variant_index,
     )
+
+
+def check_field_dtypes(op: str, dtype: torch.dtype, names, stored, views) -> None:
+    """Raise ``TypeError``, naming the field and both dtypes, when a field
+    (``stored``, as the kernel views it: ``views``) is not of the functor's
+    element ``dtype``: a functor has one, so a cell that mixes storage types
+    (an int32 field beside bfloat16 ones) has no kernel."""
+    for j, (t, v) in enumerate(zip(stored, views)):
+        if v.dtype != dtype:
+            field = f"field {names[j]!r}" if names else "the cell"
+            raise TypeError(f"functor {op!r} takes {dtype} fields, but {field} is {t.dtype}")
 
 
 def cell_field_bytes(arrays: Any, tf: Any) -> tuple[int, int]:

@@ -22,6 +22,8 @@ import torch
 T = TypeVar("T")
 
 __all__ = [
+    "E4M3_OVERFLOW",
+    "NARROW_DTYPES",
     "cell_type",
     "cell_dtypes",
     "cell_zeros",
@@ -33,7 +35,18 @@ __all__ = [
     "cell_map",
     "cell_unflatten",
     "scalar_dtype",
+    "storage_scalar",
+    "to_storage",
 ]
+
+#: The narrow storage dtypes (``backends/storage_cast.py``) by their JAX
+#: (numpy) names: cells stored in them are computed in float32.
+NARROW_DTYPES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+#: Magnitudes above this round to NaN in float8 e4m3fn, as the JAX package
+#: rounds them: 448 is the largest finite value and 464 the midpoint to the
+#: next step, which rounds to even (448). PyTorch's own conversion
+#: saturates to +-448 instead.
+E4M3_OVERFLOW = 464.0
 
 
 def cell_type(cls: type[T]) -> type[T]:
@@ -120,8 +133,31 @@ def _item(x: Any) -> Any:
     return x.item() if hasattr(x, "item") else x
 
 
+def to_storage(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` cast to the stored ``dtype`` as the JAX package casts it. A
+    narrow dtype (:data:`NARROW_DTYPES`) rounds from float32 to nearest
+    even; float8 e4m3fn gives NaN beyond :data:`E4M3_OVERFLOW` (and for
+    infinities), where PyTorch's own cast would saturate. Any other dtype is
+    ``x.to(dtype)``."""
+    if dtype not in NARROW_DTYPES.values() or x.dtype == dtype:
+        return x.to(dtype)
+    x = x.to(torch.float32)
+    if dtype == torch.float8_e4m3fn:
+        x = torch.where(x.abs() > E4M3_OVERFLOW, torch.nan, x)
+    return x.to(dtype)
+
+
+def storage_scalar(value: Any, dtype: torch.dtype) -> Any:
+    """A Python scalar rounded to ``dtype`` (a halo value): through float32
+    for a narrow dtype, as the JAX package casts its float32 halo cell."""
+    if dtype in NARROW_DTYPES.values():
+        return to_storage(torch.tensor(_item(value), dtype=torch.float32), dtype).item()
+    return torch.tensor(_item(value), dtype=dtype).item()
+
+
 def canonicalize_cell(new: Any, like: Any) -> Any:
-    """Cast ``new``'s fields to the dtypes (and shapes) of ``like``'s.
+    """Cast ``new``'s fields to the dtypes (and shapes) of ``like``'s
+    (:func:`to_storage`).
 
     Transition functions may compute in wider types or return scalars; the
     stored grid keeps its declared dtypes.
@@ -129,9 +165,9 @@ def canonicalize_cell(new: Any, like: Any) -> Any:
 
     def one(n, l):
         if isinstance(n, torch.Tensor):
-            n = n.to(l.dtype)
+            n = to_storage(n, l.dtype)
             return n if n.shape == l.shape else n.expand(l.shape)
-        return torch.full_like(l, _item(n))
+        return torch.full_like(l, storage_scalar(n, l.dtype))
 
     return cell_map(one, new, like)
 

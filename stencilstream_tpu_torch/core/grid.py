@@ -12,9 +12,28 @@ from typing import Any
 import numpy as np
 import torch
 
-from .cell import cell_block_shape, cell_full_grid, cell_leaves, cell_map, cell_zeros
+from .cell import NARROW_DTYPES, cell_block_shape, cell_full_grid, cell_leaves, cell_map, cell_zeros
 
 __all__ = ["Grid"]
+
+#: A torch integer of a narrow field's width in bytes, to view its bits as.
+_BITS = {1: torch.int8, 2: torch.int16}
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """A tensor on ``device`` from a numpy array; a narrow one by its bits."""
+    dtype = NARROW_DTYPES.get(a.dtype.name)
+    if dtype is None:
+        return torch.tensor(a, device=device)
+    return torch.tensor(a.view(f"i{a.itemsize}"), device=device).view(dtype)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A numpy array of a tensor; a narrow one as its unsigned bits."""
+    t = t.detach().cpu()
+    if t.dtype not in NARROW_DTYPES.values():
+        return t.numpy()
+    return t.view(_BITS[t.element_size()]).numpy().view(f"u{t.element_size()}")
 
 
 class Grid:
@@ -37,8 +56,11 @@ class Grid:
 
     @classmethod
     def from_numpy(cls, arrays: Any, *, device) -> "Grid":
-        """Build a grid from a cell of numpy ``(H, W)`` arrays."""
-        grid = cls(cell_map(lambda a: torch.tensor(np.asarray(a), device=device), arrays))
+        """Build a grid from a cell of numpy ``(H, W)`` arrays. Arrays whose
+        dtype is named ``bfloat16`` or ``float8_e4m3fn`` (the JAX package's
+        narrow storage, numpy extension types) come in through their
+        bits."""
+        grid = cls(cell_map(lambda a: _tensor(np.asarray(a), device), arrays))
         cell_block_shape(grid.arrays)  # validate agreeing shapes
         return grid
 
@@ -84,8 +106,11 @@ class Grid:
         return Grid(cell_map(one, self.arrays, cell))
 
     def to_numpy(self) -> Any:
-        """Cell of numpy arrays."""
-        return cell_map(lambda a: a.detach().cpu().numpy(), self.arrays)
+        """Cell of numpy arrays. A bfloat16 field comes back as its bits
+        (``uint16``), a float8 e4m3fn field as ``uint8`` bits: numpy has no
+        such types of its own (a view as the JAX package's numpy type
+        restores one)."""
+        return cell_map(_numpy, self.arrays)
 
     def block_until_ready(self) -> "Grid":
         """Wait until the device has finished writing this grid."""

@@ -6,14 +6,17 @@
 //
 // A device functor ("Op", see ops/hotspot.cuh) is the C++ twin of a Python
 // transition function. It declares
-//   using T                   the element type of every cell field,
+//   using T                   the element type of every cell field, in which
+//                             the kernels store, stage and exchange cells,
 //   kRadius, kSubiterations   the stencil radius r and sub-steps k,
 //   kVariant, kInvariant      how many cell fields it updates and how many
 //                             it only reads (loop-invariant fields),
 //   kParams                   how many scalar runtime parameters it takes,
 //   from_params(const double*) building the functor from those scalars,
-//   operator()(const Taps<T, tdv_t<Op>>&, T* out) writing the new variant
-//                             fields,
+//   operator()(const Taps&, T* out) writing the new variant fields, a
+//                             template over the Taps type (Taps<T, tdv_t<Op>>
+//                             in the kernels, a narrow-storage view in
+//                             Narrow below),
 // and, if its transition function has a time-dependent value (TDV),
 //   using Tdv                 the TDV's type (float for FDTD's source
 //                             amplitude, int for the probe's iteration).
@@ -23,8 +26,21 @@
 // the TDV strategy (tdv.py) evaluated once per call on the grid's device,
 // and a step of absolute iteration i reads element i - offset (read_tdv);
 // no step at or past offset + n reads it.
+//
+// Narrow storage (Narrow<Op, S>, the counterpart of the JAX package's
+// backends/storage_cast.py:CastStorageKernel): a functor whose compute type
+// is float, run on cells stored as bfloat16 or float8 e4m3. The wrapper is a
+// functor whose T is the storage type S, so every plane in device memory,
+// in shared memory and in the resident grid's exchange rows holds S, and
+// every byte count follows sizeof(S); each tap is converted S -> float when
+// it is read (exactly), and each sub-step's output is rounded float -> S
+// when it is stored, as the JAX package's canonicalize_cell rounds it:
+// bfloat16 to nearest even, float8 e4m3 to nearest even with NaN for
+// anything beyond its range (|x| > 464), never saturated.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -57,13 +73,66 @@ __device__ __forceinline__ tdv_t<Op> read_tdv(const void* stream, int i) {
   }
 }
 
+// Narrow storage types: the bits of one bfloat16 or float8 e4m3 (fn: no
+// infinities, one NaN pattern per sign) value.
+struct Bf16 {
+  unsigned short bits;
+};
+struct E4m3 {
+  unsigned char bits;
+};
+
+template <class S>
+__host__ __device__ constexpr bool is_narrow() {
+  return std::is_same<S, Bf16>::value || std::is_same<S, E4m3>::value;
+}
+
+// A stored value in the compute type: exact for the narrow types.
+template <class T, class S>
+__device__ __forceinline__ T to_compute(const S& x) {
+  if constexpr (std::is_same<T, S>::value) {
+    return x;
+  } else if constexpr (std::is_same<S, Bf16>::value) {
+    return __bfloat162float(__ushort_as_bfloat16(x.bits));
+  } else if constexpr (std::is_same<S, E4m3>::value) {
+    return __half2float(__half(__nv_cvt_fp8_to_halfraw(x.bits, __NV_E4M3)));
+  } else {
+    return static_cast<T>(x);
+  }
+}
+
+// A computed value rounded to the storage type: bfloat16 to nearest even;
+// float8 e4m3 to nearest even and NaN beyond its range (no saturation).
+template <class S, class T>
+__host__ __device__ __forceinline__ S to_storage(T x) {
+  if constexpr (std::is_same<S, Bf16>::value) {
+    return Bf16{__bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(x)))};
+  } else if constexpr (std::is_same<S, E4m3>::value) {
+    return E4m3{__nv_cvt_float_to_fp8(static_cast<float>(x), __NV_NOSAT, __NV_E4M3)};
+  } else {
+    return static_cast<S>(x);
+  }
+}
+
+// A launch's double (a halo value) in the storage type; narrow types round
+// through float, as the JAX package casts its float32 halo cell.
+template <class S>
+__host__ __forceinline__ S from_double(double x) {
+  if constexpr (is_narrow<S>())
+    return to_storage<S>(static_cast<float>(x));
+  else
+    return static_cast<S>(x);
+}
+
 // Neighbourhood of one cell. Variant fields come from the current ping-pong
 // plane, invariant fields from their staged plane; all planes share one row
-// pitch and carry the halo value outside the grid.
-template <class T, class D = NoTdv>
+// pitch and carry the halo value outside the grid. The planes hold S; taps
+// are read as T.
+template <class T, class D = NoTdv, class S = T>
 struct Taps {
-  const T* var;       // variant field 0 at the central cell
-  const T* inv;       // invariant field 0 at the central cell
+  using Storage = S;
+  const S* var;       // variant field 0 at the central cell
+  const S* inv;       // invariant field 0 at the central cell
   long var_stride;    // elements between two variant fields' planes
   long inv_stride;    // elements between two invariant fields' planes
   int pitch;          // row pitch of every plane
@@ -75,11 +144,41 @@ struct Taps {
 
   // Variant field f at signed offset (dr, dc).
   __device__ __forceinline__ T v(int f, int dr, int dc) const {
-    return var[f * var_stride + dr * pitch + dc];
+    return to_compute<T>(var[f * var_stride + dr * pitch + dc]);
   }
   // Invariant field f at signed offset (dr, dc).
   __device__ __forceinline__ T i(int f, int dr, int dc) const {
-    return inv[f * inv_stride + dr * pitch + dc];
+    return to_compute<T>(inv[f * inv_stride + dr * pitch + dc]);
+  }
+};
+
+// A functor Op (compute type float) on cells stored as S (Bf16 or E4m3):
+// its T is S, so the kernels store, stage and exchange S; it hands Op a
+// view whose taps read as float and rounds Op's outputs to S.
+template <class Op, class S>
+struct Narrow {
+  static_assert(std::is_same<typename Op::T, float>::value, "narrow storage computes in float");
+  using T = S;
+  using Tdv = tdv_t<Op>;
+  static constexpr int kRadius = Op::kRadius;
+  static constexpr int kSubiterations = Op::kSubiterations;
+  static constexpr int kVariant = Op::kVariant;
+  static constexpr int kInvariant = Op::kInvariant;
+  static constexpr int kParams = Op::kParams;
+
+  Op op;
+
+  static Narrow from_params(const double* p) { return Narrow{Op::from_params(p)}; }
+
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, S* out) const {
+    const Taps<float, Tdv, S> t{s.var, s.inv, s.var_stride, s.inv_stride, s.pitch, s.row,
+                                s.col, s.H,   s.W,          s.iteration,  s.subiteration,
+                                s.tdv};
+    float r[kVariant];
+    op(t, r);
+#pragma unroll
+    for (int f = 0; f < kVariant; ++f) out[f] = to_storage<S>(r[f]);
   }
 };
 
@@ -97,7 +196,7 @@ struct Fields {
 };
 
 // Unpack the C interface's pointer arrays and halo doubles (variant fields
-// first, then invariant fields).
+// first, then invariant fields), the halo values rounded to T.
 template <class Op>
 Fields<Op> make_fields(void* const* var_in, void* const* var_out, void* const* inv,
                        const double* halo) {
@@ -106,11 +205,11 @@ Fields<Op> make_fields(void* const* var_in, void* const* var_out, void* const* i
   for (int j = 0; j < Op::kVariant; ++j) {
     f.var_in[j] = static_cast<const T*>(var_in[j]);
     f.var_out[j] = static_cast<T*>(var_out[j]);
-    f.halo_var[j] = static_cast<T>(halo[j]);
+    f.halo_var[j] = from_double<T>(halo[j]);
   }
   for (int j = 0; j < Op::kInvariant; ++j) {
     f.inv[j] = static_cast<const T*>(inv[j]);
-    f.halo_inv[j] = static_cast<T>(halo[Op::kVariant + j]);
+    f.halo_inv[j] = from_double<T>(halo[Op::kVariant + j]);
   }
   return f;
 }
@@ -209,7 +308,9 @@ __device__ __forceinline__ void copy_cell(T* dst, const T* src) {
 // row is copied with cp.async, 16 bytes at a time between its first and last
 // 16-byte boundary when `vec16` (the row's shared and global addresses then
 // agree modulo 16 bytes), cell by cell elsewhere. 1-byte cells are copied
-// one per lane with plain loads and stores, which measured faster for them.
+// one per lane with plain loads and stores, which measured faster for them;
+// 2-byte cells (bfloat16), which have no cp.async of their own size, take
+// plain loads outside the 16-byte body.
 // The caller commits the group, waits for it and synchronises the CTA.
 template <int kWarps, class T>
 __device__ __forceinline__ void stage_field(T* win, int pitch, const T* g, T halo, int row0,

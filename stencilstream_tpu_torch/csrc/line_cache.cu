@@ -65,6 +65,10 @@
 //   discarded. Output goes to a separate buffer: segments run in parallel
 //   and a segment's warm-up reads rows that the segment above writes.
 //
+// Narrow storage (common.cuh: Narrow): the functor's T is the storage type,
+// so planes, carries and invariant rows hold bfloat16 or float8 cells, and
+// each level's output is rounded to it on store, as in the tile pass.
+//
 // Shared memory, in elements of Op::T, pitch = window columns rounded up to
 // 16 elements, the whole shifted so that staged rows' shared and global
 // addresses agree modulo 16 bytes:
@@ -336,19 +340,20 @@ int line_cache_residency(int strip, int panel, int steps, int* blocks_per_sm) {
 
 }  // namespace ss
 
-#define SS_LINE_CACHE_ENTRY(name, Op)                                                         \
-  extern "C" int ss_line_cache_##name(void* const* var_in, void* const* var_out,             \
-                                      void* const* inv, int H, int W, int strip, int panel,   \
-                                      int segment, int iters_per_pass, int i_start,           \
-                                      int offset, int n_iterations, const double* params,     \
-                                      const double* halo, const void* tdv, void* stream) {    \
-    return ss::launch_line_cache<Op>(var_in, var_out, inv, H, W, strip, panel, segment,       \
-                                     iters_per_pass, i_start, offset, n_iterations, params,   \
-                                     halo, tdv, stream);                                      \
-  }                                                                                           \
-  extern "C" int ss_line_cache_residency_##name(int strip, int panel, int steps,             \
-                                                int* blocks_per_sm) {                         \
-    return ss::line_cache_residency<Op>(strip, panel, steps, blocks_per_sm);                  \
+#define SS_LINE_CACHE_ENTRY(name, ...)                                                           \
+  extern "C" int ss_line_cache_##name(void* const* var_in, void* const* var_out,                 \
+                                      void* const* inv, int H, int W, int strip, int panel,      \
+                                      int segment, int iters_per_pass, int i_start,              \
+                                      int offset, int n_iterations, const double* params,        \
+                                      const double* halo, const void* tdv, void* stream) {       \
+    return ss::launch_line_cache<__VA_ARGS__>(var_in, var_out, inv, H, W, strip, panel, segment, \
+                                     iters_per_pass, i_start, offset, n_iterations, params,      \
+                                     halo, tdv, stream);                                         \
+  }                                                                                              \
+  extern "C" int ss_line_cache_residency_##name(int strip, int panel, int steps,                 \
+                                                int* blocks_per_sm) {                            \
+    return ss::line_cache_residency<__VA_ARGS__>(strip, panel, steps, blocks_per_sm);            \
   }
 
 SS_FOR_EACH_OP(SS_LINE_CACHE_ENTRY)
+SS_FOR_EACH_NARROW_OP(SS_LINE_CACHE_ENTRY)

@@ -57,6 +57,10 @@
 //   nearly as fast as the others; with the line cache's edge body, which
 //   tests every cell against the grid, they held every band back (PERF.md).
 //
+// Narrow storage (common.cuh: Narrow): the functor's T is the storage type,
+// so the band's planes and the exchange rows hold bfloat16 or float8 cells;
+// the exchange moves their bits through L2.
+//
 // Every CTA must be resident at once, since a CTA spins on its neighbours:
 // the launcher launches cooperatively, which guarantees that or refuses the
 // launch.
@@ -101,6 +105,24 @@ __device__ __forceinline__ void wait_flag(const unsigned* p, unsigned target) {
   }
 }
 
+// A load and a store through L2 only; the narrow storage types by their
+// bits.
+template <class T>
+__device__ __forceinline__ T load_cg(const T* p) {
+  if constexpr (is_narrow<T>())
+    return T{__ldcg(&p->bits)};
+  else
+    return __ldcg(p);
+}
+
+template <class T>
+__device__ __forceinline__ void store_cg(T* p, const T& v) {
+  if constexpr (is_narrow<T>())
+    __stcg(&p->bits, v.bits);
+  else
+    __stcg(p, v);
+}
+
 // A flat copy of n elements from the global exchange buffer into shared
 // memory by the whole CTA, eight loads in flight a thread; through L2 only.
 template <class T>
@@ -110,7 +132,7 @@ __device__ __forceinline__ void pull_span(T* dst, const T* src, int n, int tid, 
     T v[U];
 #pragma unroll
     for (int u = 0; u < U; ++u)
-      if (e0 + u * nt < n) v[u] = __ldcg(src + e0 + u * nt);
+      if (e0 + u * nt < n) v[u] = load_cg(src + e0 + u * nt);
 #pragma unroll
     for (int u = 0; u < U; ++u)
       if (e0 + u * nt < n) dst[e0 + u * nt] = v[u];
@@ -121,7 +143,7 @@ __device__ __forceinline__ void pull_span(T* dst, const T* src, int n, int tid, 
 // buffer, stored in L2.
 template <class T>
 __device__ __forceinline__ void publish_span(T* dst, const T* src, int n, int tid, int nt) {
-  for (int e = tid; e < n; e += nt) __stcg(dst + e, src[e]);
+  for (int e = tid; e < n; e += nt) store_cg(dst + e, src[e]);
 }
 
 template <class Op>
@@ -357,18 +379,19 @@ int monotile_residency(int band, int q, int W, int threads, int* blocks_per_sm) 
 
 }  // namespace ss
 
-#define SS_MONOTILE_ENTRY(name, Op)                                                              \
-  extern "C" int ss_monotile_##name(void* const* var_in, void* const* var_out,                  \
-                                    void* const* inv, int H, int W, int band, int n_ctas, int q, \
-                                    int threads, int offset, int n_iterations,                   \
-                                    const double* params, const double* halo, const void* tdv,   \
-                                    void* xchg, void* flags, unsigned epoch, void* stream) {     \
-    return ss::launch_monotile<Op>(var_in, var_out, inv, H, W, band, n_ctas, q, threads, offset, \
-                                   n_iterations, params, halo, tdv, xchg, flags, epoch, stream); \
-  }                                                                                              \
-  extern "C" int ss_monotile_residency_##name(int band, int q, int W, int threads,              \
-                                              int* blocks_per_sm) {                              \
-    return ss::monotile_residency<Op>(band, q, W, threads, blocks_per_sm);                       \
+#define SS_MONOTILE_ENTRY(name, ...)                                                                      \
+  extern "C" int ss_monotile_##name(void* const* var_in, void* const* var_out,                            \
+                                    void* const* inv, int H, int W, int band, int n_ctas, int q,          \
+                                    int threads, int offset, int n_iterations,                            \
+                                    const double* params, const double* halo, const void* tdv,            \
+                                    void* xchg, void* flags, unsigned epoch, void* stream) {              \
+    return ss::launch_monotile<__VA_ARGS__>(var_in, var_out, inv, H, W, band, n_ctas, q, threads, offset, \
+                                   n_iterations, params, halo, tdv, xchg, flags, epoch, stream);          \
+  }                                                                                                       \
+  extern "C" int ss_monotile_residency_##name(int band, int q, int W, int threads,                        \
+                                              int* blocks_per_sm) {                                       \
+    return ss::monotile_residency<__VA_ARGS__>(band, q, W, threads, blocks_per_sm);                       \
   }
 
 SS_FOR_EACH_OP(SS_MONOTILE_ENTRY)
+SS_FOR_EACH_NARROW_OP(SS_MONOTILE_ENTRY)

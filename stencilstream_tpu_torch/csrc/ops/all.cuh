@@ -4,6 +4,14 @@
 // functor has an entry point in every kernel (ss_tile_pass_<name>,
 // ss_monotile_<name>, ss_line_cache_<name>) and one ss_op_info_<name>.
 // A new functor is one header under ops/ plus one line here.
+//
+// SS_FOR_EACH_NARROW_OP(X) expands X(name, Op) for the functors that are
+// also built on narrow storage (common.cuh: Narrow<Op, S>), so that each
+// kernel has an entry point ss_<kernel>_<functor>__<storage> for them:
+// HotSpot, Jacobi5 and FDTD's coef cell in bfloat16 (the storage the JAX
+// package's bench runs them in), Jacobi5 in float8 e4m3. No other functor
+// is instantiated narrow; backends/cuda_lib.py:NARROW_OPS lists the same
+// pairs, and a transition function asking for another raises.
 #pragma once
 
 #include "convection.cuh"
@@ -36,3 +44,9 @@
   X(convection_pt_lean_f64, ss::ConvectionPtLeanF64Op)  \
   X(convection_thermal_f32, ss::ConvectionThermalF32Op) \
   X(convection_thermal_f64, ss::ConvectionThermalF64Op)
+
+#define SS_FOR_EACH_NARROW_OP(X)                                       \
+  X(hotspot__bf16, ss::Narrow<ss::HotspotOp, ss::Bf16>)                \
+  X(jacobi5_general__bf16, ss::Narrow<ss::Jacobi5GeneralOp, ss::Bf16>) \
+  X(fdtd_coef__bf16, ss::Narrow<ss::FdtdCoefOp, ss::Bf16>)             \
+  X(jacobi5_general__e4m3, ss::Narrow<ss::Jacobi5GeneralOp, ss::E4m3>)

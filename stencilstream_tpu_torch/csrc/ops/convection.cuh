@@ -73,7 +73,8 @@ struct ConvectionPtOp {
     return op;
   }
 
-  __device__ __forceinline__ void operator()(const Taps<T>& s, T* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, T* out) const {
     const int x = s.row, y = s.col;
 #pragma unroll
     for (int f = 0; f < kVariant; ++f) out[f] = s.v(f, 0, 0);
@@ -173,7 +174,8 @@ struct ConvectionThermalOp {
     return op;
   }
 
-  __device__ __forceinline__ void operator()(const Taps<T>& s, T* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, T* out) const {
     const int x = s.row, y = s.col;
     const T c = s.v(0, 0, 0);
     out[0] = c;

@@ -20,8 +20,8 @@ struct ConwayOp {
 
   static ConwayOp from_params(const double*) { return {}; }
 
-  __device__ __forceinline__ void operator()(const Taps<unsigned char>& s,
-                                             unsigned char* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, unsigned char* out) const {
     int count = 0;
 #pragma unroll
     for (int dr = -1; dr <= 1; ++dr)

@@ -47,7 +47,8 @@ struct FdtdCoefMaterial {
   static constexpr int kTableParams = 0;
   void read(const double*) {}
   // (ca, cb) for sub-step 0, (da, db) for sub-step 1.
-  __device__ __forceinline__ void coefficients(const Taps<float, float>& s, float, float& a,
+  template <class Tp>
+  __device__ __forceinline__ void coefficients(const Tp& s, float, float& a,
                                                float& b) const {
     const int j = s.subiteration == 0 ? 0 : 2;
     a = s.i(j, 0, 0);
@@ -69,7 +70,8 @@ struct FdtdLutMaterial : FdtdTable {
   static constexpr int kInvariant = 1;
   static constexpr int kTableParams = 4 * kFdtdRings;
   void read(const double* p) { read_table(p); }
-  __device__ __forceinline__ void coefficients(const Taps<float, float>& s, float, float& a,
+  template <class Tp>
+  __device__ __forceinline__ void coefficients(const Tp& s, float, float& a,
                                                float& b) const {
     const int index = __float_as_int(s.i(0, 0, 0));
     const int f = s.subiteration == 0 ? 0 : 2;
@@ -95,7 +97,8 @@ struct FdtdRenderMaterial : FdtdTable {
     read_table(p);
     for (int j = 0; j < kFdtdRings; ++j) bounds[j] = static_cast<float>(p[4 * kFdtdRings + j]);
   }
-  __device__ __forceinline__ void coefficients(const Taps<float, float>& s, float score, float& a,
+  template <class Tp>
+  __device__ __forceinline__ void coefficients(const Tp& s, float score, float& a,
                                                float& b) const {
     const bool e = s.subiteration == 0;
     a = e ? table[0][kFdtdRings - 1] : table[2][kFdtdRings - 1];
@@ -139,7 +142,8 @@ struct FdtdT {
     return op;
   }
 
-  __device__ __forceinline__ void operator()(const Taps<float, float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     const float r = static_cast<float>(s.row);
     const float c = static_cast<float>(s.col);
     const float ex = s.v(0, 0, 0);

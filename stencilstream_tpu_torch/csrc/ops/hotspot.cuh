@@ -29,7 +29,8 @@ struct HotspotOp {
                      static_cast<float>(p[2]), static_cast<float>(p[3])};
   }
 
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     const float old = s.v(0, 0, 0);
     const float power = s.i(0, 0, 0);
     const float top = s.row == 0 ? old : s.v(0, -1, 0);

@@ -6,7 +6,9 @@
 // PyTorch versions and the JAX oracle round alike (the kernels are built
 // with -fmad=false; every fused step here is an explicit __fmaf_rn):
 //   jacobi5_general, jacobi9_general: acc = c_center * t(0,0), then
-//       acc = fma(t_i, c_i, acc) for each further term in source order;
+//       acc = fma(t_i, c_i, acc) for each further term in source order
+//       (jacobi5_general on bfloat16 cells: the second term unfused, as
+//       XLA evaluates the JAX package's CastStorageKernel there);
 //   jacobi4_general: acc = fma(t(-1,0), c0, c1 * t(0,-1)), then
 //       fma(t(1,0), c2, acc), fma(t(0,1), c3, acc);
 //   jacobi{2,3,4,5}_constant: sum left to right, then one multiply;
@@ -43,42 +45,48 @@ struct Coefficients {
 
 struct Jacobi1GeneralOp : JacobiShape, Coefficients<1> {
   static Jacobi1GeneralOp from_params(const double* p) { return read<Jacobi1GeneralOp>(p); }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     out[0] = c[0] * s.v(0, 0, 0);
   }
 };
 
 struct Jacobi2ConstantOp : JacobiShape, Coefficients<0> {
   static Jacobi2ConstantOp from_params(const double*) { return {}; }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     out[0] = (s.v(0, -1, 0) + s.v(0, 1, 0)) * 0.5f;
   }
 };
 
 struct Jacobi3ConstantOp : JacobiShape, Coefficients<0> {
   static Jacobi3ConstantOp from_params(const double*) { return {}; }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     out[0] = (s.v(0, 0, 0) + s.v(0, -1, 0) + s.v(0, 1, 0)) * 0.33333334f;
   }
 };
 
 struct Jacobi4ConstantOp : JacobiShape, Coefficients<0> {
   static Jacobi4ConstantOp from_params(const double*) { return {}; }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     out[0] = (s.v(0, -1, 0) + s.v(0, 0, -1) + s.v(0, 1, 0) + s.v(0, 0, 1)) * 0.25f;
   }
 };
 
 struct Jacobi5ConstantOp : JacobiShape, Coefficients<0> {
   static Jacobi5ConstantOp from_params(const double*) { return {}; }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     out[0] = (s.v(0, 0, 0) + s.v(0, -1, 0) + s.v(0, 0, -1) + s.v(0, 1, 0) + s.v(0, 0, 1)) * 0.2f;
   }
 };
 
 struct Jacobi4GeneralOp : JacobiShape, Coefficients<4> {
   static Jacobi4GeneralOp from_params(const double* p) { return read<Jacobi4GeneralOp>(p); }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     float acc = __fmaf_rn(s.v(0, -1, 0), c[0], c[1] * s.v(0, 0, -1));
     acc = __fmaf_rn(s.v(0, 1, 0), c[2], acc);
     out[0] = __fmaf_rn(s.v(0, 0, 1), c[3], acc);
@@ -87,10 +95,15 @@ struct Jacobi4GeneralOp : JacobiShape, Coefficients<4> {
 
 struct Jacobi5GeneralOp : JacobiShape, Coefficients<5> {
   static Jacobi5GeneralOp from_params(const double* p) { return read<Jacobi5GeneralOp>(p); }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     float acc = c[4] * s.v(0, 0, 0);
     acc = __fmaf_rn(s.v(0, -1, 0), c[0], acc);
-    acc = __fmaf_rn(s.v(0, 0, -1), c[1], acc);
+    // On bfloat16 cells (Narrow) XLA leaves this multiply-add unfused.
+    if constexpr (std::is_same<typename Tp::Storage, Bf16>::value)
+      acc = acc + s.v(0, 0, -1) * c[1];
+    else
+      acc = __fmaf_rn(s.v(0, 0, -1), c[1], acc);
     acc = __fmaf_rn(s.v(0, 1, 0), c[2], acc);
     out[0] = __fmaf_rn(s.v(0, 0, 1), c[3], acc);
   }
@@ -98,7 +111,8 @@ struct Jacobi5GeneralOp : JacobiShape, Coefficients<5> {
 
 struct Jacobi9GeneralOp : JacobiShape, Coefficients<9> {
   static Jacobi9GeneralOp from_params(const double* p) { return read<Jacobi9GeneralOp>(p); }
-  __device__ __forceinline__ void operator()(const Taps<float>& s, float* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, float* out) const {
     float acc = c[4] * s.v(0, 0, 0);
 #pragma unroll
     for (int dr = -1; dr <= 1; ++dr)

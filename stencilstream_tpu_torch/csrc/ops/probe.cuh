@@ -31,7 +31,8 @@ struct ProbeT {
 
   static Self from_params(const double*) { return {}; }
 
-  __device__ __forceinline__ void operator()(const Taps<int, D>& s, int* out) const {
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, int* out) const {
     bool valid = true;
     if constexpr (!std::is_same<D, NoTdv>::value) valid = s.tdv == s.iteration;
 #pragma unroll

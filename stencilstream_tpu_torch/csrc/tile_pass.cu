@@ -48,6 +48,14 @@
 //   the other resident on the SM (a persistent grid that prefetched its next
 //   tile into a third buffer measured slower; PERF.md).
 //
+// Narrow storage (common.cuh: Narrow) needs nothing of its own here: its
+// functor's T is the storage type, so windows, staging and the core's store
+// hold bfloat16 or float8 cells (half or a quarter of float32's shared
+// bytes), and its taps convert on read and its sub-steps round on store.
+// bfloat16 rows take the 16-byte body where a row is a multiple of 16 bytes
+// (W a multiple of 8) and plain 2-byte loads around it; float8 cells are
+// staged one per lane, as byte cells are.
+//
 // Layout of dynamic shared memory, one plane = window rows x pitch + 16
 // elements, pitch = window columns rounded up to 16 elements:
 //   [ping-pong buffer 0..2)[variant field][plane], then [invariant field][plane].
@@ -278,10 +286,18 @@ int tile_pass_residency(int tile_h, int tile_w, int iters_per_pass, int* blocks_
       blocks_per_sm, tile_pass_kernel<Op>, kTileThreads, smem));
 }
 
+// Kind of a stored element: 0 integer, 1 IEEE float, 2 bfloat16, 3 float8
+// e4m3 (fn).
+template <class T>
+constexpr int element_kind() {
+  if constexpr (std::is_same<T, Bf16>::value) return 2;
+  if constexpr (std::is_same<T, E4m3>::value) return 3;
+  return std::is_floating_point<T>::value ? 1 : 0;
+}
+
 // Shape of a functor, for the Python wrapper's checks: {radius,
 // n_subiterations, n_variant, n_invariant, n_params, element bytes,
-// element is floating point, TDV bytes (0: it takes none), TDV is floating
-// point}.
+// element kind, TDV bytes (0: it takes none), TDV is floating point}.
 template <class Op>
 int op_info(int* info) {
   using D = tdv_t<Op>;
@@ -292,7 +308,7 @@ int op_info(int* info) {
   info[3] = Op::kInvariant;
   info[4] = Op::kParams;
   info[5] = static_cast<int>(sizeof(typename Op::T));
-  info[6] = std::is_floating_point<typename Op::T>::value ? 1 : 0;
+  info[6] = element_kind<typename Op::T>();
   info[7] = kTdv ? static_cast<int>(sizeof(D)) : 0;
   info[8] = std::is_floating_point<D>::value ? 1 : 0;
   return 0;
@@ -300,23 +316,24 @@ int op_info(int* info) {
 
 }  // namespace ss
 
-#define SS_TILE_PASS_ENTRY(name, Op)                                                    \
-  extern "C" int ss_tile_pass_##name(void* const* var_in, void* const* var_out,        \
-                                     void* const* inv, int H, int W, int tile_h,        \
-                                     int tile_w, int iters_per_pass, int i_start,       \
-                                     int offset, int n_iterations, const double* params, \
-                                     const double* halo, const void* tdv, void* stream) { \
-    return ss::launch_tile_pass<Op>(var_in, var_out, inv, H, W, tile_h, tile_w,         \
-                                    iters_per_pass, i_start, offset, n_iterations,      \
-                                    params, halo, tdv, stream);                         \
-  }                                                                                     \
-  extern "C" int ss_tile_pass_residency_##name(int tile_h, int tile_w,                 \
-                                               int iters_per_pass, int* blocks_per_sm) { \
-    return ss::tile_pass_residency<Op>(tile_h, tile_w, iters_per_pass, blocks_per_sm);  \
-  }                                                                                     \
-  extern "C" int ss_op_info_##name(int* info) { return ss::op_info<Op>(info); }
+#define SS_TILE_PASS_ENTRY(name, ...)                                                           \
+  extern "C" int ss_tile_pass_##name(void* const* var_in, void* const* var_out,                 \
+                                     void* const* inv, int H, int W, int tile_h,                \
+                                     int tile_w, int iters_per_pass, int i_start,               \
+                                     int offset, int n_iterations, const double* params,        \
+                                     const double* halo, const void* tdv, void* stream) {       \
+    return ss::launch_tile_pass<__VA_ARGS__>(var_in, var_out, inv, H, W, tile_h, tile_w,        \
+                                    iters_per_pass, i_start, offset, n_iterations,              \
+                                    params, halo, tdv, stream);                                 \
+  }                                                                                             \
+  extern "C" int ss_tile_pass_residency_##name(int tile_h, int tile_w,                          \
+                                               int iters_per_pass, int* blocks_per_sm) {        \
+    return ss::tile_pass_residency<__VA_ARGS__>(tile_h, tile_w, iters_per_pass, blocks_per_sm); \
+  }                                                                                             \
+  extern "C" int ss_op_info_##name(int* info) { return ss::op_info<__VA_ARGS__>(info); }
 
 SS_FOR_EACH_OP(SS_TILE_PASS_ENTRY)
+SS_FOR_EACH_NARROW_OP(SS_TILE_PASS_ENTRY)
 
 extern "C" const char* ss_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

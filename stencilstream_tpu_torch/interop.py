@@ -4,8 +4,9 @@ The caller converts on the JAX side — a transition function's fields with
 ``dataclasses.asdict`` and a grid with ``Grid.to_numpy()`` — and this module
 turns those numpy values into the port's objects on a given device, so both
 packages compute from identical inputs. A time-dependent value crosses as a
-numpy stream of per-iteration values (:class:`StreamTDV`). It never imports
-JAX.
+numpy stream of per-iteration values (:class:`StreamTDV`). Narrow storage
+crosses by name (:func:`cast_storage_kernel`) and narrow grids by their bits
+(``Grid.from_numpy``). It never imports JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .backends.storage_cast import CastStorageKernel
+from .core.cell import NARROW_DTYPES
 from .core.grid import Grid
 from .models import convection, fdtd, jacobi
 from .models.hotspot import HotspotCell, HotspotKernel
@@ -24,6 +27,7 @@ from .tdv import PrecomputeOnHostTDV
 
 __all__ = [
     "StreamTDV",
+    "cast_storage_kernel",
     "convection_experiment",
     "convection_grid",
     "convection_pt_kernel",
@@ -38,6 +42,13 @@ __all__ = [
     "probe_grid",
     "transition_function_from_fields",
 ]
+
+
+def cast_storage_kernel(inner: Any, storage: str = "bfloat16") -> CastStorageKernel:
+    """The port's :class:`~.backends.storage_cast.CastStorageKernel` around
+    the port's ``inner`` transition function, for the storage dtype a JAX
+    ``CastStorageKernel`` names (``"bfloat16"`` or ``"float8_e4m3fn"``)."""
+    return CastStorageKernel(inner, NARROW_DTYPES[str(storage)])
 
 
 def _as_dict(values: Any) -> dict:

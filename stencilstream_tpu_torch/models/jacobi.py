@@ -159,7 +159,12 @@ class Jacobi5General(_Jacobi):
         c0, c1, c2, c3, c4 = self.cuda_params()
         acc = s[0, 0] * c4
         acc = fma(s[-1, 0], c0, acc)
-        acc = fma(s[0, -1], c1, acc)
+        if getattr(s, "storage_dtype", None) == torch.bfloat16:
+            # On bfloat16 cells (backends/storage_cast.py) XLA leaves this
+            # multiply-add unfused.
+            acc = acc + s[0, -1] * c1
+        else:
+            acc = fma(s[0, -1], c1, acc)
         acc = fma(s[1, 0], c2, acc)
         return fma(s[0, 1], c3, acc)
 

@@ -6,10 +6,15 @@ Drives each main-path run (:func:`main_paths`, which ``chip_smoke.py``
 drives too) through the entry point a user calls (HotSpot 1024² and
 8192², Jacobi5 8192² in both tiling window modes, Jacobi5 1024², Conway
 8192², FDTD's mono-benchmark with its time axis cut: coef 1024² and
-512², render 1024² through the line cache, lut 1024²; and ``convection.run``
+512², render 1024² through the line cache, lut 1024²; ``convection.run``
 of the JAX bench's experiment: 3072×1024 in float32 and float64 through
 ``auto``, 384×128 in float64 through ``auto``, 3072×1024 in float32 through
-the line cache): one warm-up call, five calls timed on
+the line cache; and on narrow storage (``backends/storage_cast.py``), as
+the JAX bench's ``bf16_storage`` rows store them: Jacobi5 8192² in
+bfloat16 through ``auto`` and through the line cache, HotSpot 8192² and
+FDTD coef 1024² in bfloat16 through ``auto``, Jacobi5 1024² in bfloat16
+through ``auto``, Jacobi5 8192² in float8 e4m3 through ``tiling``): one
+warm-up call, five calls timed on
 the host clock (``blocking=True``, so each ends in a synchronize), then
 one call under ``torch.profiler``. Prints one JSON line per run: the five
 walltimes and GCell/s, the card's SM clock and power draw meanwhile
@@ -37,6 +42,7 @@ import numpy as np
 import torch
 
 from . import Grid
+from .backends.storage_cast import CastStorageKernel, cast_storage
 from .models import convection, conway, fdtd, hotspot, jacobi
 
 __all__ = [
@@ -64,6 +70,17 @@ def main_paths(device) -> dict:
     def run_jacobi5(grid, n, **options):
         return jacobi.run(grid, j5, n, **options)
 
+    def narrow_jacobi5(side, storage):
+        """Jacobi5's bench grid stored as ``storage``, and its run."""
+        kernel = CastStorageKernel(j5, storage)
+        grid = cast_storage(jacobi.init_grid(side, side, device=device), storage)
+        return grid, lambda grid, n, **options: jacobi.run(grid, kernel, n, **options)
+
+    def run_hotspot_bf16(grid, n, **options):
+        kernel = CastStorageKernel(hotspot.derive_coefficients(*grid.shape))
+        return hotspot.run(grid, n, kernel=kernel, **options)
+
+    bf16, e4m3 = torch.bfloat16, torch.float8_e4m3fn
     auto = {"backend": "auto"}
     return {
         "hotspot 1024^2 auto": (hot(1024), hotspot.run, 1000, auto),
@@ -87,25 +104,38 @@ def main_paths(device) -> dict:
         "convection f64 384x128 auto": convection_run(128, np.float64, device, **auto),
         "convection f32 3072x1024 tiling linecache": convection_run(
             1024, np.float32, device, backend="tiling", window_mode="linecache"),
+        "jacobi5 bf16 8192^2 auto": (*narrow_jacobi5(8192, bf16), 200, auto),
+        "jacobi5 bf16 8192^2 tiling linecache": (
+            *narrow_jacobi5(8192, bf16), 200, {"backend": "tiling", "window_mode": "linecache"}),
+        "hotspot bf16 8192^2 auto": (cast_storage(hot(8192)), run_hotspot_bf16, 200, auto),
+        "fdtd coef bf16 1024^2 auto": fdtd_run("coef", 1024, "inline", device, storage=bf16, **auto),
+        "jacobi5 bf16 1024^2 auto": (*narrow_jacobi5(1024, bf16), 1000, auto),
+        "jacobi5 e4m3 8192^2 tiling": (*narrow_jacobi5(8192, e4m3), 200, {"backend": "tiling"}),
     }
 
 
-def fdtd_run(resolver: str, side: int, strategy, device, **options) -> tuple:
+def fdtd_run(resolver: str, side: int, strategy, device, storage=None, **options) -> tuple:
     """FDTD's mono-benchmark with its time axis cut, on a side^2 grid, as
     one main-path run ``(grid, run, n, options)``: the experiment's whole
     run (~8.2k iterations) in one call of ``build_simulation``'s updater
     with the TDV ``strategy`` (``run`` also takes the call's
-    ``iteration_offset``)."""
+    ``iteration_offset``); with ``storage``, the grid's float32 fields are
+    stored in that dtype and the kernel wrapped (``CastStorageKernel``)."""
     parameters = fdtd.Parameters.from_json(fdtd.mono_benchmark(side))
     res = fdtd.RESOLVERS[resolver](parameters)
 
     def run_fdtd(grid, n, iteration_offset=0, **kw):
         update, _ = fdtd.build_simulation(parameters, res, n_iterations=n, **kw)
-        update.get_params().iteration_offset = iteration_offset
+        p = update.get_params()
+        p.iteration_offset = iteration_offset
+        if storage is not None:
+            p.transition_function = CastStorageKernel(p.transition_function, storage)
         return update(grid), update
 
-    return (fdtd.init_grid(parameters, res, device=device), run_fdtd, parameters.n_timesteps(),
-            {"tdv_strategy": strategy, **options})
+    grid = fdtd.init_grid(parameters, res, device=device)
+    if storage is not None:
+        grid = cast_storage(grid, storage)
+    return grid, run_fdtd, parameters.n_timesteps(), {"tdv_strategy": strategy, **options}
 
 
 def convection_experiment(res: int) -> convection.Experiment:

@@ -16,7 +16,10 @@ with the strong coefficients one iteration moves temperatures by ~1e-1.
 Conway's and the probe's integer cells must agree exactly, and so must
 FDTD's fields: the kernel and its plain version read one TDV stream, and
 FDTD's update has no operation whose rounding could differ (each fused
-multiply-add is explicit in both).
+multiply-add is explicit in both). So must every cell on narrow storage
+(bfloat16, float8 e4m3): both round each float32 result to the storage type
+to nearest even, float8 overflow to NaN, and a NaN on both sides counts as
+equal.
 """
 
 import dataclasses
@@ -31,6 +34,7 @@ from stencilstream_tpu_torch.backends import cuda_lib
 from stencilstream_tpu_torch.backends import line_cache as lc
 from stencilstream_tpu_torch.backends import monotile as mt
 from stencilstream_tpu_torch.backends import tile_pass as tp
+from stencilstream_tpu_torch.backends.storage_cast import CastStorageKernel, cast_storage
 from stencilstream_tpu_torch.core.cell import cell_leaves
 from stencilstream_tpu_torch.models import convection, conway, fdtd, jacobi
 from stencilstream_tpu_torch.models import hotspot as hs
@@ -62,7 +66,10 @@ OPS = ["hotspot", *sorted(jacobi.VARIANTS), "conway", "probe"]
 #: The functors whose transition functions have a time-dependent value: the
 #: probe's at radius 1 and 2, FDTD's for each material resolver.
 TDV_OPS = ["probe_tdv", "probe_radius2", "fdtd_coef", "fdtd_lut", "fdtd_render"]
-ALL_OPS = OPS + TDV_OPS
+#: The narrow instantiations (csrc/ops/all.cuh: SS_FOR_EACH_NARROW_OP), by
+#: their entry points' names: bfloat16 and float8 e4m3 cells, float32 math.
+NARROW_OPS = ["hotspot__bf16", "jacobi5_general__bf16", "fdtd_coef__bf16", "jacobi5_general__e4m3"]
+ALL_OPS = OPS + TDV_OPS + NARROW_OPS
 #: The probes, whose cells must all stay Normal.
 PROBES = ("probe", "probe_tdv", "probe_radius2")
 #: The convection functors: pseudo-transient (full and lean) and thermal, in
@@ -73,7 +80,14 @@ CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "th
 def _case(op, shape, seed, device, iteration=0):
     """(cell, transition function, halo cell, tolerance) for a functor; the
     halo is non-zero (HotSpot 5.0 and 0.25, Jacobi 5.0), the probe's cells
-    sit at ``iteration``."""
+    sit at ``iteration``. A narrow instantiation, ``<functor>__<storage>``,
+    gets the functor's case with its float32 fields cast to the storage type
+    and its transition function wrapped, exactly."""
+    functor, _, suffix = op.partition("__")
+    if suffix:
+        storage = _storage(suffix)
+        cell, tf, halo, _ = _case(functor, shape, seed, device, iteration)
+        return cast_storage(cell, storage), CastStorageKernel(tf, storage), halo, 0
     rng = np.random.default_rng(seed)
     if op == "hotspot":
         return _cell(shape, seed, device), hs.HotspotKernel(**STRONG), hs.HotspotCell(temp=5.0, power=0.25), ATOL
@@ -90,6 +104,12 @@ def _case(op, shape, seed, device, iteration=0):
     if op in ("probe_tdv", "probe_radius2"):
         return grid.arrays, probe.ProbeTransFunc(radius_=1 if op == "probe_tdv" else 2), probe.probe_halo_cell(), 0
     return grid.arrays, probe.ProbeKernel(), probe.probe_halo_cell(), 0
+
+
+def _storage(suffix):
+    """The storage dtype an entry point's suffix names."""
+    (dtype,) = [d for d, s in cuda_lib.STORAGE_SUFFIX.items() if s == suffix]
+    return dtype
 
 
 def _fdtd_case(resolver, shape, rng, device, iteration):
@@ -331,13 +351,14 @@ def _band_plan(shape, q, limits, band=None):
     return mt.MonotilePlan(band, -(-shape[0] // band), 0, q, mt.MAX_THREADS)
 
 
-#: (op, shape, q) of the band checks: the probe, HotSpot, Jacobi5 and the
-#: functors with a time-dependent value on every band shape, but for those
+#: (op, shape, q) of the band checks: the probe, HotSpot, Jacobi5, the
+#: functors with a time-dependent value and the narrow instantiations on
+#: every band shape, but for those
 #: where q*r exceeds the band (the radius-2 probe's one-row and 5-row bands
 #: at q >= 1 and 4).
 BAND_CASES = [
     (op, shape, q)
-    for op in ["hotspot", "jacobi5_general", "probe", *TDV_OPS]
+    for op in ["hotspot", "jacobi5_general", "probe", *TDV_OPS, *NARROW_OPS]
     for shape, q in MONO_BANDS
     if q * (2 if op == "probe_radius2" else 1) <= -(-shape[0] // 132)
 ]
@@ -819,3 +840,122 @@ def test_convection_paths_launch_their_kernel(cuda, res, dtype, backend, kw, exp
     want, want_info = convection.run(e, backend="reference", dtype=dtype, verbose=False, device=cuda)
     assert info["stats"] == want_info["stats"]
     assert _max_err(got.arrays, want.arrays) == 0
+
+
+# -- narrow storage: bfloat16 and float8 e4m3 cells, float32 compute --------
+# (Each narrow instantiation also runs every case of the geometry and band
+# tests above, as one more entry of ALL_OPS and BAND_CASES.)
+
+
+def _nan_err(a, b):
+    """Largest absolute difference of two cells' fields: NaN on both sides
+    counts as equal, on one side only as infinite."""
+    def err(x, y):
+        x, y = x.double(), y.double()
+        d = (x - y).abs().nan_to_num(nan=float("inf"))
+        return float(torch.where(x.isnan() & y.isnan(), 0.0, d).max())
+
+    return max(err(x, y) for x, y in zip(cell_leaves(a), cell_leaves(b)))
+
+
+def test_narrow_functors_are_instantiated_in_every_kernel():
+    """ops/all.cuh's narrow list holds the pairs of cuda_lib.NARROW_OPS,
+    named <functor>__<storage>, and every kernel source expands its entry
+    macro over it."""
+    text = (cuda_lib.CSRC / "ops" / "all.cuh").read_text()
+    listed = re.findall(r"X\((\w+)__(\w+), ss::Narrow<ss::(\w+), ss::(\w+)>\)", text)
+    kinds = {"Bf16": "bf16", "E4m3": "e4m3"}
+    assert [f"{op}__{s}" for op, s, _, _ in listed] == NARROW_OPS
+    assert {(op, _storage(s)) for op, s, _, _ in listed} == set(cuda_lib.NARROW_OPS)
+    assert all(kinds[k] == s for _, s, _, k in listed)
+    for src in cuda_lib.SOURCES:
+        assert re.search(r"^SS_FOR_EACH_NARROW_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
+    assert cuda_lib._DTYPES[(2, 2)] == torch.bfloat16 and cuda_lib._DTYPES[(1, 3)] == torch.float8_e4m3fn
+
+
+def test_narrow_storage_names_its_instantiation_or_raises():
+    """A wrapped transition function names <functor>__<storage>; a pair that
+    is not built raises, naming it and the reference backend."""
+    for op in NARROW_OPS:
+        assert cuda_lib.require_device_op(_case(op, (2, 2), 0, "cpu")[1]) == op
+    for op, dtype in (("hotspot", torch.float8_e4m3fn), ("conway", torch.bfloat16), ("fdtd_lut", torch.bfloat16)):
+        tf = CastStorageKernel(_case(op, (2, 2), 0, "cpu")[1], dtype)
+        with pytest.raises(NotImplementedError, match=f"{op}.*{dtype}.*reference"):
+            cuda_lib.require_device_op(tf)
+
+
+def test_narrow_cells_take_the_laws_by_their_bytes():
+    """Shared-memory and traffic bytes follow the stored dtype, so the tile,
+    line-cache and resident-grid laws and the bounds see the narrower cell:
+    Jacobi5 2048^2 in bfloat16 fits the resident grid, in float32 it does
+    not."""
+    from stencilstream_tpu_torch.backends.auto import choose_backend
+
+    for op, smem, traffic in (("jacobi5_general__bf16", 4, (2, 2)), ("hotspot__bf16", 6, (4, 2)),
+                              ("fdtd_coef__bf16", 24, (16, 8)), ("jacobi5_general__e4m3", 2, (1, 1))):
+        cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+        assert cuda_lib.cell_smem_bytes(cell, tf) == smem
+        assert cuda_lib.cell_traffic_bytes(cell, tf) == traffic
+    tf = jacobi.make_kernel("jacobi5_general", JACOBI_COEFS["jacobi5_general"])
+    x = torch.zeros(2048, 2048)
+    assert choose_backend(Grid(x), tf) == "tiling"
+    assert choose_backend(Grid(cast_storage(x)), CastStorageKernel(tf)) == "monotile"
+
+
+def test_mixed_storage_cells_have_no_kernel():
+    """A functor has one element type: an int32 field beside bfloat16 ones
+    is refused, naming the field and both dtypes."""
+    cell = hs.HotspotCell(temp=torch.zeros(2, 2, dtype=torch.bfloat16), power=torch.zeros(2, 2, dtype=torch.int32))
+    leaves = cell_leaves(cell)
+    with pytest.raises(TypeError, match="'power' is torch.int32"):
+        cuda_lib.check_field_dtypes("hotspot__bf16", torch.bfloat16, ("temp", "power"), leaves, leaves)
+    cuda_lib.check_field_dtypes("hotspot__bf16", torch.bfloat16, ("temp", "power"), leaves[:1], leaves[:1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lo,hi", [(20, 260), (10, 150)])
+def test_float8_overflow_is_nan_on_every_kernel(cuda, lo, hi):
+    """Jacobi5 in float8 e4m3 with coefficients that sum to 2.5, two steps on
+    values in [lo, hi] (the first overflows in [20, 260], the second in
+    [10, 150]): results beyond 464 must come out NaN, as in the plain
+    version (not saturated to 448), on all three kernels."""
+    x = torch.tensor(np.random.default_rng(34).uniform(lo, hi, (96, 160)).astype(np.float32), device=cuda)
+    cell = cast_storage(x, torch.float8_e4m3fn)
+    tf = CastStorageKernel(jacobi.make_kernel("jacobi5_general", [0.5] * 5), torch.float8_e4m3fn)
+    kw = dict(i_start=0, offset=0, n_iterations=2, iters_per_pass=2)
+    want = tp.tile_pass_plain(cell, tf, 1.0, **kw)
+    assert 0 < int(want.float().isnan().sum()) < want.numel()
+    for got in (tp.tile_pass(cell, tf, 1.0, tile=(32, 64), **kw),
+                lc.line_cache_pass(cell, tf, 1.0, strip_rows=16, panel_cols=64, segment_rows=32, **kw),
+                mt.monotile(cell, tf, 1.0, offset=0, n_iterations=2)):
+        torch.cuda.synchronize()
+        assert _nan_err(got, want) == 0
+
+
+#: The narrow paths of chip_smoke.py at reduced sizes: (op, side, backend,
+#: options, the kernel it must launch). A bfloat16 Jacobi5 cell takes 4 B of
+#: shared memory, so grids up to 2560^2 fit the resident grid and ``auto``
+#: sends 3072^2 to the tile pass.
+NARROW_PATHS = [
+    ("jacobi5_general__bf16", 3072, "auto", {}, "tile_pass"),
+    ("jacobi5_general__bf16", 2304, "tiling", {"window_mode": "linecache"}, "line_cache"),
+    ("hotspot__bf16", 2304, "auto", {}, "tile_pass"),
+    ("jacobi5_general__bf16", 1024, "auto", {}, "monotile"),
+    ("jacobi5_general__e4m3", 2304, "tiling", {}, "tile_pass"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,side,backend,kw,expect", NARROW_PATHS,
+                         ids=[f"{o}-{s}-{b}-{e}" for o, s, b, _, e in NARROW_PATHS])
+def test_narrow_paths_launch_their_kernel(cuda, op, side, backend, kw, expect):
+    """13 iterations through the backend a user calls launch the expected
+    kernel only and equal the reference backend on the card."""
+    cell, tf, halo, _ = _case(op, (side, side), 35, cuda)
+    update = lambda b, **o: create_update(Params(tf, halo_value=halo, n_iterations=13), backend=b, **o)  # noqa: E731
+    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
+    before = {k: m.launches for k, m in counters.items()}
+    got = update(backend, **kw)(Grid(cell))
+    assert {k for k, m in counters.items() if m.launches != before[k]} == {expect}
+    want = update("reference")(Grid(cell))
+    assert _nan_err(got.arrays, want.arrays) == 0

@@ -45,7 +45,13 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    line-cache and band loops, exactly, NaN equal to NaN (widths 1001-1003
    leave a bfloat16 row that is not a whole number of 16-byte copies); and
    float8 overflow must come out NaN on every kernel as in the plain
-   version;
+   version. The tile pass in extended mode (a block at a global origin,
+   with a stored halo; the multi-device backends' pass) runs HotSpot, the
+   probe at radius 2, FDTD coef, convection's lean cell and Jacobi5 on
+   bfloat16 on the nine shards of a 3x3 mesh (interior, edges, corners,
+   negative origins, padding, odd widths, a stored halo wider than the
+   pass's) and a ring chunk, with every step, 1 of p and no step active,
+   exactly against its plain version;
 4. drive the main paths through the entry points a user calls, each with
    the kernels' launch counters set to 0 just before it and read just
    after: ``hotspot.run(..., backend="auto")`` at 1024^2 (monotile) and
@@ -77,7 +83,15 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    (the line cache), HotSpot 8192^2 and FDTD coef 1024^2 in bfloat16
    through ``auto`` (the tile pass), Jacobi5 1024^2 in bfloat16 through
    ``auto`` (the resident grid), Jacobi5 8192^2 in float8 e4m3 through
-   ``tiling``; each at a reduced n against ``reference``, exactly;
+   ``tiling``; each at a reduced n against ``reference``, exactly. Last,
+   the multi-device paths on meshes whose positions all name the one card
+   (:data:`MULTI_PATHS`): HotSpot 8192^2, n=200, through ``distributed`` on
+   (2, 2) and (4, 1) at p=4 and p=8 and through ``ring`` of 4 at p=2;
+   Jacobi5 8192^2 and FDTD coef 1024^2 through ``distributed`` (2, 2); the
+   strong-scaling HotSpot 2048^2, n=256, on (1, 1), (2, 1), (2, 2) beside
+   its ``auto`` run. Each launches the tile pass only, equals ``tiling``
+   on the same grid bit for bit, and at a reduced n equals ``reference``
+   and its ``local_compute="plain"`` run;
 5. time the kernels, their plain versions and, where one exists, the
    PyTorch call that computes the same function, with CUDA events at the
    main paths' shapes and the config laws' geometry: the tile pass at
@@ -101,13 +115,19 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    (:func:`narrow_kernel_rows`): one Jacobi5 8192^2 pass through the tile
    pass and the line cache in turns against p ``conv2d`` calls on bfloat16
    tensors, Jacobi5 1024^2 on the resident grid, and beside them HotSpot
-   bf16, Jacobi5 float8 and FDTD coef bf16 passes.
+   bf16, Jacobi5 float8 and FDTD coef bf16 passes. The tile pass in
+   extended mode (:func:`extended_kernel_row`) on shard (0, 0) of HotSpot
+   8192^2 on a (2, 2) and a (4, 1) mesh at p=4 and p=8, beside its plain
+   version and the halo exchange of one pass.
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
 resident grid: HotSpot 1024^2; line cache: Jacobi5 8192^2), and each again
 on bfloat16 cells (``<kernel>_bf16``: Jacobi5 8192^2 on the tile pass and
-the line cache, Jacobi5 1024^2 on the resident grid), with its bound:
+the line cache, Jacobi5 1024^2 on the resident grid), and the tile pass
+in extended mode (``tile_pass_extended``: one pass of p=4 on shard (0, 0)
+of HotSpot 8192^2 on a (2, 2) mesh; its launches those of the
+multi-device paths), with its bound:
 the larger of the bytes it must move over 3.35 TB/s and its float32
 operations (the transition function's ``n_operations``, a fused
 multiply-add counted as two) over 67 TFLOP/s (H100 SXM at 700 W). The last
@@ -201,6 +221,29 @@ NARROW_PATHS = {
     "jacobi5 bf16 1024^2 auto": "monotile",
     "jacobi5 e4m3 8192^2 tiling": "tile_pass",
 }
+
+#: The multi-device main paths (``trace_cells.multi_device_paths``), every
+#: position of their meshes on the one card: each must launch the tile pass
+#: only, equal ``tiling`` on the same grid at its full n bit for bit, and
+#: equal ``reference`` and its plain local compute at a reduced n.
+MULTI_PATHS = {
+    "hotspot 8192^2 distributed 2x2": ATOL,
+    "hotspot 8192^2 distributed 2x2 p=8": ATOL,
+    "hotspot 8192^2 distributed 4x1": ATOL,
+    "hotspot 8192^2 distributed 4x1 p=8": ATOL,
+    "hotspot 8192^2 ring 4": ATOL,
+    "jacobi5 8192^2 distributed 2x2": JACOBI_ATOL,
+    "fdtd coef 1024^2 distributed 2x2": FDTD_ATOL,
+    "hotspot 2048^2 distributed 1x1": ATOL,
+    "hotspot 2048^2 distributed 2x1": ATOL,
+    "hotspot 2048^2 distributed 2x2": ATOL,
+}
+#: The tile pass's extended mode: functor -> p (``tests/test_torch_kernels.py``
+#: holds the same cases): HotSpot (an invariant field), the probe at radius
+#: 2 with its TDV, FDTD coef with its TDV, convection's lean cell and
+#: Jacobi5 on bfloat16 cells.
+EXTENDED_OPS = {"hotspot": 4, "probe_radius2": 2, "fdtd_coef": 2, "convection_pt_lean_f32": 2,
+                "jacobi5_general__bf16": 4}
 
 JACOBI_COEFS = {
     "jacobi1_general": [0.9],
@@ -560,6 +603,50 @@ def check_float8_overflow(device, errs) -> None:
                   f"{n_nan} NaN cells", got, want, NARROW_ATOL)
 
 
+def check_extended(device, errs) -> None:
+    """Phase 3, the tile pass in extended mode against its plain version,
+    exactly: each functor of :data:`EXTENDED_OPS` on the nine shards of a
+    3x3 mesh of 20x61 cores (interior, edge and corner shards, negative
+    origins, padding past the grid, odd block widths, a stored halo wider
+    than the pass's) and on a ring chunk, for a pass with every step, 1 of
+    p and no step active. Probe cells carry global coordinates; those in the
+    grid must stay Normal."""
+    import dataclasses
+
+    import torch
+
+    from stencilstream_tpu_torch import probe
+    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+    from stencilstream_tpu_torch.tile_sweep import extended_blocks
+
+    for seed, (op, p) in enumerate(EXTENDED_OPS.items(), start=900):
+        tf = op_case(op, (2, 2), 0, "cpu")[1]
+        hp = tf.stencil_radius * p * tf.n_subiterations
+        for steps, (i_start, offset, n) in {"all": (3, 3, 2 * p), "one": (3 + p, 3, p + 1),
+                                            "none": (3 + 2 * p, 3, 2 * p)}.items():
+            for label, shape, origin, grid_range, stored in extended_blocks((20, 61), hp):
+                cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
+                if op in PROBES:
+                    cell = dataclasses.replace(cell, r=cell.r + origin[0], c=cell.c + origin[1])
+                kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p, origin=origin,
+                          grid_range=grid_range, stored_halo=stored)
+                got = tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+                want = tile_pass_plain(cell, tf, halo, **kw)
+                torch.cuda.synchronize()
+                e = max_err(got, want)
+                errs["tile_pass_extended"] = max(errs["tile_pass_extended"], e)
+                assert e == 0, f"extended tile pass disagrees with its plain version: {op} {label} {steps}: {e}"
+                if op in PROBES:
+                    h, w = shape[0] - 2 * stored[0], shape[1] - 2 * stored[1]
+                    rows = torch.arange(h, device=device) + origin[0] + stored[0]
+                    cols = torch.arange(w, device=device) + origin[1] + stored[1]
+                    inside = ((rows >= 0) & (rows < grid_range[0]))[:, None] & \
+                        ((cols >= 0) & (cols < grid_range[1]))[None, :]
+                    assert bool((got.status[inside] == probe.NORMAL).all()), (op, label, steps)
+            log(f"  tile_pass_extended {op} p={p}, {steps} steps active, 10 blocks (3x3 shards of 20x61 cores, "
+                f"stored halo {hp}+(1, 3), and a ring chunk): max_abs_err={errs['tile_pass_extended']:.3g} (tol 0)")
+
+
 def check_kernels(device) -> dict:
     """Phase 3: each kernel against its plain version on the card."""
     import torch
@@ -573,7 +660,7 @@ def check_kernels(device) -> dict:
     from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain, tile_smem_bytes
     from stencilstream_tpu_torch.models import jacobi
 
-    errs = {"tile_pass": 0.0, "monotile": 0.0, "line_cache": 0.0}
+    errs = {"tile_pass": 0.0, "monotile": 0.0, "line_cache": 0.0, "tile_pass_extended": 0.0}
     # HotSpot, (shape, tile, iters_per_pass, i_start, offset, n): partial
     # passes, non-zero offsets, odd shapes and a grid smaller than one tile.
     tile_cases = [
@@ -635,6 +722,7 @@ def check_kernels(device) -> dict:
         if op in PROBES:
             assert int(got.status.abs().max()) == probe.NORMAL, "probe cells flagged Invalid"
 
+    check_extended(device, errs)
     check_tdv_probes(device, errs)
     check_convection(device, errs)
     check_float8_overflow(device, errs)
@@ -783,6 +871,57 @@ def fdtd_user_run(path, counters, card, side: int = 1024) -> tuple[dict, float]:
     return counts, e
 
 
+def multi_device_runs(paths, counters, card) -> tuple[dict, dict, float]:
+    """Phase 4, the multi-device paths (:data:`MULTI_PATHS`), each with the
+    launch counters set to 0 just before it and read just after: only the
+    tile pass launches; finite fields; the same grid through ``tiling`` at
+    the same n (the single-card path, run beside it for its walltime) equal
+    bit for bit; then at a reduced n (12; FDTD across its detect iteration)
+    equal to ``reference`` and to the plain local compute
+    (``local_compute="plain"``). Returns the updates, the launch counts and
+    the largest difference."""
+    import torch
+
+    from stencilstream_tpu_torch.core.cell import cell_leaves
+
+    runs, counts, worst = {}, {}, 0.0
+    for name, tol in MULTI_PATHS.items():
+        grid, run, n, options = paths[name]
+        for module in counters.values():
+            module.launches = 0
+        out, update = run(grid, n, **options)
+        counts[name] = {k: m.launches for k, m in counters.items()}
+        runs[name] = update
+        cells = grid.shape[0] * grid.shape[1] * n
+        one_card = {k: v for k, v in options.items() if k not in ("mesh", "iters_per_pass")}
+        single, single_update = run(grid, n, **{**one_card, "backend": "tiling"})
+        log(f"  {name}, n={n}: {update.resolved_config}; launches {counts[name]}; walltime "
+            f"{update.get_walltime():.6f} s, {cells / update.get_walltime() / 1e9:.3f} GCell/s; tiling on the same "
+            f"card {single_update.resolved_config} {single_update.get_walltime():.6f} s, "
+            f"{cells / single_update.get_walltime() / 1e9:.3f} GCell/s (host clock; the mesh's positions share "
+            f"one card) [{card}]")
+        assert {k for k, c in counts[name].items() if c} == {"tile_pass"}, (name, counts[name])
+        for field, before in zip(cell_leaves(out.arrays), cell_leaves(grid.arrays)):
+            assert tuple(field.shape) == grid.shape and field.dtype == before.dtype, name
+            assert bool(torch.isfinite(field.float()).all()), name
+        e = max_err(out.arrays, single.arrays)
+        log(f"  {name}, n={n}: against tiling max_abs_err={e:.3g} (tol 0)")
+        assert e == 0, (name, e)
+        del out, single
+        tf = update.params.transition_function
+        at = {"iteration_offset": tf.detect_iteration - 6} if name.startswith("fdtd") else {}
+        got, _ = run(grid, 12, **options, **at)
+        want, _ = run(grid, 12, **{**one_card, "backend": "reference"}, **at)
+        plain, _ = run(grid, 12, **options, **at, local_compute="plain")
+        e_ref, e_plain = max_err(got.arrays, want.arrays), max_err(got.arrays, plain.arrays)
+        worst = max(worst, e_ref, e_plain)
+        log(f"  {name}, n=12 {at}: against reference max_abs_err={e_ref:.3g}, against local_compute='plain' "
+            f"{e_plain:.3g} (tol {tol})")
+        assert e_ref <= tol and e_plain <= tol, (name, e_ref, e_plain)
+        del got, want, plain
+    return runs, counts, worst
+
+
 def convection_paths(paths, counters, card) -> tuple[dict, dict, dict]:
     """Phase 4, the four convection paths through ``convection.run`` as a
     user calls it, each with the launch counters set to 0 just before it:
@@ -869,6 +1008,64 @@ def convection_kernel_rows(runs, counts, outs, device, card) -> dict:
             rows[row] = dict(kernel=kernel, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                              max_abs_err=e, launches=counts[name][kernel], workload=f"{tf.cuda_op} {H}x{W}, {what}")
     return rows
+
+
+def extended_kernel_row(runs, device, card) -> dict:
+    """Phase 5, the tile pass in extended mode at the multi-device paths'
+    shapes: HotSpot 8192^2 cut into the shards of a (2, 2) mesh (4096^2
+    cores) and of a (4, 1) mesh (2048x8192), each at p=4 and p=8, at the
+    paths' tiles. For each: the halo exchange of one pass (all shards, the
+    temperature, as the backend exchanges it; CUDA events), one extended
+    pass of the corner shard (0, 0)
+    beside its plain version, and the pass's bound: the block's two fields
+    (core and stored halo) read, the core's temperature written, over 3.35
+    TB/s, or ``n_operations`` a cell-step of the core over 67 TFLOP/s. No
+    single PyTorch call computes a pass. Returns the (2, 2), p=4 row (the
+    ``kernels`` line's workload)."""
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.core.cell import cell_map
+    from stencilstream_tpu_torch.models import hotspot
+    from stencilstream_tpu_torch.parallel import exchange_halo, make_mesh
+
+    cell = hotspot_cell((8192, 8192), 7, device)
+    tf = hotspot.derive_coefficients(8192, 8192)
+    hz = hotspot.HotspotCell(temp=0.0, power=0.0)
+    rows = {}
+    for name in ("hotspot 8192^2 distributed 2x2", "hotspot 8192^2 distributed 2x2 p=8",
+                 "hotspot 8192^2 distributed 4x1", "hotspot 8192^2 distributed 4x1 p=8"):
+        cfg = runs[name].resolved_config
+        (ny, nx), (h, w), stored, p = cfg["mesh"], cfg["shard"], cfg["stored_halo"], cfg["iters_per_pass"]
+        tile = (cfg["tile_rows"], cfg["tile_cols"])
+        mesh = make_mesh(shape=(ny, nx), devices=[device] * (ny * nx))
+        blocks = [[cell_map(lambda a: a[iy * h:(iy + 1) * h, ix * w:(ix + 1) * w].contiguous(), cell)
+                   for ix in range(nx)] for iy in range(ny)]
+        # A pass exchanges the temperature only: the power map, which HotSpot
+        # only reads, is exchanged once a call.
+        temps = [[b.temp for b in row] for row in blocks]
+        exchange_ms = cuda_ms(lambda: exchange_halo(temps, stored, mesh), 10)
+        ext = exchange_halo(blocks, stored, mesh)[0][0]
+        kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p, origin=(-stored[0], -stored[1]),
+                  grid_range=(8192, 8192), stored_halo=stored)
+        ms = cuda_ms(lambda: tp.tile_pass(ext, tf, hz, tile=tile, **kw), 10)
+        plain_ms = cuda_ms(lambda: tp.tile_pass_plain(ext, tf, hz, **kw), 2)
+        e = max_err(tp.tile_pass(ext, tf, hz, tile=tile, **kw), tp.tile_pass_plain(ext, tf, hz, **kw))
+        Hs, Ws = ext.temp.shape
+        b, by = bound(8 * Hs * Ws + 4 * h * w, tf.n_operations * p * h * w)
+        share = exchange_ms / (exchange_ms + ny * nx * ms)
+        log(f"  tile_pass_extended {name}: shard {h}x{w}, stored halo {stored}, tile {tile}, p={p}: kernel "
+            f"{ms:.4f} ms = {b / ms:.1%} of its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, library none, "
+            f"max_abs_err={e:.3g}; exchange of a pass {exchange_ms:.4f} ms, {share:.1%} of a pass's "
+            f"exchange and {ny * nx} kernels [{card}]")
+        assert e <= ATOL, (name, e)
+        rows[name] = dict(
+            name="tile_pass_extended", route="cuda", source="stencilstream_tpu_torch/csrc/tile_pass.cu",
+            replaces="stencilstream_tpu/backends/strip_pass.py:535", ms=ms, plain_ms=plain_ms, bound_ms=b,
+            bound_by=by, library_ms=None, max_abs_err=e, exchange_ms=exchange_ms,
+            workload=f"hotspot 8192x8192 shard (0, 0) of a ({ny}, {nx}) mesh, {h}x{w} core, stored halo "
+                     f"{stored}, one pass of p={p}, tile {tile}",
+        )
+        del blocks, ext
+    return rows["hotspot 8192^2 distributed 2x2"]
 
 
 def narrow_kernel_rows(runs, path_counts, device, card, limits, n_mono: int) -> dict:
@@ -1129,14 +1326,15 @@ def main() -> int:
         "fdtd render 1024^2 tiling linecache": (12, FDTD_ATOL, {"line_cache"}),
         "fdtd lut 1024^2 auto": (12, FDTD_ATOL, {"tile_pass"}),
         **{name: (12, NARROW_ATOL, {kernel}) for name, kernel in NARROW_PATHS.items()},
+        "hotspot 2048^2 auto": (12, ATOL, {"tile_pass"}),
     }
     paths = main_paths(device)
-    assert set(paths) == set(checks) | set(CONVECTION_PATHS), sorted(paths)
+    assert set(paths) == set(checks) | set(CONVECTION_PATHS) | set(MULTI_PATHS), sorted(paths)
     totals = dict.fromkeys(counters, 0)
     path_errs = dict.fromkeys(counters, 0.0)
     runs, path_counts, fdtd_outs = {}, {}, {}
     for name, (grid, run, n, options) in paths.items():
-        if name in CONVECTION_PATHS:
+        if name in CONVECTION_PATHS or name in MULTI_PATHS:
             continue
         n_small, tol, expect = checks[name]
         for module in counters.values():
@@ -1185,6 +1383,10 @@ def main() -> int:
         for k in counters:
             totals[k] += conv_counts[name][k]
     log(f"main path launches: {totals}")
+    multi_runs, multi_counts, multi_err = multi_device_runs(paths, counters, card)
+    extended_launches = sum(c["tile_pass"] for c in multi_counts.values())
+    log(f"multi-device path launches: {extended_launches} of the tile pass in extended mode, "
+        f"{ {name: c['tile_pass'] for name, c in multi_counts.items()} }")
     del paths
     torch.cuda.empty_cache()
     log(f"phase 4 done at {time.perf_counter() - t_start:.1f} s")
@@ -1365,6 +1567,11 @@ def main() -> int:
     log("fdtd kernels: " + json.dumps(fdtd_kernels))
     for row in fdtd_kernels.values():
         kernels[row["kernel"]]["max_abs_err"] = max(kernels[row["kernel"]]["max_abs_err"], row["max_abs_err"])
+    kernels["tile_pass_extended"] = extended_kernel_row(multi_runs, device, card)
+    kernels["tile_pass_extended"].update(
+        launches=extended_launches,
+        max_abs_err=max(kernels["tile_pass_extended"]["max_abs_err"], errs["tile_pass_extended"], multi_err),
+    )
     conv_kernels = convection_kernel_rows(conv_runs, conv_counts, conv_outs, device, card)
     log("convection kernels: " + json.dumps(conv_kernels))
     for row in conv_kernels.values():
@@ -1372,7 +1579,8 @@ def main() -> int:
     del conv_outs
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
-    order = ("tile_pass", "monotile", "line_cache", "tile_pass_bf16", "monotile_bf16", "line_cache_bf16")
+    order = ("tile_pass", "monotile", "line_cache", "tile_pass_bf16", "monotile_bf16", "line_cache_bf16",
+             "tile_pass_extended")
     log(json.dumps({"kernels": [kernels[k] for k in order]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,15 +1,20 @@
 """Automatic backend selection.
 
-Counterpart of ``stencilstream_tpu/backends/auto.py`` for one device: a
-runtime dispatch per grid,
+Counterpart of ``stencilstream_tpu/backends/auto.py``: a runtime dispatch
+per grid,
 
+* more than one visible device and a grid large enough that the per-device
+  halo padding does not dominate (at least 64 rows a device, or a grid
+  that does not fit the monotile capacity law) -> ``distributed``;
 * the grid fits the monotile capacity law (:func:`.monotile.monotile_plan`,
   from the device's SM count and shared memory per block) -> ``monotile``;
 * otherwise -> ``tiling``.
 
-A CPU grid is judged by an H100 SXM's limits, so it resolves as it would on
-that card. Construction kwargs are forwarded to whichever backend is chosen,
-filtered to the parameters its constructor accepts.
+Visible devices are ``torch.cuda.device_count()`` for a CUDA grid and one
+for a CPU grid. A CPU grid is judged by an H100 SXM's limits, so it
+resolves as it would on that card. Construction kwargs are forwarded to
+whichever backend is chosen, filtered to the parameters its constructor
+accepts.
 """
 
 from __future__ import annotations
@@ -17,20 +22,26 @@ from __future__ import annotations
 import inspect
 from typing import Any
 
+import torch
+
 from ..core.grid import Grid
-from . import monotile, tiling
+from . import distributed, monotile, tiling
 from .base import StencilUpdateBase
 from .cuda_lib import cell_smem_bytes, device_limits
 
 __all__ = ["StencilUpdate", "choose_backend"]
 
 
-def choose_backend(grid: Grid, tf: Any) -> str:
+def choose_backend(grid: Grid, tf: Any, n_devices: int | None = None) -> str:
     """Resolve the backend name for a grid (see module docstring)."""
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if grid.device.type == "cuda" else 1
     H, W = grid.shape
     plan = monotile.monotile_plan(
         H, W, tf.stencil_radius, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device)
     )
+    if n_devices > 1 and (H / n_devices >= 64 or plan is None):
+        return "distributed"
     return "monotile" if plan is not None else "tiling"
 
 
@@ -52,7 +63,8 @@ class StencilUpdate(StencilUpdateBase):
     def _delegate_for(self, name: str) -> StencilUpdateBase:
         delegate = self._delegates.get(name)
         if delegate is None:
-            cls = {"monotile": monotile.StencilUpdate, "tiling": tiling.StencilUpdate}[name]
+            cls = {"monotile": monotile.StencilUpdate, "tiling": tiling.StencilUpdate,
+                   "distributed": distributed.StencilUpdate}[name]
             accepted = set(inspect.signature(cls.__init__).parameters)
             kwargs = {k: v for k, v in self._backend_kwargs.items() if k in accepted}
             delegate = cls(self.params, **kwargs)

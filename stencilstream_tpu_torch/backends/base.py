@@ -14,7 +14,7 @@ import time
 from typing import Any
 
 from ..core.cell import cell_dtypes, cell_field_names, cell_map, cell_zeros, storage_scalar
-from ..core.grid import Grid
+from ..core.grid import Grid, synchronize
 from ..core.params import Params
 from ..core.transition import validate_transition_function
 from ..tdv import resolve_tdv_strategy
@@ -64,7 +64,8 @@ class StencilUpdateBase:
         start = time.perf_counter()
         out = self._update(grid)
         if p.blocking:
-            out.block_until_ready()
+            for device in self._devices(out):
+                synchronize(device)
         self._walltime += time.perf_counter() - start
         self._n_processed_cells += int(p.n_iterations) * grid.height * grid.width
         return out
@@ -76,9 +77,14 @@ class StencilUpdateBase:
     def get_walltime(self) -> float:
         return self._walltime
 
-    # -- backend hook --------------------------------------------------------
+    # -- backend hooks -------------------------------------------------------
     def _update(self, grid: Grid) -> Grid:
         raise NotImplementedError
+
+    def _devices(self, out: Grid) -> list:
+        """The devices a call ran on; a blocking call's walltime ends once
+        each has finished (the multi-device backends name their mesh's)."""
+        return [out.device]
 
     # -- shared helpers ------------------------------------------------------
     def _tdv_strategy(self):

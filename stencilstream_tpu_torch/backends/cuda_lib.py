@@ -79,7 +79,7 @@ _I = ctypes.c_int
 #: pointer after the halo doubles is the call's TDV stream (NULL for a
 #: functor without a TDV).
 _SIGNATURES = {
-    "ss_tile_pass_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
+    "ss_tile_pass_": [_PP, _PP, _PP, *[_I] * 16, _PD, _PD, _P, _P],
     "ss_tile_pass_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_monotile_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P, _P, ctypes.c_uint, _P],
     "ss_monotile_residency_": [_I, _I, _I, _I, ctypes.POINTER(ctypes.c_int)],
@@ -449,16 +449,18 @@ def with_variant(arrays: Any, fields: KernelFields, new_variant: list[torch.Tens
     return cell_unflatten(arrays, leaves)
 
 
-def variant_outputs(arrays: Any, fields: KernelFields, out: Any) -> list[torch.Tensor]:
-    """Output tensors for a kernel's variant fields: new ones, or those of
-    ``out`` (a cell from an earlier pass of the same chain, written in
-    place), checked against the input fields."""
+def variant_outputs(arrays: Any, fields: KernelFields, out: Any, shape=None) -> list[torch.Tensor]:
+    """Output tensors for a kernel's variant fields, of ``shape`` (the input
+    fields' by default): new ones, or those of ``out`` (a cell written in
+    place: from an earlier pass of the same chain, or rows of a larger
+    buffer), checked against the input fields."""
+    shape = tuple(fields.variant[0].shape) if shape is None else tuple(shape)
     if out is None:
-        return [torch.empty_like(t) for t in fields.variant]
+        return [torch.empty(shape, dtype=t.dtype, device=t.device) for t in fields.variant]
     out_leaves = cell_leaves(out)
     dst = [kernel_view(out_leaves[j]) for j in fields.variant_index]
     for d, s in zip(dst, fields.variant):
-        if d.shape != s.shape or d.dtype != s.dtype or d.device != s.device:
+        if tuple(d.shape) != shape or d.dtype != s.dtype or d.device != s.device:
             raise ValueError("out must match the grid's fields")
         if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
             raise ValueError("out must be contiguous and must not be the input")

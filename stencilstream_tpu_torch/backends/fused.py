@@ -1,21 +1,32 @@
 """Plain building blocks of a fused multi-iteration window update.
 
-Counterpart of the plain helpers of ``stencilstream_tpu/backends/fused.py``:
-the halo law, the halo-framed neighbor shift, the out-of-grid mask and one
-fused sub-step over a window whose edges carry the halo value ("pad" on both
-axes). These are what the plain PyTorch versions of the CUDA kernels are
+Counterpart of ``stencilstream_tpu/backends/fused.py``: the halo law, the
+halo-framed neighbor shift, the out-of-grid mask, one fused sub-step over a
+window whose edges carry the halo value ("pad" on both axes), and
+:func:`fused_window_pass`, several fused iterations over a window whose axes
+each either "pad" or "shrink". These are what the plain PyTorch versions of
+the CUDA kernels and the multi-device backends' plain local compute are
 built from; the kernels themselves (``csrc/``) compute the same function.
+
+Per-axis window disciplines:
+
+* ``"pad"`` — neighbors beyond the window's edge are the halo value (the
+  window edge is the grid edge, or its margin goes stale by ``radius`` cells
+  per sub-step and the caller discards it);
+* ``"shrink"`` — the window loses ``radius * n_subiterations`` cells per
+  side per iteration, so a window of ``core + 2 * radius * p *
+  n_subiterations`` yields the exact core after ``p`` fused iterations.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
 
 import torch
 
 from ..core.cell import cell_leaves, cell_map
 
-__all__ = ["fused_substep", "halo_width", "mask_out_of_grid", "shifted"]
+__all__ = ["fused_substep", "fused_window_pass", "halo_width", "mask_out_of_grid", "shifted"]
 
 
 def halo_width(radius: int, iters_per_pass: int, n_subiterations: int) -> int:
@@ -98,4 +109,57 @@ def fused_substep(
         )
         if not in_grid:
             window = mask_out_of_grid(window, halo_cell, (row0, col0), grid_range)
+    return window
+
+
+def fused_window_pass(
+    window: Any,
+    tf: Any,
+    halo_cell: Any,
+    origin: tuple[int, int],
+    grid_range: tuple[int, int],
+    i_start: int,
+    i_target: int,
+    tdv_lookup: Callable[[int, int], Any],
+    *,
+    radius: int,
+    n_subiterations: int,
+    n_steps: int,
+    row_mode: str = "shrink",
+    col_mode: str = "pad",
+) -> Any:
+    """Apply ``n_steps`` fused iterations to a window of cells.
+
+    ``origin`` is the global (row, col) of the window's first cell and
+    ``grid_range`` the logical grid extent ``(H, W)``. Out-of-grid window
+    positions present the halo value from the first sub-step on, whatever
+    they held (a mesh-edge exchange fills them with zeros). Step ``s`` is
+    absolute iteration ``i_start + s``; steps at or past ``i_target`` pass
+    cells through unchanged (a ``"shrink"`` axis still loses its margin),
+    and only the others read their time-dependent value,
+    ``tdv_lookup(s, i_abs)``. A ``"shrink"`` axis must exceed
+    ``2 * radius * n_steps * n_subiterations``. Returns the final window.
+    """
+    for mode in (row_mode, col_mode):
+        if mode not in ("pad", "shrink"):
+            raise ValueError(f"window modes are 'pad' or 'shrink' (got {mode!r})")
+    row0, col0 = origin
+    window = mask_out_of_grid(window, halo_cell, (row0, col0), grid_range)
+    r, k = radius, n_subiterations
+    # A shrinking axis is computed as a padded one and then loses the
+    # iteration's margin: cells r*k or more from the window's edge read only
+    # taps that the shrinking window holds too.
+    dr = r * k * (row_mode == "shrink")
+    dc = r * k * (col_mode == "shrink")
+    for step in range(n_steps):
+        i_abs = i_start + step
+        active = i_abs < i_target
+        window = fused_substep(
+            window, tf, halo_cell, row0, col0, grid_range, i_abs,
+            tdv_lookup(step, i_abs) if active else None, active,
+            radius=r, n_subiterations=k,
+        )
+        h, w = cell_leaves(window)[0].shape
+        window = cell_map(lambda a: a[dr : h - dr, dc : w - dc], window)
+        row0, col0 = row0 + dr, col0 + dc
     return window

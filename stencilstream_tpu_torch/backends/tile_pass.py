@@ -16,6 +16,17 @@ Both compute ``iters_per_pass`` iterations starting at absolute iteration
 unchanged (the last, partial pass of a call). Both read a step's
 time-dependent value from the call's TDV stream ``tdv`` (element ``i_abs -
 offset``; :mod:`..tdv`), the inline strategy's when none is given.
+
+Clamped and extended mode. By default the cell is the whole grid (clamped
+mode, the tiling backend's). In extended mode (the multi-device backends',
+the TPU kernel's ``mode="extended"``) the cell is a *block* of a larger
+grid: its first cell sits at global ``origin`` (which may be negative) in a
+grid of ``grid_range`` cells, and it stores ``stored_halo = (rows, cols)``
+cells on each side of its *core*, the part the pass returns. Cells outside
+the grid present the halo value from the first sub-step on, whatever the
+block holds there; the transition function sees global coordinates. A side
+stores at least the pass's halo ``r * p * k``, or the grid ends at or
+inside that side of the block (:func:`check_block`).
 """
 
 from __future__ import annotations
@@ -25,7 +36,7 @@ from typing import Any
 
 import torch
 
-from ..core.cell import cell_leaves
+from ..core.cell import cell_field_names, cell_leaves, cell_map, cell_unflatten
 from ..tdv import step_value, tdv_stream
 from .cuda_lib import (
     check,
@@ -37,9 +48,9 @@ from .cuda_lib import (
     variant_outputs,
     with_variant,
 )
-from .fused import fused_substep
+from .fused import fused_substep, halo_width, mask_out_of_grid
 
-__all__ = ["tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes", "launches"]
+__all__ = ["check_block", "tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes", "launches"]
 
 #: Kernel launches made by :func:`tile_pass` (CUDA tensors only).
 launches = 0
@@ -63,6 +74,32 @@ def tile_smem_bytes(tile_h: int, tile_w: int, halo: int, cell_bytes: int) -> int
     return cell_bytes * ((tile_h + 2 * halo) * pitch + PITCH_ALIGN)
 
 
+def check_block(
+    shape: tuple[int, int],
+    origin: tuple[int, int],
+    grid_range: tuple[int, int],
+    stored_halo: tuple[int, int],
+    halo: int,
+) -> None:
+    """Raise ``ValueError`` unless a block of ``shape`` stored cells at
+    global ``origin`` in a grid of ``grid_range`` cells, with ``stored_halo``
+    cells per side around its core, gives the exact core after a pass of
+    halo ``halo`` (``r * p * k``): its core is not empty, and on each side
+    it stores at least ``halo`` cells or the grid ends at or inside that
+    side of the block."""
+    (Hs, Ws), (r0, c0), (H, W), (hs, cs) = shape, origin, grid_range, stored_halo
+    if hs < 0 or cs < 0 or Hs - 2 * hs < 1 or Ws - 2 * cs < 1:
+        raise ValueError(f"a {Hs}x{Ws} block with a stored halo of {stored_halo} has no core")
+    sides = {"top": hs >= halo or r0 <= 0, "bottom": hs >= halo or r0 + Hs >= H,
+             "left": cs >= halo or c0 <= 0, "right": cs >= halo or c0 + Ws >= W}
+    short = [side for side, ok in sides.items() if not ok]
+    if short:
+        raise ValueError(
+            f"the block at {origin} stores {stored_halo} halo cells, fewer than the pass's halo {halo}, "
+            f"on its {', '.join(short)} side(s), where the {H}x{W} grid goes on"
+        )
+
+
 def tile_pass_plain(
     arrays: Any,
     tf: Any,
@@ -73,18 +110,41 @@ def tile_pass_plain(
     n_iterations: int,
     iters_per_pass: int,
     tdv: Any = None,
+    origin: tuple[int, int] = (0, 0),
+    grid_range: tuple[int, int] | None = None,
+    stored_halo: tuple[int, int] = (0, 0),
 ) -> Any:
-    """The plain PyTorch version of one pass."""
-    H, W = cell_leaves(arrays)[0].shape
+    """The plain PyTorch version of one pass: whole-block sub-steps with
+    the halo value framing the block (:func:`.fused.fused_substep`), then
+    the core. As in the kernel (and the TPU kernel), the fields a device
+    functor only reads (those ``tf.cuda_variant`` does not name) come back
+    as the input's core, bytes outside the grid included."""
+    block = arrays
+    Hs, Ws = cell_leaves(arrays)[0].shape
+    grid_range = (Hs, Ws) if grid_range is None else tuple(grid_range)
+    hs, cs = stored_halo
+    check_block((Hs, Ws), origin, grid_range, stored_halo, halo_width(tf.stencil_radius, iters_per_pass,
+                                                                      tf.n_subiterations))
+    if origin[0] < 0 or origin[1] < 0 or origin[0] + Hs > grid_range[0] or origin[1] + Ws > grid_range[1]:
+        arrays = mask_out_of_grid(arrays, halo_cell, origin, grid_range)
     stream = tdv if tdv is not None else tdv_stream(tf, offset, n_iterations, cell_leaves(arrays)[0].device)
     for step in range(iters_per_pass):
         i_abs = i_start + step
         if i_abs >= offset + n_iterations:
             break  # pass-through for the rest of the pass
         arrays = fused_substep(
-            arrays, tf, halo_cell, 0, 0, (H, W), i_abs, step_value(stream, i_abs - offset), True,
-            radius=tf.stencil_radius, n_subiterations=tf.n_subiterations,
+            arrays, tf, halo_cell, origin[0], origin[1], grid_range, i_abs, step_value(stream, i_abs - offset),
+            True, radius=tf.stencil_radius, n_subiterations=tf.n_subiterations,
         )
+    core = (lambda a: a[hs : Hs - hs, cs : Ws - cs]) if hs or cs else (lambda a: a)
+    names, variant = cell_field_names(block), getattr(tf, "cuda_variant", None)
+    if names and variant is not None:
+        arrays = cell_unflatten(block, [
+            core(a) if name in variant else core(b)
+            for name, a, b in zip(names, cell_leaves(arrays), cell_leaves(block))
+        ])
+    elif hs or cs:
+        arrays = cell_map(core, arrays)
     return arrays
 
 
@@ -101,30 +161,44 @@ def tile_pass(
     tile: tuple[int, int],
     out: Any = None,
     tdv: Any = None,
+    origin: tuple[int, int] = (0, 0),
+    grid_range: tuple[int, int] | None = None,
+    stored_halo: tuple[int, int] = (0, 0),
 ) -> Any:
     """One pass over ``tile``-sized cores (``tiling.pick_config`` gives the
-    law's); returns the new grid cell. ``tdv`` is the call's TDV stream
-    (the inline strategy's when ``None``).
+    law's); returns the new cell: the grid's (clamped mode), or the core of
+    a block (extended mode, ``origin``/``grid_range``/``stored_halo``, see
+    the module docstring). ``tdv`` is the call's TDV stream (the inline
+    strategy's when ``None``).
 
     On the card the variant fields of the result are new tensors, or those
-    of ``out`` (a cell from an earlier pass of the same chain, written in
-    place; it must not be ``arrays``). The invariant fields of the result
-    ARE the tensors of ``arrays``, so no caller may later write in place
-    into a returned cell's fields without cloning them first. Raises for a
-    tile narrower than a warp or shorter than a run.
+    of ``out`` (a cell of the core's shape written in place: from an earlier
+    pass of the same chain, or rows of a larger buffer; it must not overlap
+    ``arrays``). On the CPU ``out`` is not written. The invariant
+    fields of the result ARE the tensors of ``arrays`` (in extended mode,
+    views of their cores), so no caller may later write in place into a
+    returned cell's fields without cloning them first. Raises for a tile
+    narrower than a warp or shorter than a run, and for a block whose
+    stored halo is too narrow (:func:`check_block`).
     """
     global launches
     device = cell_leaves(arrays)[0].device
+    block = dict(origin=tuple(origin), grid_range=grid_range, stored_halo=tuple(stored_halo))
     if device.type == "cpu":
         return tile_pass_plain(
             arrays, tf, halo_cell, i_start=i_start, offset=offset,
-            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv,
+            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv, **block,
         )
     fields = kernel_fields(arrays, tf, halo_cell, offset)
     if tdv is None:
         tdv = tdv_stream(tf, offset, n_iterations, device)
-    H, W = fields.variant[0].shape
-    dst = variant_outputs(arrays, fields, out)
+    Hs, Ws = fields.variant[0].shape
+    H, W = (Hs, Ws) if grid_range is None else grid_range
+    hs, cs = stored_halo
+    check_block((Hs, Ws), origin, (H, W), (hs, cs), halo_width(tf.stencil_radius, iters_per_pass,
+                                                               tf.n_subiterations))
+    h, w = Hs - 2 * hs, Ws - 2 * cs
+    dst = variant_outputs(arrays, fields, out, (h, w))
     tile_h, tile_w = tile
     if tile_w < WARP or tile_h < RUN_ROWS:
         raise ValueError(f"the tile-pass kernel takes tiles of at least {RUN_ROWS}x{WARP} (got {tile})")
@@ -132,12 +206,14 @@ def tile_pass(
     with torch.cuda.device(device):
         code = fn(
             pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-            H, W, tile_h, tile_w, iters_per_pass, i_start, offset, n_iterations,
-            fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
-            torch.cuda.current_stream(device).cuda_stream,
+            Hs, Ws, origin[0], origin[1], H, W, hs, cs, h, w, tile_h, tile_w, iters_per_pass,
+            i_start, offset, n_iterations, fields.params, fields.halo,
+            tdv_pointer(tf, tdv, n_iterations, device), torch.cuda.current_stream(device).cuda_stream,
         )
     check(code, f"tile-pass kernel (tile {tile})")
     launches += 1
+    if hs or cs:
+        arrays = cell_map(lambda a: a[hs : Hs - hs, cs : Ws - cs], arrays)
     return with_variant(arrays, fields, dst)
 
 

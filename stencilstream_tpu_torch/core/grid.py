@@ -14,7 +14,7 @@ import torch
 
 from .cell import NARROW_DTYPES, cell_block_shape, cell_full_grid, cell_leaves, cell_map, cell_zeros
 
-__all__ = ["Grid"]
+__all__ = ["Grid", "synchronize"]
 
 #: A torch integer of a narrow field's width in bytes, to view its bits as.
 _BITS = {1: torch.int8, 2: torch.int16}
@@ -114,12 +114,17 @@ class Grid:
 
     def block_until_ready(self) -> "Grid":
         """Wait until the device has finished writing this grid."""
-        device = self.device
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        synchronize(self.device)
         return self
 
     def __repr__(self) -> str:
         h, w = self.shape
         n = len(cell_leaves(self.arrays))
         return f"Grid({h}x{w}, {n} field{'s' if n != 1 else ''}, {self.device})"
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait until ``device`` has finished its queued work (a CPU device has
+    none)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

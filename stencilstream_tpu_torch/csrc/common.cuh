@@ -302,42 +302,67 @@ __device__ __forceinline__ void copy_cell(T* dst, const T* src) {
     *dst = *src;
 }
 
-// Stage WH rows of one field's window (global rows row0.., columns col0..)
-// into shared memory at `win`, rows dealt to the kWarps warps of the CTA
-// (threadIdx.y): out-of-grid cells get the halo value, the in-grid span of a
-// row is copied with cp.async, 16 bytes at a time between its first and last
-// 16-byte boundary when `vec16` (the row's shared and global addresses then
-// agree modulo 16 bytes), cell by cell elsewhere. 1-byte cells are copied
-// one per lane with plain loads and stores, which measured faster for them;
-// 2-byte cells (bfloat16), which have no cp.async of their own size, take
-// plain loads outside the 16-byte body.
-// The caller commits the group, waits for it and synchronises the CTA.
+// Stage WH rows of one field's window into shared memory at `win`: window
+// cell (wr, c) is element (row0 + wr, col0 + c) of a block whose rows lie
+// `gpitch` elements apart from `g` (row0 and col0 may be negative). Rows are
+// dealt to the kWarps warps of the CTA (threadIdx.y). Elements in block rows
+// [r_lo, r_hi) and columns [c_lo, c_hi), the part of the block that is
+// stored and inside the grid, are copied; every other window cell gets the
+// halo value. The copied span of a row goes by cp.async, 16 bytes at a time
+// between its first and last 16-byte boundary when `vec16` (the row's
+// shared and global addresses then agree modulo 16 bytes), cell by cell
+// elsewhere. 1-byte cells are copied one per lane with plain loads and
+// stores, which measured faster for them; 2-byte cells (bfloat16), which
+// have no cp.async of their own size, take plain loads outside the 16-byte
+// body. The caller commits the group, waits for it and synchronises the CTA.
 template <int kWarps, class T>
-__device__ __forceinline__ void stage_field(T* win, int pitch, const T* g, T halo, int row0,
-                                            int col0, int WH, int WW, int H, int W, bool vec16) {
+__device__ __forceinline__ void stage_block(T* win, int pitch, const T* g, int gpitch, T halo,
+                                            int row0, int col0, int WH, int WW, int r_lo,
+                                            int r_hi, int c_lo, int c_hi, bool vec16) {
   constexpr int E = 16 / sizeof(T);
   const int lane = threadIdx.x;
-  const int a = max(col0, 0) - col0;       // first in-grid window column
-  const int b = min(col0 + WW, W) - col0;  // end of the in-grid columns
+  // What every row shares, once: the copied columns [a, b), their 16-byte
+  // body [lo, hi) and the copied window rows [w_lo, w_hi).
+  const int a = max(col0, c_lo) - col0;       // first copied window column
+  const int b = min(col0 + WW, c_hi) - col0;  // end of the copied columns
+  const int w_lo = max(r_lo - row0, 0);
+  const int w_hi = b <= a ? 0 : min(r_hi - row0, WH);
+  int lo = b, hi = b;
+  if (sizeof(T) > 1 && vec16) {
+    lo = min(b, a + ((E - ((col0 + a) & (E - 1))) & (E - 1)));
+    hi = lo + ((b - lo) & ~(E - 1));
+  }
   for (int wr = threadIdx.y; wr < WH; wr += kWarps) {
     T* s = win + wr * pitch;
-    const int gr = row0 + wr;
-    if (gr < 0 || gr >= H || b <= a) {
+    if (wr < w_lo || wr >= w_hi) {
       for (int c = lane; c < WW; c += 32) s[c] = halo;
       continue;
     }
     for (int c = lane; c < a; c += 32) s[c] = halo;
     for (int c = b + lane; c < WW; c += 32) s[c] = halo;
-    const T* gp = g + static_cast<long>(gr) * W + col0;
-    int lo = b, hi = b;  // the 16-byte body [lo, hi)
-    if (sizeof(T) > 1 && vec16) {
-      lo = min(b, a + ((E - ((col0 + a) & (E - 1))) & (E - 1)));
-      hi = lo + ((b - lo) & ~(E - 1));
+    const T* gp = g + (static_cast<long>(row0 + wr) * gpitch + col0);
+    if constexpr (sizeof(T) > 1)
       for (int c = lo + lane * E; c < hi; c += 32 * E) cp_async<16>(s + c, gp + c);
-    }
     for (int c = a + lane; c < lo; c += 32) copy_cell(s + c, gp + c);
     for (int c = hi + lane; c < b; c += 32) copy_cell(s + c, gp + c);
   }
+}
+
+// stage_block out of line: the compiler then allocates the staging's
+// registers apart from its caller's.
+template <int kWarps, class T>
+__device__ __noinline__ void stage_block_outlined(T* win, int pitch, const T* g, int gpitch, T halo,
+                                                  int row0, int col0, int WH, int WW, int r_lo,
+                                                  int r_hi, int c_lo, int c_hi, bool vec16) {
+  stage_block<kWarps>(win, pitch, g, gpitch, halo, row0, col0, WH, WW, r_lo, r_hi, c_lo, c_hi, vec16);
+}
+
+// stage_block over a whole H x W grid (global rows row0.., columns col0..):
+// out-of-grid cells get the halo value.
+template <int kWarps, class T>
+__device__ __forceinline__ void stage_field(T* win, int pitch, const T* g, T halo, int row0,
+                                            int col0, int WH, int WW, int H, int W, bool vec16) {
+  stage_block<kWarps>(win, pitch, g, W, halo, row0, col0, WH, WW, 0, H, 0, W, vec16);
 }
 
 }  // namespace ss

@@ -38,8 +38,8 @@
 //   window (compound halo included) lies inside the grid; such tiles run the
 //   sub-steps with no out-of-grid test. Edge tiles write the halo value into
 //   every out-of-grid cell at every sub-step.
-// * Asynchronous, wide staging (common.cuh: stage_field, which the line
-//   cache shares). Rows are staged with 16-byte cp.async where
+// * Asynchronous, wide staging (common.cuh: stage_block, which the line
+//   cache shares through stage_field). Rows are staged with 16-byte cp.async where
 //   the row's global and shared addresses are 16-byte aligned (each plane is
 //   shifted so that both agree modulo 16 bytes), with 4- or 8-byte cp.async
 //   for the rest of the row; out-of-grid cells are written with the halo
@@ -47,6 +47,26 @@
 //   which measured faster for them. Loads of one CTA overlap the compute of
 //   the other resident on the SM (a persistent grid that prefetched its next
 //   tile into a third buffer measured slower; PERF.md).
+//
+// Clamped and extended mode (one entry, one instantiation per functor). The
+// pass reads a block of Hs x Ws stored cells whose element (0, 0) sits at
+// global (org_r, org_c), which may be negative, in a grid of H x W cells,
+// and writes its core: h x w cells at offset (hs, cs) in the block, tiled by
+// the launch. Clamped mode, the tiling backend's, is the case block = grid:
+// origin 0, no stored halo. Extended mode is the multi-device backends'
+// (backends/distributed.py, backends/ring.py, counterparts of the TPU
+// kernel's mode="extended", strip_pass.py:96-98, 357-386, 476-484): the
+// block is a shard's core with a stored halo from its mesh neighbours, or a
+// ring chunk's window. Everything that decides "inside the grid" uses global
+// coordinates, and the functor sees them; addresses use block coordinates.
+// A window cell outside the grid, or outside the block, is staged as the
+// halo value whatever the block holds there (the TPU kernel's entry mask:
+// mesh-edge halos and padding rows arrive with any bytes). A window leaves
+// the block only where the grid ends or where the tile reaches past the
+// core, whose dependency cone (hp cells) the stored halo covers, so no
+// core cell reads a substituted value that the grid holds. A pass whose
+// steps all lie at or past the call's end writes the staged core back
+// (the ring's partial laps, the TPU kernel's force_partial).
 //
 // Narrow storage (common.cuh: Narrow) needs nothing of its own here: its
 // functor's T is the storage type, so windows, staging and the core's store
@@ -72,11 +92,40 @@ namespace ss {
 constexpr int kTileWarps = 16;  // warps per CTA
 constexpr int kTileThreads = 32 * kTileWarps;
 constexpr int kMinBlocks = 2;    // CTAs per SM the register budget is cut for
+// Cells of at least this many bytes are staged out of line
+// (common.cuh: stage_block_outlined): inlined, the block arguments cost the
+// HotSpot and Jacobi5 8192^2 passes 2-5% in their sub-steps (PERF.md).
+constexpr int kOutlineStagingBytes = 4;
+
+// One field's window, staged (common.cuh: stage_block).
+template <class T>
+__device__ __forceinline__ void stage_tile(T* win, int pitch, const T* g, int gpitch, T halo, int row0,
+                                           int col0, int WH, int WW, int r_lo, int r_hi, int c_lo,
+                                           int c_hi, bool vec16) {
+  if constexpr (sizeof(T) >= kOutlineStagingBytes)
+    stage_block_outlined<kTileWarps>(win, pitch, g, gpitch, halo, row0, col0, WH, WW, r_lo, r_hi, c_lo,
+                                     c_hi, vec16);
+  else
+    stage_block<kTileWarps>(win, pitch, g, gpitch, halo, row0, col0, WH, WW, r_lo, r_hi, c_lo, c_hi,
+                            vec16);
+}
+
+// The shared pitch and plane of a window's planes, in elements.
+struct Planes {
+  int pitch, plane;
+};
 
 template <class Op>
 struct TilePassArgs {
   Fields<Op> f;
-  int H, W;            // logical grid extent (storage is H x W, row-major)
+  int H, W;            // global grid extent (coordinates, out-of-grid cells)
+  int Ws;              // row pitch of the stored block (Hs x Ws, row-major)
+  int org_r, org_c;    // global coordinates of block element (0, 0)
+  int row_base;        // global row of tile row 0's window: org_r + hs - halo
+  int col_base;        // global column of tile column 0's window: org_c + cs - halo
+  int h, w;            // the core's extent: the output is h x w, row-major
+  int r_lo, r_hi;      // block rows that are stored and inside the grid
+  int c_lo, c_hi;      // block columns that are stored and inside the grid
   int tile_h, tile_w;  // core tile
   int halo;            // r * p * k
   int steps;           // p * k sub-steps
@@ -90,14 +139,15 @@ struct TilePassArgs {
 };
 
 // One sub-step over the window narrowed by m per side: src -> dst (window
-// origins), invariant fields at `inv`. A thread computes its run's V cells
+// origins), invariant fields at `inv`, planes laid out by `g` (Planes, or
+// the launch arguments themselves). A thread computes its run's V cells
 // before it stores any, so the compiler loads each tap that the run's cells
 // share once.
-template <class Op, bool kEdge>
-__device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const Op& op,
+template <class Op, bool kEdge, class G>
+__device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const G& g, const Op& op,
                                         const typename Op::T* src, typename Op::T* dst,
                                         const typename Op::T* inv, int m, int row0, int col0,
-                                        int iteration, int sub, tdv_t<Op> tdv) {
+                                        int H, int W, int iteration, int sub, tdv_t<Op> tdv) {
   using T = typename Op::T;
   constexpr int NV = Op::kVariant;
   constexpr int R = Op::kRadius;
@@ -113,30 +163,30 @@ __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const Op& op,
     const int c = min(m + (jx << 5), WW - m - 32) + threadIdx.x;
     const int gr = row0 + r;
     const int gc = col0 + c;
-    const bool col_in = gc >= 0 && gc < a.W;
+    const bool col_in = gc >= 0 && gc < W;
     T out[V][NV];
 #pragma unroll
     for (int k = 0; k < V; ++k) {
-      if (kEdge && (!col_in || gr + k < 0 || gr + k >= a.H)) {
+      if (kEdge && (!col_in || gr + k < 0 || gr + k >= H)) {
 #pragma unroll
         for (int f = 0; f < NV; ++f) out[k][f] = a.f.halo_var[f];
       } else {
         if (!kEdge) {
           // Inside an interior tile every computed cell has all its
           // neighbours in the grid: let the compiler fold edge tests.
-          __builtin_assume(gr + k >= R && gr + k < a.H - R && gc >= R && gc < a.W - R);
+          __builtin_assume(gr + k >= R && gr + k < H - R && gc >= R && gc < W - R);
         }
-        const Taps<T, tdv_t<Op>> t{src + (r + k) * a.pitch + c, inv + (r + k) * a.pitch + c,
-                                   a.plane, a.plane, a.pitch, gr + k, gc, a.H, a.W, iteration,
+        const Taps<T, tdv_t<Op>> t{src + (r + k) * g.pitch + c, inv + (r + k) * g.pitch + c,
+                                   g.plane, g.plane, g.pitch, gr + k, gc, H, W, iteration,
                                    sub, tdv};
         op(t, out[k]);
       }
     }
-    T* d0 = dst + r * a.pitch + c;
+    T* d0 = dst + r * g.pitch + c;
 #pragma unroll
     for (int k = 0; k < V; ++k)
 #pragma unroll
-      for (int f = 0; f < NV; ++f) d0[f * a.plane + k * a.pitch] = out[k][f];
+      for (int f = 0; f < NV; ++f) d0[f * g.plane + k * g.pitch] = out[k][f];
     jx += kTileWarps;
     while (jx >= n_chunks) jx -= n_chunks, ++jy;
   }
@@ -144,11 +194,12 @@ __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const Op& op,
 
 // The pass's sub-steps on one staged tile; returns the buffer holding the
 // result (`cur` or `other`).
-template <class Op, bool kEdge>
-__device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, const Op& op,
-                                                     typename Op::T* cur, typename Op::T* other,
+template <class Op, bool kEdge, class G>
+__device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, const G& g,
+                                                     const Op& op, typename Op::T* cur,
+                                                     typename Op::T* other,
                                                      const typename Op::T* inv, int row0,
-                                                     int col0) {
+                                                     int col0, int H, int W) {
   constexpr int R = Op::kRadius;
   constexpr int K = Op::kSubiterations;
   for (int s = 0; s < a.steps; ++s) {
@@ -156,7 +207,7 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
     // Past the call's last iteration every cell passes through unchanged,
     // so the core already holds the result (uniform across the CTA).
     if (iteration >= a.i_end) break;
-    substep<Op, kEdge>(a, op, cur, other, inv, R * (s + 1), row0, col0, iteration, s % K,
+    substep<Op, kEdge>(a, g, op, cur, other, inv, R * (s + 1), row0, col0, H, W, iteration, s % K,
                        read_tdv<Op>(a.tdv, iteration - a.offset));
     __syncthreads();
     typename Op::T* t = cur;
@@ -174,44 +225,68 @@ tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ty = blockIdx.x / a.tiles_x;  // once per CTA
   const int tx = blockIdx.x - ty * a.tiles_x;
-  const int row0 = ty * a.tile_h - a.halo;
-  const int col0 = tx * a.tile_w - a.halo;
+  // The window's origin in global coordinates and in block ones. (Each
+  // global coordinate is one product plus one launch constant, so that the
+  // compiler keeps the sub-steps' coordinates in the form of the interior
+  // body's assumptions, which let it fold the functors' edge tests.)
+  const int row0 = ty * a.tile_h + a.row_base;
+  const int col0 = tx * a.tile_w + a.col_base;
+  const int br0 = row0 - a.org_r;
+  const int bc0 = col0 - a.org_c;
   const int WH = a.tile_h + 2 * a.halo;
   const int WW = a.tile_w + 2 * a.halo;
   // Shift every plane so that its rows' shared and global addresses agree
   // modulo 16 bytes.
-  const int sh = col0 & (16 / static_cast<int>(sizeof(T)) - 1);
+  const int sh = bc0 & (16 / static_cast<int>(sizeof(T)) - 1);
   T* cur = reinterpret_cast<T*>(smem_raw) + sh;  // [2][NV][plane]
   T* other = cur + NV * a.plane;
   T* inv = cur + 2 * NV * a.plane;                // [NI][plane]
 
 #pragma unroll
   for (int f = 0; f < NV; ++f)
-    stage_field<kTileWarps>(cur + f * a.plane, a.pitch, a.f.var_in[f], a.f.halo_var[f], row0, col0, WH, WW,
-                a.H, a.W, a.vec16);
+    stage_tile(cur + f * a.plane, a.pitch, a.f.var_in[f], a.Ws, a.f.halo_var[f], br0, bc0, WH, WW, a.r_lo,
+               a.r_hi, a.c_lo, a.c_hi, a.vec16);
 #pragma unroll
   for (int f = 0; f < Op::kInvariant; ++f)
-    stage_field<kTileWarps>(inv + f * a.plane, a.pitch, a.f.inv[f], a.f.halo_inv[f], row0, col0, WH, WW,
-                a.H, a.W, a.vec16);
+    stage_tile(inv + f * a.plane, a.pitch, a.f.inv[f], a.Ws, a.f.halo_inv[f], br0, bc0, WH, WW, a.r_lo,
+               a.r_hi, a.c_lo, a.c_hi, a.vec16);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
 
-  const bool interior = row0 >= 0 && col0 >= 0 && row0 + WH <= a.H && col0 + WW <= a.W;
-  const T* res = interior ? run_steps<Op, false>(a, op, cur, other, inv, row0, col0)
-                          : run_steps<Op, true>(a, op, cur, other, inv, row0, col0);
+  // The grid's extent by value: the interior body's assumptions and the
+  // functor's edge tests then read one value, which lets the compiler fold
+  // those tests.
+  const int H = a.H, W = a.W;
+  const bool interior = row0 >= 0 && col0 >= 0 && row0 + WH <= H && col0 + WW <= W;
+  const T* res;
+  if constexpr (is_narrow<T>()) {
+    // Narrow cells take the shared pitch and plane as values: read through
+    // the launch arguments, they are reloaded after each conversion's inline
+    // assembly, a run's rows then share no address registers, and each row
+    // loads its taps again (float8 Jacobi5: 40 shared loads a run, not 26).
+    // Float32 cells measured faster reading the arguments.
+    const Planes g{a.pitch, a.plane};
+    res = interior ? run_steps<Op, false>(a, g, op, cur, other, inv, row0, col0, H, W)
+                   : run_steps<Op, true>(a, g, op, cur, other, inv, row0, col0, H, W);
+  } else {
+    res = interior ? run_steps<Op, false>(a, a, op, cur, other, inv, row0, col0, H, W)
+                   : run_steps<Op, true>(a, a, op, cur, other, inv, row0, col0, H, W);
+  }
 
-  // Write the core back.
-  const int gr0 = ty * a.tile_h;
-  const int gc0 = tx * a.tile_w;
-  const int n_rows = min(a.tile_h, a.H - gr0);
-  const int n_cols = min(a.tile_w, a.W - gc0);
+  // Write the tile's core back (core coordinates).
+  const int cr0 = ty * a.tile_h;
+  const int cc0 = tx * a.tile_w;
+  const int n_rows = min(a.tile_h, a.h - cr0);
+  const int n_cols = min(a.tile_w, a.w - cc0);
   for (int i = threadIdx.y; i < n_rows; i += kTileWarps) {
     const T* s = res + (i + a.halo) * a.pitch + a.halo;
-    const long g = static_cast<long>(gr0 + i) * a.W + gc0;
-    for (int c = threadIdx.x; c < n_cols; c += 32) {
+    const long g = static_cast<long>(cr0 + i) * a.w + cc0;
 #pragma unroll
-      for (int f = 0; f < NV; ++f) a.f.var_out[f][g + c] = s[f * a.plane + c];
+    for (int f = 0; f < NV; ++f) {
+      T* const out = a.f.var_out[f] + g;
+      const T* const in = s + f * a.plane;
+      for (int c = threadIdx.x; c < n_cols; c += 32) out[c] = in[c];
     }
   }
 }
@@ -222,38 +297,53 @@ size_t tile_smem_bytes(const TilePassArgs<Op>& a) {
          (2 * Op::kVariant + Op::kInvariant);
 }
 
-// Fill the launch arguments; returns false for a tile the thread map does
-// not take (narrower than a warp or shorter than a run).
+// Fill the geometry of a launch over an h x w core; returns false for a tile
+// the thread map does not take (narrower than a warp or shorter than a run).
 template <class Op>
-bool tile_args(TilePassArgs<Op>& a, int H, int W, int tile_h, int tile_w, int iters_per_pass) {
-  if (tile_w < 32 || tile_h < run_rows<Op>() || iters_per_pass < 0) return false;
-  a.H = H;
-  a.W = W;
+bool tile_args(TilePassArgs<Op>& a, int h, int w, int tile_h, int tile_w, int iters_per_pass) {
+  if (tile_w < 32 || tile_h < run_rows<Op>() || iters_per_pass < 0 || h < 1 || w < 1) return false;
+  a.h = h;
+  a.w = w;
   a.tile_h = tile_h;
   a.tile_w = tile_w;
   a.halo = Op::kRadius * iters_per_pass * Op::kSubiterations;
   a.steps = iters_per_pass * Op::kSubiterations;
-  a.tiles_x = (W + tile_w - 1) / tile_w;
+  a.tiles_x = (w + tile_w - 1) / tile_w;
   a.pitch = (tile_w + 2 * a.halo + kPitchAlign - 1) / kPitchAlign * kPitchAlign;
   a.plane = (tile_h + 2 * a.halo) * a.pitch + kPitchAlign;
   return true;
 }
 
+// A block of Hs x Ws stored cells at global (org_r, org_c) in an H x W grid;
+// the pass writes its h x w core at (hs, cs) (see the top of this file).
 template <class Op>
-int launch_tile_pass(void* const* var_in, void* const* var_out, void* const* inv, int H,
-                     int W, int tile_h, int tile_w, int iters_per_pass, int i_start,
-                     int offset, int n_iterations, const double* params,
-                     const double* halo, const void* tdv, void* stream) {
+int launch_tile_pass(void* const* var_in, void* const* var_out, void* const* inv, int Hs,
+                     int Ws, int org_r, int org_c, int H, int W, int hs, int cs, int h, int w,
+                     int tile_h, int tile_w, int iters_per_pass, int i_start, int offset,
+                     int n_iterations, const double* params, const double* halo,
+                     const void* tdv, void* stream) {
   using T = typename Op::T;
   TilePassArgs<Op> a;
-  if (!tile_args(a, H, W, tile_h, tile_w, iters_per_pass))
+  if (!tile_args(a, h, w, tile_h, tile_w, iters_per_pass) || hs < 0 || cs < 0 || hs + h > Hs ||
+      cs + w > Ws)
     return static_cast<int>(cudaErrorInvalidValue);
+  a.H = H;
+  a.W = W;
+  a.Ws = Ws;
+  a.org_r = org_r;
+  a.org_c = org_c;
+  a.row_base = org_r + hs - a.halo;
+  a.col_base = org_c + cs - a.halo;
+  a.r_lo = max(0, -org_r);
+  a.r_hi = min(Hs, H - org_r);
+  a.c_lo = max(0, -org_c);
+  a.c_hi = min(Ws, W - org_c);
   a.f = make_fields<Op>(var_in, var_out, inv, halo);
   a.i_start = i_start;
   a.offset = offset;
   a.i_end = offset + n_iterations;
   a.tdv = tdv;
-  bool aligned = (static_cast<size_t>(W) * sizeof(T)) % 16 == 0;
+  bool aligned = (static_cast<size_t>(Ws) * sizeof(T)) % 16 == 0;
   for (int f = 0; f < Op::kVariant; ++f)
     aligned = aligned && reinterpret_cast<uintptr_t>(var_in[f]) % 16 == 0;
   for (int f = 0; f < Op::kInvariant; ++f)
@@ -264,7 +354,7 @@ int launch_tile_pass(void* const* var_in, void* const* var_out, void* const* inv
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int blocks = a.tiles_x * ((H + tile_h - 1) / tile_h);
+  const int blocks = a.tiles_x * ((h + tile_h - 1) / tile_h);
   tile_pass_kernel<Op><<<blocks, dim3(32, kTileWarps), smem, static_cast<cudaStream_t>(stream)>>>(
       a, Op::from_params(params));
   return static_cast<int>(cudaGetLastError());
@@ -318,13 +408,14 @@ int op_info(int* info) {
 
 #define SS_TILE_PASS_ENTRY(name, ...)                                                           \
   extern "C" int ss_tile_pass_##name(void* const* var_in, void* const* var_out,                 \
-                                     void* const* inv, int H, int W, int tile_h,                \
+                                     void* const* inv, int Hs, int Ws, int org_r, int org_c,    \
+                                     int H, int W, int hs, int cs, int h, int w, int tile_h,    \
                                      int tile_w, int iters_per_pass, int i_start,               \
                                      int offset, int n_iterations, const double* params,        \
                                      const double* halo, const void* tdv, void* stream) {       \
-    return ss::launch_tile_pass<__VA_ARGS__>(var_in, var_out, inv, H, W, tile_h, tile_w,        \
-                                    iters_per_pass, i_start, offset, n_iterations,              \
-                                    params, halo, tdv, stream);                                 \
+    return ss::launch_tile_pass<__VA_ARGS__>(var_in, var_out, inv, Hs, Ws, org_r, org_c, H, W,  \
+                                    hs, cs, h, w, tile_h, tile_w, iters_per_pass, i_start,      \
+                                    offset, n_iterations, params, halo, tdv, stream);           \
   }                                                                                             \
   extern "C" int ss_tile_pass_residency_##name(int tile_h, int tile_w,                          \
                                                int iters_per_pass, int* blocks_per_sm) {        \

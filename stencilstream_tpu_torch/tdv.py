@@ -42,6 +42,7 @@ __all__ = [
     "PrecomputeOnHostTDV",
     "resolve_tdv_strategy",
     "step_value",
+    "stream_to",
     "tdv_stream",
 ]
 
@@ -64,6 +65,11 @@ def _tree_map(fn: Callable[..., Any], *xs: Any) -> Any:
 def step_value(stream: Any, i_rel: int) -> Any:
     """The TDV of step ``i_rel`` of a call: element ``i_rel`` of its stream."""
     return _tree_map(lambda a: a[i_rel], stream)
+
+
+def stream_to(stream: Any, device) -> Any:
+    """A TDV stream on ``device`` (a copy where it lies elsewhere)."""
+    return _tree_map(lambda a: a.to(device), stream)
 
 
 class TDVStrategy:

@@ -75,7 +75,9 @@ from .tdv import tdv_stream
 from .trace_cells import JACOBI5_COEFS, convection_experiment
 from . import probe
 
-__all__ = ["main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "TILES", "PASSES"]
+__all__ = [
+    "extended_blocks", "main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "TILES", "PASSES",
+]
 
 #: Core tiles of the geometry sweep, heights a multiple of the run: widths a
 #: multiple of the 32-lane warp, and widths whose window at a halo of 8
@@ -168,6 +170,24 @@ def convection_case(op, shape, rng, device, active=None):
     return convection.ThermalConvectionCell(**fields), tf, halo
 
 
+def extended_blocks(core: tuple[int, int], halo: int, extra: tuple[int, int] = (1, 3)) -> list[tuple]:
+    """Blocks on which to hold the tile pass's extended mode against its
+    plain version (``chip_smoke.py``, ``tests/test_torch_kernels.py``),
+    ``(label, block shape, origin, grid range, stored halo)``: the nine
+    shards of a 3x3 mesh of ``core``-sized cores over a grid that ends
+    inside its last row and column of shards (the interior shard, edge and
+    corner shards, negative origins, padding), each storing ``extra`` more
+    rows and columns of halo than the pass's ``halo``; and a ring chunk (a
+    stored halo of rows only, the grid's full width)."""
+    c0, c1 = core
+    sh, sw = halo + extra[0], halo + extra[1]
+    H, W = 3 * c0 - 5, 3 * c1 - 7
+    blocks = [(f"shard ({iy}, {ix})", (c0 + 2 * sh, c1 + 2 * sw), (iy * c0 - sh, ix * c1 - sw), (H, W), (sh, sw))
+              for iy in range(3) for ix in range(3)]
+    blocks.append(("ring chunk", (c0 + 2 * halo, W), (c0 - halo, 0), (H, W), (halo, 0)))
+    return blocks
+
+
 def cases(device, size=SIZE, ops=("hotspot", "jacobi5", "conway", "probe")):
     """name -> (cell, transition function, halo cell) at size^2 (FDTD's at
     its own size, :data:`SIZES`) for each of ``ops``."""
@@ -258,8 +278,8 @@ def run_loops(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list
     shared memory, copy nothing from global memory (``LDGSTS``) and hold no
     other such loop; ``instructions``, ``LDS`` and ``STS`` counted over the
     loop's body."""
-    chunk = next((c for c in sass.split("Function : ")[1:]
-                  if c.startswith(f"_ZN2ss{len(kernel)}{kernel}") and functor in c.split(None, 1)[0]), "")
+    name = f"_ZN2ss{len(kernel)}{kernel}INS_{len(functor)}{functor}E"  # the functor's own instantiation
+    chunk = next((c for c in sass.split("Function : ")[1:] if c.startswith(name)), "")
     code = [(int(a, 16), op) for a, op in _SASS_INSTRUCTION.findall(chunk)]
     loops = []
     for addr, op in code:

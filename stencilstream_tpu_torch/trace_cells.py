@@ -13,8 +13,9 @@ the line cache; and on narrow storage (``backends/storage_cast.py``), as
 the JAX bench's ``bf16_storage`` rows store them: Jacobi5 8192² in
 bfloat16 through ``auto`` and through the line cache, HotSpot 8192² and
 FDTD coef 1024² in bfloat16 through ``auto``, Jacobi5 1024² in bfloat16
-through ``auto``, Jacobi5 8192² in float8 e4m3 through ``tiling``): one
-warm-up call, five calls timed on
+through ``auto``, Jacobi5 8192² in float8 e4m3 through ``tiling``; and
+the multi-device backends on meshes whose positions all name the one card,
+:func:`multi_device_paths`): one warm-up call, five calls timed on
 the host clock (``blocking=True``, so each ends in a synchronize), then
 one call under ``torch.profiler``. Prints one JSON line per run: the five
 walltimes and GCell/s, the card's SM clock and power draw meanwhile
@@ -47,7 +48,7 @@ from .models import convection, conway, fdtd, hotspot, jacobi
 
 __all__ = [
     "CardSampler", "convection_experiment", "convection_run", "convection_updates", "fdtd_run", "kernel_launch",
-    "main", "main_paths", "profiled",
+    "main", "main_paths", "multi_device_paths", "profiled",
 ]
 
 JACOBI5_COEFS = [0.15, 0.2, 0.25, 0.1, 0.3]  # the JAX package's bench.py:244
@@ -111,6 +112,44 @@ def main_paths(device) -> dict:
         "fdtd coef bf16 1024^2 auto": fdtd_run("coef", 1024, "inline", device, storage=bf16, **auto),
         "jacobi5 bf16 1024^2 auto": (*narrow_jacobi5(1024, bf16), 1000, auto),
         "jacobi5 e4m3 8192^2 tiling": (*narrow_jacobi5(8192, e4m3), 200, {"backend": "tiling"}),
+        **multi_device_paths(device, hot),
+    }
+
+
+def multi_device_paths(device, hot) -> dict:
+    """The multi-device backends' runs on a mesh that names ``device`` at
+    every position (its shards share one card): HotSpot 8192², n=200,
+    through ``distributed`` on (2, 2) and (4, 1) at the default p=4 and at
+    p=8, and through ``ring`` on 4 positions at p=2 (25 laps); Jacobi5 8192²
+    and FDTD coef 1024² (its TDV on each position) through ``distributed``
+    (2, 2); the JAX bench's strong-scaling size, HotSpot 2048², n=256, on
+    (1, 1), (2, 1) and (2, 2), beside its ``auto`` run (tiling)."""
+    from .parallel import make_mesh
+
+    def mesh(*shape):
+        return make_mesh(shape=shape, devices=[device] * int(np.prod(shape)))
+
+    big, small = hot(8192), hot(2048)
+    j5 = jacobi.make_kernel("jacobi5_general", JACOBI5_COEFS)
+
+    def run_jacobi5(grid, n, **options):
+        return jacobi.run(grid, j5, n, **options)
+
+    dist = {"backend": "distributed"}
+    return {
+        "hotspot 8192^2 distributed 2x2": (big, hotspot.run, 200, {**dist, "mesh": mesh(2, 2)}),
+        "hotspot 8192^2 distributed 2x2 p=8": (big, hotspot.run, 200, {**dist, "mesh": mesh(2, 2),
+                                                                        "iters_per_pass": 8}),
+        "hotspot 8192^2 distributed 4x1": (big, hotspot.run, 200, {**dist, "mesh": mesh(4, 1)}),
+        "hotspot 8192^2 distributed 4x1 p=8": (big, hotspot.run, 200, {**dist, "mesh": mesh(4, 1),
+                                                                        "iters_per_pass": 8}),
+        "hotspot 8192^2 ring 4": (big, hotspot.run, 200, {"backend": "ring", "mesh": mesh(4), "iters_per_pass": 2}),
+        "jacobi5 8192^2 distributed 2x2": (jacobi.init_grid(8192, 8192, device=device), run_jacobi5, 200,
+                                           {**dist, "mesh": mesh(2, 2)}),
+        "fdtd coef 1024^2 distributed 2x2": fdtd_run("coef", 1024, "inline", device, **dist, mesh=mesh(2, 2)),
+        "hotspot 2048^2 auto": (small, hotspot.run, 256, {"backend": "auto"}),
+        **{f"hotspot 2048^2 distributed {y}x{x}": (small, hotspot.run, 256, {**dist, "mesh": mesh(y, x)})
+           for y, x in ((1, 1), (2, 1), (2, 2))},
     }
 
 
@@ -262,7 +301,7 @@ def trace(name, grid, run, n, options) -> tuple[dict, object]:
     cells = grid.shape[0] * grid.shape[1] * n
     return {
         "run": name,
-        "backend": getattr(update, "resolved_backend", "tiling"),
+        "backend": getattr(update, "resolved_backend", update.__module__.rsplit(".", 1)[-1]),
         "config": update.resolved_config,
         "walltime_s": walltimes,
         "gcell_per_s": [cells / t / 1e9 for t in walltimes],

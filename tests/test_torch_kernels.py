@@ -959,3 +959,109 @@ def test_narrow_paths_launch_their_kernel(cuda, op, side, backend, kw, expect):
     assert {k for k, m in counters.items() if m.launches != before[k]} == {expect}
     want = update("reference")(Grid(cell))
     assert _nan_err(got.arrays, want.arrays) == 0
+
+
+# -- the tile pass in extended mode; distributed and ring on one card --------
+
+#: The functors extended mode is held on: HotSpot (an invariant field), the
+#: probe at radius 2 with its TDV, FDTD coef with its TDV, convection's lean
+#: pseudo-transient cell (ten variant fields, k=3) and Jacobi5 on bfloat16
+#: cells; with the p each pass runs.
+EXTENDED_OPS = {"hotspot": 4, "probe_radius2": 2, "fdtd_coef": 2, "convection_pt_lean_f32": 2,
+                "jacobi5_general__bf16": 4}
+#: (i_start, offset, n) of a pass of p: every step active, 1 of p, none.
+EXTENDED_STEPS = {"all": lambda p: (3, 3, 2 * p), "one": lambda p: (3 + p, 3, p + 1),
+                  "none": lambda p: (3 + 2 * p, 3, 2 * p)}
+
+
+def _extended_check(op, block, steps, seed, device):
+    """One extended pass on ``block`` (``tile_sweep.extended_blocks``)
+    through the kernel and its plain version: the largest difference, and
+    the kernel's result with the block's geometry. Probe cells carry their
+    global coordinates."""
+    _, shape, origin, grid_range, stored = block
+    p = EXTENDED_OPS[op]
+    i_start, offset, n = EXTENDED_STEPS[steps](p)
+    cell, tf, halo, tol = _case(op, shape, seed, device, iteration=i_start)
+    if op in PROBES:
+        cell = dataclasses.replace(cell, r=cell.r + origin[0], c=cell.c + origin[1])
+    kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p, origin=origin,
+              grid_range=grid_range, stored_halo=stored)
+    before = tp.launches
+    got = tp.tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert tp.launches == before + 1
+    h, w = shape[0] - 2 * stored[0], shape[1] - 2 * stored[1]
+    assert cell_leaves(got)[0].shape == (h, w)
+    if op in PROBES:
+        rows = torch.arange(h, device=device) + origin[0] + stored[0]
+        cols = torch.arange(w, device=device) + origin[1] + stored[1]
+        inside = (rows < grid_range[0])[:, None] & (cols < grid_range[1])[None, :] & (rows >= 0)[:, None] \
+            & (cols >= 0)[None, :]
+        assert bool((got.status[inside] == probe.NORMAL).all()), "probe cells flagged Invalid"
+    return _max_err(got, want), tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("steps", list(EXTENDED_STEPS))
+@pytest.mark.parametrize("op", list(EXTENDED_OPS))
+def test_extended_tile_pass_matches_plain_version(cuda, op, steps):
+    """The nine shards of a 3x3 mesh (interior, edges, corners, negative
+    origins, padding past the grid; cores 20x61, so block widths are odd;
+    a stored halo wider than the pass's) and a ring chunk, exactly."""
+    from stencilstream_tpu_torch.tile_sweep import extended_blocks
+
+    _, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    halo = tf.stencil_radius * EXTENDED_OPS[op] * tf.n_subiterations
+    for seed, block in enumerate(extended_blocks((20, 61), halo)):
+        err, _ = _extended_check(op, block, steps, seed, cuda)
+        assert err == 0, (op, block, steps, err)
+
+
+def _mesh(shape, device):
+    from stencilstream_tpu_torch.parallel import make_mesh
+
+    return make_mesh(shape=shape, devices=[device] * int(np.prod(shape)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,mesh_shape,kw", [
+    ("distributed", (2, 2), {}),
+    ("distributed", (4, 1), {"iters_per_pass": 8}),
+    ("distributed", (1, 3), {"iters_per_pass": 3}),
+    ("ring", (4,), {"iters_per_pass": 2, "chunk_rows": 48}),
+], ids=["distributed-2x2", "distributed-4x1-p8", "distributed-1x3-p3", "ring4"])
+def test_multi_device_hotspot_equals_tiling_on_one_card(cuda, backend, mesh_shape, kw):
+    """HotSpot 300x260, n=13, on a mesh that names one card at every
+    position: only the tile pass launches, the result equals `tiling`'s and
+    the plain local compute's bit for bit, and `reference` within ATOL."""
+    grid = Grid(_cell((300, 260), 3, cuda))
+    mesh = _mesh(mesh_shape, cuda)
+    before = (tp.launches, mt.launches, lc.launches)
+    got, update = hs.run(grid, 13, backend=backend, mesh=mesh, **kw)
+    launched = (tp.launches - before[0], mt.launches - before[1], lc.launches - before[2])
+    assert launched[0] > 0 and launched[1:] == (0, 0)
+    assert got.device == cuda
+    want, _ = hs.run(grid, 13, backend="tiling")
+    assert torch.equal(got.arrays.temp, want.arrays.temp)
+    plain, _ = hs.run(grid, 13, backend=backend, mesh=mesh, local_compute="plain", **kw)
+    assert torch.equal(got.arrays.temp, plain.arrays.temp)
+    ref, _ = hs.run(grid, 13, backend="reference")
+    assert float((got.arrays.temp - ref.arrays.temp).abs().max()) <= ATOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend,kw", [("distributed", {"mesh_shape": (2, 2)}), ("ring", {"mesh_shape": (3,)})])
+def test_multi_device_tdv_functors_on_one_card(cuda, backend, kw):
+    """FDTD coef 64^2 (a TDV stream copied to each position's device) and
+    the probe at radius 2, n=7 from 3, exactly as `reference`."""
+    mesh = _mesh(kw["mesh_shape"], cuda)
+    for op in ("fdtd_coef", "probe_radius2"):
+        cell, tf, halo, _ = _case(op, (64, 64), 21, cuda, iteration=3)
+        params = Params(tf, halo_value=halo, iteration_offset=3, n_iterations=7)
+        got = create_update(params, backend=backend, mesh=mesh, iters_per_pass=2)(Grid(cell))
+        want = create_update(params, backend="reference")(Grid(cell))
+        assert _max_err(got.arrays, want.arrays) == 0, op
+        if op == "probe_radius2":
+            probe.check_probe_grid(got, 10)

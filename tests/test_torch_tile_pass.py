@@ -22,6 +22,7 @@ from stencilstream_tpu_torch.backends.cuda_lib import H100_SXM, DeviceLimits, ce
 from stencilstream_tpu_torch.backends.tile_pass import RUN_ROWS, WARP, tile_pass, tile_smem_bytes
 from stencilstream_tpu_torch.backends.tiling import TILE_LAW, pick_config
 from stencilstream_tpu_torch.models import conway, jacobi
+from stencilstream_tpu_torch.tdv import step_value, tdv_stream
 from stencilstream_tpu_torch.models import hotspot as hs
 
 #: Strong coefficients: each iteration moves temperatures by ~1e-1, so a
@@ -212,3 +213,167 @@ def test_device_ms_averages_the_launches_the_profiler_saw(monkeypatch, seen, wan
     calls = []
     assert tile_sweep.device_ms(lambda: calls.append(1), 5) == pytest.approx(want)
     assert len(calls) == 6
+
+
+# -- extended mode: a block of a larger grid ----------------------------------
+
+
+def _extended_case(app, block, seed):
+    """(JAX tf, JAX halo, port tf, port halo, numpy block cell, TDV lookup
+    for JAX's fused_window_pass) for a block of ``block`` cells."""
+    import jax.numpy as jnp
+
+    from stencilstream_tpu.models import jacobi as jj
+
+    import probe as jprobe
+
+    rng = np.random.default_rng(seed)
+    if app == "hotspot":
+        cell = _np_cell(block, seed)
+        jk = jhs.HotspotKernel(**STRONG)
+        return (jk, jhs.HotspotCell(temp=jnp.float32(5.0), power=jnp.float32(0.25)),
+                interop.hotspot_kernel(dataclasses.asdict(jk)), hs.HotspotCell(temp=5.0, power=0.25), cell,
+                lambda step, i_abs: None)
+    if app == "jacobi5":
+        jk = jj.make_kernel("jacobi5_general", [0.15, 0.2, 0.25, 0.1, 0.3])
+        return (jk, jnp.float32(0.0), interop.jacobi_kernel("jacobi5_general", jk), 0.0,
+                rng.random(block, np.float32), lambda step, i_abs: None)
+    # The probe at radius 2 with its TDV (the iteration); cells at 7 whose
+    # (r, c) are their global coordinates.
+    cell = jprobe.make_probe_grid(*block, 7).to_numpy()
+    return (jprobe.ProbeTransFunc(radius_=2), jprobe.probe_halo_cell(), probe.ProbeTransFunc(radius_=2),
+            probe.probe_halo_cell(), cell, lambda step, i_abs: jnp.int32(i_abs))
+
+
+def _torch_cell(np_cell):
+    if dataclasses.is_dataclass(np_cell):
+        return type(np_cell).__name__, {f.name: torch.tensor(np.asarray(getattr(np_cell, f.name)))
+                                        for f in dataclasses.fields(np_cell)}
+    return None, torch.tensor(np_cell)
+
+
+def _port_cell(app, np_cell):
+    name, fields = _torch_cell(np_cell)
+    if app == "hotspot":
+        return hs.HotspotCell(**fields)
+    if app == "probe":
+        return probe.ProbeCell(**fields)
+    return fields
+
+
+def _np_leaves(x):
+    if dataclasses.is_dataclass(x):
+        return [np.asarray(getattr(x, f.name)) for f in dataclasses.fields(x)]
+    return [np.asarray(x)]
+
+
+#: Block placements, by where the block's origin lies: inside the grid, to
+#: the grid's top left (a negative origin, a corner shard), and past its
+#: bottom right (a block that reaches beyond the grid, padding included).
+PLACEMENTS = ["interior", "negative", "beyond"]
+
+
+@pytest.mark.parametrize("app,placement", [(a, pl) for a in ("hotspot", "jacobi5") for pl in PLACEMENTS]
+                         + [("probe", "negative")])
+def test_extended_plain_pass_matches_jax_fused_window_pass(app, placement):
+    """One pass of p=2 from iteration 7 (offset 6, n=4; then n=2, so 1 of
+    2 steps is active) over a block with a stored halo of
+    the pass's halo in rows and one more in columns, in a 40x50 grid: the
+    port's tile pass (its plain version here) returns the core that JAX's
+    ``fused_window_pass`` in pad mode computes over the same block at the
+    same origin; its ``fused_window_pass`` in shrink mode equals JAX's
+    under jit. Bit for bit, but for JAX's shrinking Jacobi5, which XLA
+    contracts otherwise than its reference (within 1e-6, an ulp). The
+    probe, radius 2 with its TDV, takes the corner shard only, at p=1: JAX
+    compiles its windows slowly."""
+    from stencilstream_tpu.backends import fused as jfused
+
+    from stencilstream_tpu_torch.backends import fused as pfused
+
+    r, k, p = (2, 2, 1) if app == "probe" else (1, 1, 2)
+    (H, W), core = (40, 50), (10, 13)
+    hp = r * p * k
+    stored = (hp, hp + 1)
+    block = (core[0] + 2 * stored[0], core[1] + 2 * stored[1])
+    origin = {"interior": (5, 6), "negative": (-hp - 1, -hp),
+              "beyond": (H - core[0] - stored[0] + 3, W - core[1] - stored[1] + 2)}[placement]
+    jtf, jhalo, tf, halo, np_cell, lookup = _extended_case(app, block, 11)
+    for i_start, offset, n in ((7, 6, 4), (7, 6, 2)):
+        import jax
+
+        jwin = jax.tree.map(jnp.asarray, np_cell)
+        kw = dict(radius=r, n_subiterations=k, n_steps=p)
+        jpad = jfused.fused_window_pass(jwin, jtf, jhalo, origin, (H, W), i_start, offset + n, lookup,
+                                        row_mode="pad", col_mode="pad", **kw)
+        got = tile_pass(_port_cell(app, np_cell), tf, halo, i_start=i_start, offset=offset, n_iterations=n,
+                        iters_per_pass=p, tile=(8, 32), origin=origin, grid_range=(H, W), stored_halo=stored)
+        # Cells of the core outside the grid: JAX's window pass masks every
+        # field there; the port's pass, like JAX's extended strip pass,
+        # returns the fields its functor only reads as they came in.
+        rows = np.arange(core[0]) + origin[0] + stored[0]
+        cols = np.arange(core[1]) + origin[1] + stored[1]
+        inside = ((rows >= 0) & (rows < H))[:, None] & ((cols >= 0) & (cols < W))[None, :]
+        for j, (g, w) in enumerate(zip(_np_leaves(jax.tree.map(np.asarray, jpad)), _np_leaves(got))):
+            w = w.numpy() if isinstance(w, torch.Tensor) else w
+            g = g[stored[0] : stored[0] + core[0], stored[1] : stored[1] + core[1]]
+            if app == "hotspot" and j == 1:  # the power map, which HotSpot only reads
+                g, w = g[inside], w[inside]
+            np.testing.assert_array_equal(w, g)
+        # Under jit, as JAX's backends run it (XLA fuses multiply-adds there).
+        jshrink = jax.jit(lambda w: jfused.fused_window_pass(
+            w, jtf, jhalo, origin, (H, W), i_start, offset + n, lookup, row_mode="shrink", col_mode="shrink",
+            **kw))(jwin)
+        pshrink = pfused.fused_window_pass(
+            _port_cell(app, np_cell), tf, halo, origin, (H, W), i_start, offset + n,
+            lambda step, i_abs: step_value(tdv_stream(tf, offset, n, "cpu"), i_abs - offset),
+            row_mode="shrink", col_mode="shrink", **kw)
+        for g, w in zip(_np_leaves(jax.tree.map(np.asarray, jshrink)), _np_leaves(pshrink)):
+            w = w.numpy() if isinstance(w, torch.Tensor) else w
+            if app == "jacobi5":  # XLA contracts JAX's shrinking Jacobi5 otherwise: an ulp apart
+                np.testing.assert_allclose(w, g, rtol=0, atol=1e-6)
+            else:
+                np.testing.assert_array_equal(w, g)
+
+
+def test_extended_pass_matches_jax_strip_pass_in_interpret_mode():
+    """JAX's extended strip pass (``StripPass(mode="extended")``, Pallas in
+    interpret mode) over a 32x32 HotSpot block, 8 stored halo rows and 4
+    columns a side, at global (-4, 6) in a 30x40 grid, from iteration 7 of
+    a call of n=5 from 3 at p=2 (1 of 2 steps active): the port's pass
+    returns the same core bit for bit."""
+    import jax
+
+    from stencilstream_tpu.backends.strip_pass import StripPass
+    from stencilstream_tpu.tdv import InlineTDV as JInline
+
+    hpm, chm, core = 8, 4, (16, 24)
+    block = (core[0] + 2 * hpm, core[1] + 2 * chm)
+    np_cell = _np_cell(block, 12)
+    jk = jhs.HotspotKernel(**STRONG)
+    jcell = jax.tree.map(jnp.asarray, np_cell)
+    jhalo = jhs.HotspotCell(temp=jnp.float32(5.0), power=jnp.float32(0.25))
+    strategy = JInline()
+    sp = StripPass(jcell, jk, jhalo, strategy, strategy.prepare(jk, 3, 5), radius=1, n_subiterations=1,
+                   n_iterations=5, iters_per_pass=2, strip_rows=8, grid_range=(30, 40), mode="extended",
+                   base_origin=jnp.int32(-4), col_halo=chm, base_col=jnp.int32(6), interpret=True)
+    want = jax.tree.map(np.asarray, sp.run(jcell, 7, 3, -4, 6))
+    got = tile_pass(interop.hotspot_grid(np_cell, device="cpu").arrays, interop.hotspot_kernel(
+        dataclasses.asdict(jk)), hs.HotspotCell(temp=5.0, power=0.25), i_start=7, offset=3, n_iterations=5,
+        iters_per_pass=2, tile=(8, 32), origin=(-4, 6), grid_range=(30, 40), stored_halo=(hpm, chm))
+    np.testing.assert_array_equal(got.temp.numpy(), want.temp)
+    np.testing.assert_array_equal(got.power.numpy(), want.power)
+
+
+def test_extended_pass_refuses_a_stored_halo_short_of_the_pass():
+    """A side may store less than the pass's halo only where the grid ends
+    at or inside it."""
+    from stencilstream_tpu_torch.backends.tile_pass import check_block
+
+    check_block((20, 30), (0, 0), (20, 30), (0, 0), 8)  # clamped mode
+    check_block((20, 30), (-2, 0), (40, 30), (2, 0), 2)
+    with pytest.raises(ValueError, match="bottom"):
+        check_block((20, 30), (-2, 0), (40, 30), (1, 0), 2)
+    with pytest.raises(ValueError, match="left, right"):
+        check_block((20, 30), (4, 3), (24, 40), (4, 1), 2)
+    with pytest.raises(ValueError, match="no core"):
+        check_block((8, 30), (0, 0), (8, 30), (4, 0), 2)

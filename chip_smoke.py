@@ -118,7 +118,13 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    bf16, Jacobi5 float8 and FDTD coef bf16 passes. The tile pass in
    extended mode (:func:`extended_kernel_row`) on shard (0, 0) of HotSpot
    8192^2 on a (2, 2) and a (4, 1) mesh at p=4 and p=8, beside its plain
-   version and the halo exchange of one pass.
+   version and the halo exchange of one pass;
+6. the two kernels of the ``experiments/`` microbenchmarks
+   (:func:`experiments_phase`): every variant of the strip kernel and of
+   the line-cache kernel against its plain version, exactly; each entry
+   point (``python -m stencilstream_tpu_torch.experiments.<script>``) once
+   at its default configuration with few passes, and ``micro_linecache
+   --check``; the kernels' times at each script's default workload.
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
@@ -127,7 +133,9 @@ on bfloat16 cells (``<kernel>_bf16``: Jacobi5 8192^2 on the tile pass and
 the line cache, Jacobi5 1024^2 on the resident grid), and the tile pass
 in extended mode (``tile_pass_extended``: one pass of p=4 on shard (0, 0)
 of HotSpot 8192^2 on a (2, 2) mesh; its launches those of the
-multi-device paths), with its bound:
+multi-device paths), and one row for each TPU kernel of ``experiments/``
+(``micro_strip/<script>``, ``micro_linecache/<script>``: the main paths
+launch neither), with its bound:
 the larger of the bytes it must move over 3.35 TB/s and its float32
 operations (the transition function's ``n_operations``, a fused
 multiply-add counted as two) over 67 TFLOP/s (H100 SXM at 700 W). The last
@@ -183,12 +191,6 @@ NARROW_ATOL = 0.0
 #: rounds once, the kernels round each multiply-add as the JAX package
 #: does, so the two part by up to an ulp at 1 (2^-7) a step, p=8 steps.
 LIBRARY_BF16_ATOL = 8 * 2.0 ** -7
-
-#: H100 SXM peaks (NVIDIA's data sheet, 700 W): HBM bytes/s, and float32 and
-#: float64 FLOP/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
 
 #: (shape, q) of the resident grid's band checks: one-row bands, 8-row
 #: bands with a ragged last band of 6 rows, 5-row bands.
@@ -393,12 +395,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(n_bytes: float, n_flops: float, flop_rate: float = FP32_FLOP_PER_S) -> tuple[float, str]:
+def bound(n_bytes: float, n_flops: float, wide: bool = False) -> tuple[float, str]:
     """The least time, in ms, the card could take: the larger of the bytes
-    over HBM's rate and the operations over ``flop_rate`` (float32's unless
-    given)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flop_rate
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    over HBM's rate and the operations over the card's float32 peak (its
+    float64 peak if ``wide``), by the port's one table of H100 rates."""
+    from stencilstream_tpu_torch.experiments.common import FP32_FLOP_PER_S, FP64_FLOP_PER_S, bound_ms
+
+    return bound_ms(n_bytes, n_flops, FP64_FLOP_PER_S if wide else FP32_FLOP_PER_S)
 
 
 def library_jacobi(y, steps):
@@ -998,8 +1001,7 @@ def convection_kernel_rows(runs, counts, outs, device, card) -> dict:
             e = max_err(fn(), plain())
             read, written = cell_traffic_bytes(cell, tf)
             wide = tf.dtype.itemsize == 8
-            b, by = bound((read + written) * H * W, tf.n_operations * n * H * W,
-                          FP64_FLOP_PER_S if wide else FP32_FLOP_PER_S)
+            b, by = bound((read + written) * H * W, tf.n_operations * n * H * W, wide)
             row = f"{name} {tf.cuda_op}"
             log(f"  {kernel} {row} {H}x{W}, {what}: kernel {ms:.4f} ms (device time; {call_ms:.4f} ms a call back "
                 f"to back) = {b / ms:.1%} of its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, library none: no "
@@ -1262,6 +1264,124 @@ def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) ->
     return fdtd_kernels
 
 
+def experiments_phase(device, card, launches) -> list:
+    """Phase 6, the ``experiments/`` microbenchmarks' two kernels: every
+    variant of the strip kernel (``csrc/micro_strip.cu``) at each p it is
+    built for, on 1024x1000 in strips of 128, and of the line-cache kernel
+    (``csrc/micro_linecache.cu``) on 1024x1000 plus pad rows in strips of
+    128, each exactly against its plain version (NaN
+    equal to NaN; the rows a ``*_noinit`` variant leaves undefined not
+    compared); then each entry point's default configuration once at 8192^2
+    (lc_bisect at its 1024^2) with few passes, and ``micro_linecache
+    --check``; last one row of the ``kernels`` line per TPU kernel, each at
+    its script's default workload: the kernel's time, its plain version's,
+    the bound and, where p ``conv2d`` calls compute the same function, their
+    time. ``launches`` are the main paths' (none of them runs these
+    kernels)."""
+    import torch
+
+    from stencilstream_tpu_torch.experiments import (
+        lc_bisect, linecache, micro_linecache, micro_operands, micro_order, micro_shifts, strip)
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(11)
+    errs = {"strip": 0.0, "linecache": 0.0}
+    x = torch.tensor(rng.random((1024, 1000), np.float32), device=device)
+    scalars = strip.StripScalars(coefs=(0.11, 0.21, 0.31, 0.41, 0.17), hv=0.5)
+    for name, v in strip.VARIANTS.items():
+        for p in v.ps:
+            e = max_err(strip.strip_pass(x, name, T=128, hp=p, p=p, scalars=scalars),
+                        strip.strip_pass_plain(x, name, T=128, hp=p, p=p, scalars=scalars))
+            errs["strip"] = max(errs["strip"], e)
+            assert e == 0, (name, p, e)
+    for name, v in linecache.VARIANTS.items():
+        for p in v.ps:
+            xa = torch.tensor(linecache.zero_pad(rng.random((1024, 1000), np.float32), 128 if v.blocked else 32),
+                              device=device)
+            skip = linecache.undefined_rows(name, p)
+            e = max_err(linecache.linecache_pass(xa, name, H=1024, T=128, p=p)[skip:],
+                        linecache.linecache_pass_plain(xa, name, H=1024, T=128, p=p)[skip:])
+            errs["linecache"] = max(errs["linecache"], e)
+            assert e == 0, (name, p, e)
+    log(f"  every variant against its plain version: strip kernel max_abs_err={errs['strip']:.3g} "
+        f"({sum(len(v.ps) for v in strip.VARIANTS.values())} variant-p pairs), line-cache kernel "
+        f"max_abs_err={errs['linecache']:.3g} ({sum(len(v.ps) for v in linecache.VARIANTS.values())} "
+        f"pairs) at {time.perf_counter() - t0:.1f} s")
+    del x
+
+    # The entry points, as a user runs them (their own output lines).
+    entry_points = [
+        ("micro_shifts", micro_shifts.main, ["--iters", "64"]),
+        ("micro_operands", micro_operands.main, ["--n1", "2", "--n2", "8"]),
+        ("micro_order", micro_order.main, ["--n1", "2", "--n2", "8"]),
+        ("micro_linecache", micro_linecache.main, ["--iters", "64"]),
+        ("micro_linecache --check", micro_linecache.main, ["--check"]),
+        *[(f"lc_bisect {v}", lc_bisect.main, [v, "--passes", "20"]) for v in lc_bisect.VARIANTS],
+    ]
+    for label, main_fn, argv in entry_points:
+        log(f"  python -m stencilstream_tpu_torch.experiments.{label.split()[0]} {' '.join(argv)}:")
+        assert main_fn(argv) == 0, label
+    log(f"  entry points done at {time.perf_counter() - t0:.1f} s")
+
+    def library_micro(y, steps, weights):
+        """``steps`` Jacobi5 steps with halo 0 as ``conv2d`` calls:
+        ``weights`` of (centre, north, south, west, east)."""
+        c, n, s_, w, e = weights
+        k = torch.tensor([[0, n, 0], [w, c, e], [0, s_, 0]], dtype=y.dtype, device=y.device).view(1, 1, 3, 3)
+        y = y.view(1, 1, *y.shape)
+        for _ in range(steps):
+            y = torch.nn.functional.conv2d(y, k, padding=1)
+        return y.view(y.shape[2:])
+
+    rows = []
+    shifts_w = strip.COEFS  # (W0, WN, WS, WW, WE): centre, north, south, west, east
+    c0, c1, c2, c3, c4 = strip.COEFS  # micro_operands' and micro_order's: north, west, south, east, centre
+    operands_w = (c4, c0, c2, c1, c3)
+    side = 8192
+    x = torch.tensor(rng.random((side, side), np.float32), device=device)
+    for script, variant, weights, line in (("micro_shifts", "inline", shifts_w, 187),
+                                           ("micro_operands", "baseline", operands_w, 115),
+                                           ("micro_order", "centerfirst", operands_w, 75)):
+        kw = dict(T=128, hp=8, p=8)
+        ms = cuda_ms(lambda: strip.strip_pass(x, variant, **kw), 10)
+        plain_ms = cuda_ms(lambda: strip.strip_pass_plain(x, variant, **kw), 1)
+        lib_ms = cuda_ms(lambda: library_micro(x, 8, weights), 10)
+        got = strip.strip_pass(x, variant, **kw)
+        e = max_err(got, strip.strip_pass_plain(x, variant, **kw))
+        lib_e = max_err(library_micro(x, 8, weights), got)
+        b, by = bound(strip.pass_bytes(side, side), strip.pass_operations(variant, side, side, kw["p"]))
+        log(f"  {script} {variant} {side}x{side} T=128 p=8: kernel {ms:.4f} ms = {b / ms:.1%} of its bound "
+            f"{b:.4f} ms ({by}), plain {plain_ms:.4f} ms, 8 x conv2d {lib_ms:.4f} ms (against the kernel "
+            f"max_abs_err={lib_e:.3g}, tol {LIBRARY_ATOL}), max_abs_err={e:.3g} [{card}]")
+        assert e == 0 and lib_e <= LIBRARY_ATOL
+        rows.append(dict(
+            name=f"micro_strip/{script}", route="cuda", source="stencilstream_tpu_torch/csrc/micro_strip.cu",
+            replaces=f"experiments/{script}.py:{line}", launches=launches["micro_strip"],
+            max_abs_err=max(e, errs["strip"]), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=lib_ms, workload=f"{variant} {side}x{side}, strips of 128, hp=p=8, one pass"))
+    del x, got
+    for script, variant, H, T, p, pad, line in (("micro_linecache", "lc", side, 256, 16, 16, 120),
+                                                ("lc_bisect", "scratch3d", 1024, 128, 8, 8, 80)):
+        xa = torch.tensor(linecache.zero_pad(rng.random((H, H), np.float32), pad), device=device)
+        kw = dict(H=H, T=T, p=p)
+        ms = cuda_ms(lambda: linecache.linecache_pass(xa, variant, **kw), 10)
+        plain_ms = cuda_ms(lambda: linecache.linecache_pass_plain(xa, variant, **kw), 1)
+        e = max_err(linecache.linecache_pass(xa, variant, **kw), linecache.linecache_pass_plain(xa, variant, **kw))
+        b, by = bound(linecache.pass_bytes(H, H + pad, H), linecache.pass_operations(H, H, p))
+        log(f"  {script} {variant} {H}x{H} + {pad} pad rows T={T} p={p}: kernel {ms:.4f} ms = {b / ms:.1%} of "
+            f"its bound {b:.4f} ms ({by}), plain {plain_ms:.4f} ms, library none: no PyTorch call computes "
+            f"the zero-carry skew, max_abs_err={e:.3g} [{card}]")
+        assert e == 0
+        rows.append(dict(
+            name=f"micro_linecache/{script}", route="cuda", source="stencilstream_tpu_torch/csrc/micro_linecache.cu",
+            replaces=f"experiments/{script}.py:{line}", launches=launches["micro_linecache"],
+            max_abs_err=max(e, errs["linecache"]), ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+            library_ms=None, workload=f"{variant} {H}x{H} + {pad} pad rows, strips of {T}, p={p}, one pass"))
+        del xa
+    log(f"phase 6 took {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1312,7 +1432,11 @@ def main() -> int:
     log(f"phase 3 done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 4: the main paths, through the entry points a user calls.
-    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
+    from stencilstream_tpu_torch.experiments import linecache as micro_lc
+    from stencilstream_tpu_torch.experiments import strip as micro_strip
+
+    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc, "micro_strip": micro_strip,
+                "micro_linecache": micro_lc}
     # name: (reduced n for the reference check, tolerance, kernels it must launch)
     checks = {
         "hotspot 1024^2 auto": (20, ATOL, {"monotile"}),
@@ -1579,9 +1703,14 @@ def main() -> int:
     del conv_outs
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
+    # Phase 6: the experiments/ microbenchmarks' kernels.
+    log("experiments/ kernels:")
+    micro_rows = experiments_phase(device, card, totals)
+    log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
     order = ("tile_pass", "monotile", "line_cache", "tile_pass_bf16", "monotile_bf16", "line_cache_bf16",
              "tile_pass_extended")
-    log(json.dumps({"kernels": [kernels[k] for k in order]}))
+    log(json.dumps({"kernels": [kernels[k] for k in order] + micro_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

@@ -58,7 +58,13 @@ __all__ = [
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("tile_pass.cu", "monotile.cu", "line_cache.cu")
+#: The stencil kernels, each instantiated for every device functor
+#: (``csrc/ops/all.cuh``).
+STENCIL_SOURCES = ("tile_pass.cu", "monotile.cu", "line_cache.cu")
+#: The ``experiments/`` microbenchmarks' kernels (``../experiments/``).
+MICRO_SOURCES = ("micro_strip.cu", "micro_linecache.cu")
+#: One nvcc process each, all started together.
+SOURCES = STENCIL_SOURCES + MICRO_SOURCES
 
 #: No FMA contraction: the kernels then round exactly like their plain
 #: PyTorch versions, which evaluate one elementwise operation at a time
@@ -86,6 +92,10 @@ _SIGNATURES = {
     "ss_line_cache_": [_PP, _PP, _PP, _I, _I, _I, _I, _I, _I, _I, _I, _I, _PD, _PD, _P, _P],
     "ss_line_cache_residency_": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     "ss_op_info_": [ctypes.POINTER(ctypes.c_int)],
+    # (variant, p, x, out, H, W, T, hp, 16 host floats of scalars, stream)
+    "ss_micro_strip": [_I, _I, _P, _P, _I, _I, _I, _I, ctypes.POINTER(ctypes.c_float), _P],
+    # (variant, p, x, out, H, W, Ha, T, chunk rows, stream)
+    "ss_micro_linecache": [_I, _I, _P, _P, *[_I] * 5, _P],
 }
 
 

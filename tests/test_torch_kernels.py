@@ -36,6 +36,8 @@ from stencilstream_tpu_torch.backends import monotile as mt
 from stencilstream_tpu_torch.backends import tile_pass as tp
 from stencilstream_tpu_torch.backends.storage_cast import CastStorageKernel, cast_storage
 from stencilstream_tpu_torch.core.cell import cell_leaves
+from stencilstream_tpu_torch.experiments import linecache as mlc
+from stencilstream_tpu_torch.experiments import strip
 from stencilstream_tpu_torch.models import convection, conway, fdtd, jacobi
 from stencilstream_tpu_torch.models import hotspot as hs
 from stencilstream_tpu_torch.tdv import tdv_stream
@@ -182,7 +184,8 @@ def test_build_is_keyed_by_the_sources():
     path = cuda_lib.library_path()
     assert path.parent == cuda_lib.BUILD_DIR and digest in path.name
     assert set(cuda_lib.SOURCES) == {p.name for p in cuda_lib.CSRC.glob("*.cu")}
-    assert set(cuda_lib.SOURCES) == {"tile_pass.cu", "monotile.cu", "line_cache.cu"}
+    assert set(cuda_lib.SOURCES) == {"tile_pass.cu", "monotile.cu", "line_cache.cu", "micro_strip.cu",
+                                     "micro_linecache.cu"}
 
 
 def test_every_functor_is_instantiated_in_every_kernel():
@@ -198,7 +201,7 @@ def test_every_functor_is_instantiated_in_every_kernel():
                *(fdtd.make_kernel(_fdtd_parameters(20), cls(_fdtd_parameters(20))) for cls in fdtd.RESOLVERS.values()),
                *(_case(op, (2, 2), 0, "cpu")[1] for op in CONVECTION_OPS)):
         assert tf.cuda_op in names
-    for src in cuda_lib.SOURCES:
+    for src in cuda_lib.STENCIL_SOURCES:
         assert re.search(r"^SS_FOR_EACH_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
 
 
@@ -868,7 +871,7 @@ def test_narrow_functors_are_instantiated_in_every_kernel():
     assert [f"{op}__{s}" for op, s, _, _ in listed] == NARROW_OPS
     assert {(op, _storage(s)) for op, s, _, _ in listed} == set(cuda_lib.NARROW_OPS)
     assert all(kinds[k] == s for _, s, _, k in listed)
-    for src in cuda_lib.SOURCES:
+    for src in cuda_lib.STENCIL_SOURCES:
         assert re.search(r"^SS_FOR_EACH_NARROW_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
     assert cuda_lib._DTYPES[(2, 2)] == torch.bfloat16 and cuda_lib._DTYPES[(1, 3)] == torch.float8_e4m3fn
 
@@ -1065,3 +1068,132 @@ def test_multi_device_tdv_functors_on_one_card(cuda, backend, kw):
         assert _max_err(got.arrays, want.arrays) == 0, op
         if op == "probe_radius2":
             probe.check_probe_grid(got, 10)
+
+
+# -- the experiments/ microbenchmark kernels ----------------------------------
+# csrc/micro_strip.cu (experiments/strip.py) and csrc/micro_linecache.cu
+# (experiments/linecache.py): every variant equals its plain version exactly
+# (the same float32 operations in the same order, the same fused
+# multiply-adds); a NaN on both sides counts as equal, and the rows a
+# *_noinit variant leaves undefined are not compared.
+
+
+def _cu_variants(source, macro):
+    """The argument lists of a source's variant list macro, as strings."""
+    text = (cuda_lib.CSRC / source).read_text()
+    body = text[text.index(f"#define {macro}(X)"):]
+    body = body[: body.index("\n\n")]
+    return [tuple(a.strip() for a in args.split(",")) for args in re.findall(r"X\(([^)]*)\)", body)]
+
+
+def _cu_function_floats(source, function):
+    """The hex float literals in one function of a source."""
+    text = (cuda_lib.CSRC / source).read_text()
+    body = text[text.index(function):]
+    body = body[: body.index("\n}\n")]
+    return {float.fromhex(h) for h in re.findall(r"(0x[0-9a-f.]+p[-+]?\d+)f", body)}
+
+
+def test_micro_strip_variants_are_the_kernels_list():
+    """csrc/micro_strip.cu lists strip.VARIANTS in order, with the same
+    traits; its literal weights are the port's float32 constants."""
+    updates = {"shifts": "kShifts", "center_first": "kCenterFirst", "center_last": "kCenterLast",
+               "composite": "kComposite", "fma": "kFma", "shift_only": "kShiftOnly"}
+    outs = {"edges": "kEdges", "shrink": "kShrink", "middle": "kMiddle"}
+    masks = {"none": "kNone", "frame": "kFrame", "hoisted": "kHoisted", "inline": "kInline"}
+    rows = _cu_variants("micro_strip.cu", "SS_MICRO_STRIP_VARIANTS")
+    assert [r[1] for r in rows] == list(strip.VARIANTS)
+    for k, (id_, name, p16, rw, cw, upd, fuse, out, mask, ca, ha, ne, rp) in enumerate(rows):
+        v = strip.VARIANTS[name]
+        assert int(id_) == k == strip.variant_id(name)
+        assert (p16 == "true") == (16 in v.ps) and 8 in v.ps
+        assert (rw, cw) == (str(v.rows_wrap).lower(), str(v.cols_wrap).lower()), name
+        assert (upd, out, mask) == (updates[v.update], outs[v.out], masks[v.mask]), name
+        assert int(fuse, 0) == sum(1 << j for j, f in enumerate(v.fused()) if f), name
+        assert (ca, ha, int(ne), rp) == (str(v.coef_args).lower(), str(v.hv_arg).lower(), v.n_extra,
+                                         str(v.row_pointer).lower()), name
+    assert _cu_function_floats("micro_strip.cu", "constexpr float composite_weight") == {
+        w for _, _, w in strip.COMPOSITE_TERMS}
+    assert _cu_function_floats("micro_strip.cu", "constexpr float coef_literal") == set(strip.COEFS_F32)
+    assert _cu_function_floats("micro_strip.cu", "constexpr float fma_scale") == {
+        a for a, _ in strip.FMA_TERMS} - {1.0}
+    assert _cu_function_floats("micro_strip.cu", "constexpr float fma_shift") == {b for _, b in strip.FMA_TERMS}
+
+
+def test_micro_linecache_variants_are_the_kernels_list():
+    """csrc/micro_linecache.cu lists linecache.VARIANTS in order, with the
+    same traits; its literal weights are the port's float32 constants."""
+    carries = {"first": "kFirst", "every": "kEvery", "none": "kNone"}
+    rows = _cu_variants("micro_linecache.cu", "SS_MICRO_LINECACHE_VARIANTS")
+    assert [r[1] for r in rows] == list(mlc.VARIANTS)
+    for k, (id_, name, all_p, order, carry, layout, stitch, blocked) in enumerate(rows):
+        v = mlc.VARIANTS[name]
+        assert int(id_) == k == mlc.variant_id(name)
+        assert (all_p == "true") == (v.ps == (8, 16, 32)) and 8 in v.ps
+        assert (order, carry, layout) == ({"jacobi5": "kJacobi5", "bisect": "kBisect"}[v.order],
+                                          carries[v.carry], f"k{v.layout}"), name
+        assert (stitch, blocked) == (str(v.stitch).lower(), str(v.blocked).lower()), name
+    assert _cu_function_floats("micro_linecache.cu", "float level_update") == set(mlc.LINECACHE_WEIGHTS) | set(
+        mlc.BISECT_WEIGHTS)
+
+
+#: (H, W, T): several strips, W not a whole number of 64-column tiles, and
+#: two strips only (the first and the last).
+STRIP_SHAPES = [(160, 130, 32), (256, 1000, 64), (64, 33, 32)]
+#: (H, W, T, pad rows): W not a whole number of 128-column panels, several
+#: segments with their warm-up (H > 512 rows), chunks of 16 rows (T=48),
+#: pad rows not a whole strip (blocked variants then skip the shape).
+LINECACHE_SHAPES = [(128, 130, 32, 40), (256, 1000, 64, 64), (1280, 70, 128, 32), (1056, 40, 48, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,p", [(v, p) for v, s in strip.VARIANTS.items() for p in s.ps])
+def test_micro_strip_kernel_matches_plain_version(cuda, variant, p):
+    scalars = strip.StripScalars(coefs=(0.11, 0.21, 0.31, 0.41, 0.17), hv=0.5)
+    for H, W, T in STRIP_SHAPES:
+        if H < T + 2 * p:
+            continue
+        x = torch.tensor(np.random.default_rng(H + W).random((H, W), np.float32), device=cuda)
+        before = strip.launches
+        got = strip.strip_pass(x, variant, T=T, hp=p, p=p, scalars=scalars)
+        assert strip.launches == before + 1
+        want = strip.strip_pass_plain(x, variant, T=T, hp=p, p=p, scalars=scalars)
+        assert torch.equal(got, want), (variant, p, H, W, T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant,p", [(v, p) for v, s in mlc.VARIANTS.items() for p in s.ps])
+def test_micro_linecache_kernel_matches_plain_version(cuda, variant, p):
+    for H, W, T, pad in LINECACHE_SHAPES:
+        if pad < p or (mlc.VARIANTS[variant].blocked and (H + pad) % T):
+            continue
+        x = torch.tensor(mlc.zero_pad(np.random.default_rng(H + W).random((H, W), np.float32), pad), device=cuda)
+        skip = mlc.undefined_rows(variant, p)
+        before = mlc.launches
+        got = mlc.linecache_pass(x, variant, H=H, T=T, p=p)
+        assert mlc.launches == before + 1
+        want = mlc.linecache_pass_plain(x, variant, H=H, T=T, p=p)
+        torch.testing.assert_close(got[skip:], want[skip:], rtol=0, atol=0, equal_nan=True,
+                                   msg=f"{variant} p={p} {H}x{W} T={T}")
+        alias = mlc.linecache_pass(x, variant, H=H, T=T, p=p, alias=True)
+        assert torch.equal(alias[H:], x[H:]) and torch.equal(alias[skip:H], got[skip:H]), (variant, p, H, W, T)
+
+
+@pytest.mark.gpu
+def test_micro_kernels_refuse_a_p_they_are_not_built_for(cuda):
+    x = torch.zeros(256, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="built for p"):
+        strip.strip_pass(x, "baseline", T=64, hp=16, p=16)
+    with pytest.raises(NotImplementedError, match="built for p"):
+        mlc.linecache_pass(torch.zeros(288, 64, device=cuda), "scratch3d", H=256, T=64, p=16)
+
+
+def test_micro_wrappers_on_the_cpu_launch_nothing():
+    x = torch.tensor(np.random.default_rng(0).random((96, 70), np.float32))
+    xa = torch.tensor(mlc.zero_pad(np.random.default_rng(1).random((96, 70), np.float32), 8))
+    before = (strip.launches, mlc.launches)
+    assert torch.equal(strip.strip_pass(x, "concat", T=32, hp=8, p=8),
+                       strip.strip_pass_plain(x, "concat", T=32, hp=8, p=8))
+    torch.testing.assert_close(mlc.linecache_pass(xa, "lcs", H=96, T=32, p=8),
+                               mlc.linecache_pass_plain(xa, "lcs", H=96, T=32, p=8), rtol=0, atol=0, equal_nan=True)
+    assert (strip.launches, mlc.launches) == before

@@ -8,7 +8,7 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
 1. require a CUDA card; print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``stencilstream_tpu_torch/csrc`` (one nvcc
    per source, all at once) and print how long the build took and what
-   ptxas reports;
+   ptxas reports; then the native host I/O library (``g++``);
 3. hold each kernel against its plain PyTorch version on the card: HotSpot
    on the tile-pass and resident-grid kernels; every other functor (eight
    Jacobi variants, Conway, the probe) on all three; the line-cache kernel
@@ -39,7 +39,11 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    ny-1, ny on tile, segment and band boundaries, odd shapes, an active
    region smaller than the grid, partial passes from an offset, the
    resident grid at q = 1 and 2; and n = nerr - 1 = 49 at p=2 through
-   ``tiling`` in both window modes at 384x128, against ``reference``. The
+   ``tiling`` in both window modes at 384x128, against ``reference``; the
+   four folded functors (``convection_folded_pt[_lean]_{f32,f64}``: 12
+   invariant coordinate planes, the 7 bool ones widened on the device for
+   each launch) through every one of these cases, the float64 ones at p=1
+   on 8x32 cores and on 4-row bands where 8 rows do not fit a block. The
    narrow-storage instantiations (bfloat16 HotSpot, Jacobi5 and FDTD coef,
    float8 e4m3 Jacobi5) run every case of the other functors' tile-pass,
    line-cache and band loops, exactly, NaN equal to NaN (widths 1001-1003
@@ -75,7 +79,12 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    through ``auto`` (the resident grid), 3072x1024 in float32 through
    ``tiling(window_mode="linecache")`` (the line cache); each path also runs
    one block and one thermal step against ``reference`` on the card,
-   exactly, statistics included. Then the narrow paths the JAX bench's
+   exactly, statistics included. Then the folded variant of the same
+   experiment (``run(..., folded=True)``, :data:`FOLDED_PATHS`): 3072x1024
+   in float32 and float64 through ``auto`` (the tile pass) and in float32
+   through the line cache, each equal to the straight run of its dtype and
+   path bit for bit on the 11 physics fields, with the same iterations per
+   timestep, its planes unchanged. Then the narrow paths the JAX bench's
    ``bf16_storage`` rows run, their cells cast with ``cast_storage`` and
    their kernels wrapped in ``CastStorageKernel``: Jacobi5 8192^2 in
    bfloat16 through ``auto`` (the tile pass, the bench's pinned
@@ -111,7 +120,10 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    convection kernels at the four paths' shapes and geometry, one pass (the
    resident grid: one call) of each of their updates (lean, full, thermal),
    beside their plain versions and bounds (``convection kernels:`` line;
-   float64 operations over 34 TFLOP/s). The bfloat16 kernels
+   float64 operations over 34 TFLOP/s), and the folded functors (lean,
+   full) at the folded paths' geometry beside the straight ones
+   (``folded kernels:`` line, with the bool planes' widening a launch and
+   the kernels' share of each folded path's walltime). The bfloat16 kernels
    (:func:`narrow_kernel_rows`): one Jacobi5 8192^2 pass through the tile
    pass and the line cache in turns against p ``conv2d`` calls on bfloat16
    tensors, Jacobi5 1024^2 on the resident grid, and beside them HotSpot
@@ -124,7 +136,14 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    the line-cache kernel against its plain version, exactly; each entry
    point (``python -m stencilstream_tpu_torch.experiments.<script>``) once
    at its default configuration with few passes, and ``micro_linecache
-   --check``; the kernels' times at each script's default workload.
+   --check``; the kernels' times at each script's default workload;
+7. the host-side modules (:func:`host_module_checks`): gradients through
+   ``reference`` on the card against the CPU's (Jacobi5 1024^2, n=4), and
+   every kernel backend raising on a grid that requires grad; the native
+   I/O library (built in phase 2 with ``g++``): HotSpot 8192^2's indexed
+   text timed, and at 1024^2 the same bytes as the Python path; a
+   checkpoint of HotSpot 8192^2 saved and loaded back onto the card, bit
+   for bit.
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
@@ -201,14 +220,24 @@ MONO_BANDS = [((37, 53), 1), ((1030, 64), 1), ((1030, 64), 2), ((1030, 64), 4),
 PROBES = ("probe", "probe_tdv", "probe_radius2")
 #: The functors whose transition functions have a time-dependent value.
 TDV_OPS = ["probe_tdv", "probe_radius2", "fdtd_coef", "fdtd_lut", "fdtd_render"]
-#: The convection functors.
-CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "thermal") for width in ("f32", "f64")]
+#: The convection functors: straight pseudo-transient (full, lean), thermal,
+#: and the folded pseudo-transient (full, lean), in float32 and float64.
+CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "thermal", "folded_pt", "folded_pt_lean")
+                  for width in ("f32", "f64")]
 #: Convection main paths: name -> the kernel each must launch alone.
 CONVECTION_PATHS = {
     "convection f32 3072x1024 auto": "tile_pass",
     "convection f64 3072x1024 auto": "tile_pass",
     "convection f64 384x128 auto": "monotile",
     "convection f32 3072x1024 tiling linecache": "line_cache",
+}
+
+#: The folded convection paths (``convection.run(..., folded=True)``): name
+#: -> (the straight path it must equal, the kernel it must launch alone).
+FOLDED_PATHS = {
+    "convection folded f32 3072x1024 auto": ("convection f32 3072x1024 auto", "tile_pass"),
+    "convection folded f64 3072x1024 auto": ("convection f64 3072x1024 auto", "tile_pass"),
+    "convection folded f32 3072x1024 tiling linecache": ("convection f32 3072x1024 tiling linecache", "line_cache"),
 }
 
 #: The narrow instantiations (csrc/ops/all.cuh: SS_FOR_EACH_NARROW_OP), by
@@ -506,7 +535,10 @@ def check_convection(device, errs) -> None:
     bands and at the plan's geometry. Then n = nerr - 1 = 49 at p=2 through
     ``tiling`` in both window modes from iteration 7 at 384x128, against
     the reference backend; and each functor with NaN in the invariant fields
-    it does not read."""
+    it does not read. The folded functors run their planes' masks (bool
+    planes widened on the device for each launch); the float64 folded
+    cells take p=1 at 8x32 cores (:func:`fit_tile`) and 4-row bands where
+    8 do not fit one block."""
     import dataclasses
 
     import torch
@@ -514,35 +546,43 @@ def check_convection(device, errs) -> None:
     from stencilstream_tpu_torch import Grid, Params, create_update
     from stencilstream_tpu_torch.backends import cuda_lib
     from stencilstream_tpu_torch.backends import line_cache as lc
-    from stencilstream_tpu_torch.backends.monotile import MAX_THREADS, MonotilePlan, monotile, monotile_plain
-    from stencilstream_tpu_torch.models import convection
+    from stencilstream_tpu_torch.backends.monotile import (
+        MAX_THREADS, MonotilePlan, monotile, monotile_plain, monotile_smem_bytes,
+    )
     from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
+    from stencilstream_tpu_torch.core.cell import cell_field_names
 
     shapes = [((33, 65), (32, 64)), ((45, 70), (44, 69)), ((40, 72), (32, 64))]
+    limits = cuda_lib.device_limits(device)
     for seed, op in enumerate(CONVECTION_OPS, start=800):
         for shape, active in shapes:
             cell, tf, halo, tol = convection_case(op, shape, np.random.default_rng(seed), device, active)
             strip = 16 if "thermal" in op else 8
-            for i_start in (1, 3):
-                kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=2)
+            tile, p = fit_tile((16, 32), 2, cell, tf, limits)
+            for i_start in (1, 1 + p):
+                kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=p)
                 want = tile_pass_plain(cell, tf, halo, **kw)
-                got = tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+                got = tile_pass(cell, tf, halo, tile=tile, **kw)
                 torch.cuda.synchronize()
-                check(errs, "tile_pass", f"{op} {shape} active {active} tile=(16, 32) p=2 i_start={i_start} "
+                check(errs, "tile_pass", f"{op} {shape} active {active} tile={tile} p={p} i_start={i_start} "
                       f"offset=1 n=5", got, want, tol)
                 got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=32, segment_rows=16, **kw)
                 torch.cuda.synchronize()
-                check(errs, "line_cache", f"{op} {shape} active {active} strip={strip} panel=32 segment=16 p=2 "
+                check(errs, "line_cache", f"{op} {shape} active {active} strip={strip} panel=32 segment=16 p={p} "
                       f"i_start={i_start} offset=1 n=5", got, want, tol)
             want = monotile_plain(cell, tf, halo, offset=1, n_iterations=3)
+            cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
             for q in (1, 2, None):
-                plan = MonotilePlan(8, -(-shape[0] // 8), 0, q, MAX_THREADS) if q else None
+                # 8-row bands, or 4 where 8 do not fit (the float64 folded cells).
+                band = 8 if monotile_smem_bytes(8, q or 1, shape[1], 1, cell_bytes) <= limits.smem_per_block else 4
+                plan = MonotilePlan(band, -(-shape[0] // band), 0, q, MAX_THREADS) if q else None
                 got = monotile(cell, tf, halo, offset=1, n_iterations=3, plan=plan)
                 torch.cuda.synchronize()
-                check(errs, "monotile", f"{op} {shape} active {active} " + (f"band=8 q={q}" if q else "plan")
+                check(errs, "monotile", f"{op} {shape} active {active} " + (f"band={band} q={q}" if q else "plan")
                       + " offset=1 n=3", got, want, tol)
         cell, tf, halo, tol = convection_case(op, (384, 128), np.random.default_rng(seed), device)
         grid = Grid(cell)
+        p = fit_tile((8, 32), 2, cell, tf, limits)[1]
 
         def update(backend, **kw):
             return create_update(Params(tf, halo_value=halo, iteration_offset=7, n_iterations=49), backend=backend,
@@ -550,25 +590,41 @@ def check_convection(device, errs) -> None:
 
         want = update("reference")(grid)
         for kernel, kw in (("tile_pass", {}), ("line_cache", {"window_mode": "linecache"})):
-            got = update("tiling", iters_per_pass=2, **kw)(grid)
-            check(errs, kernel, f"{op} (384, 128) tiling {kw} p=2 offset=7 n=49 against reference", got.arrays,
+            got = update("tiling", iters_per_pass=p, **kw)(grid)
+            check(errs, kernel, f"{op} (384, 128) tiling {kw} p={p} offset=7 n=49 against reference", got.arrays,
                   want.arrays, tol)
     # The invariant fields a functor does not read (cuda_invariant_reads,
-    # which the bounds count on) can hold NaN without changing a cell.
+    # which the bounds count on) can hold NaN, or a bool plane its
+    # negation, without changing a cell.
     for seed, op in enumerate(CONVECTION_OPS, start=820):
         cell, tf, halo, tol = convection_case(op, (33, 65), np.random.default_rng(seed), device)
-        kw = dict(i_start=0, offset=0, n_iterations=2, iters_per_pass=2)
+        tile, p = fit_tile((16, 32), 2, cell, tf, limits)
+        kw = dict(i_start=0, offset=0, n_iterations=p, iters_per_pass=p)
         want = tile_pass_plain(cell, tf, halo, **kw)
-        unread = [f for f in convection.FIELDS if f not in tf.cuda_variant and f not in tf.cuda_invariant_reads]
-        poisoned = dataclasses.replace(cell, **{f: torch.full_like(getattr(cell, f), float("nan")) for f in unread})
-        got = tile_pass(poisoned, tf, halo, tile=(16, 32), **kw)
+        unread = [f for f in cell_field_names(cell) if f not in tf.cuda_variant and f not in tf.cuda_invariant_reads]
+        poisoned = dataclasses.replace(cell, **{
+            f: ~getattr(cell, f) if getattr(cell, f).dtype == torch.bool else torch.full_like(getattr(cell, f), float("nan"))
+            for f in unread})
+        got = tile_pass(poisoned, tf, halo, tile=tile, **kw)
         torch.cuda.synchronize()
         got = dataclasses.replace(got, **{f: getattr(cell, f) for f in unread})  # the inputs, passed through
-        check(errs, "tile_pass", f"{op} (33, 65) with NaN in its unread fields {unread}", got, want, tol)
-    limits = cuda_lib.device_limits(device)
+        check(errs, "tile_pass", f"{op} (33, 65) with NaN (bool: negated) in its unread fields {unread}", got, want,
+              tol)
     log(f"  convection cell bytes in shared memory: " + ", ".join(
         f"{op} {cuda_lib.cell_smem_bytes(*convection_case(op, (2, 2), np.random.default_rng(0), 'cpu')[:2])} B"
         for op in CONVECTION_OPS) + f" (limits {limits})")
+
+
+def fit_tile(tile, p, cell, tf, limits) -> tuple:
+    """``tile`` and ``p``, p halved and then the core's height halved until
+    the tile pass's window fits one block."""
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends.tile_pass import RUN_ROWS, tile_smem_bytes
+
+    cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+    while tile_smem_bytes(*tile, tf.stencil_radius * p * tf.n_subiterations, cell_bytes) > limits.smem_per_block:
+        tile, p = (tile, p // 2) if p > 1 else ((max(RUN_ROWS, tile[0] // 2), tile[1]), p)
+    return tile, p
 
 
 def check_float8_overflow(device, errs) -> None:
@@ -660,7 +716,7 @@ def check_kernels(device) -> dict:
         MAX_THREADS, MonotilePlan, monotile, monotile_plain, monotile_plan,
     )
     from stencilstream_tpu_torch.backends import cuda_lib
-    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain, tile_smem_bytes
+    from stencilstream_tpu_torch.backends.tile_pass import tile_pass, tile_pass_plain
     from stencilstream_tpu_torch.models import jacobi
 
     errs = {"tile_pass": 0.0, "monotile": 0.0, "line_cache": 0.0, "tile_pass_extended": 0.0}
@@ -770,10 +826,7 @@ def check_kernels(device) -> dict:
     for seed, op in enumerate(["hotspot", *others], start=400):
         for shape, tile, p, i_start, offset, n in geometry_cases:
             cell, tf, halo, tol = op_case(op, shape, seed, device, iteration=i_start)
-            cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
-            while tile_smem_bytes(*tile, tf.stencil_radius * p * tf.n_subiterations, cell_bytes) > \
-                    limits.smem_per_block:
-                tile, p = (tile, p // 2) if p > 1 else ((max(8, tile[0] // 2), tile[1]), p)
+            tile, p = fit_tile(tile, p, cell, tf, limits)
             kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
             got = tile_pass(cell, tf, halo, tile=tile, **kw)
             want = tile_pass_plain(cell, tf, halo, **kw)
@@ -969,6 +1022,226 @@ def convection_paths(paths, counters, card) -> tuple[dict, dict, dict]:
         assert e <= CONVECTION_ATOL and same, (name, e, info1["stats"], ref1["stats"])
         del got, want
     return runs, counts, outs
+
+
+def folded_runs(paths, counters, conv_runs, conv_outs, card) -> tuple[dict, dict, dict]:
+    """Phase 4, the folded convection paths (:data:`FOLDED_PATHS`) through
+    ``convection.run(..., folded=True)`` as a user calls it, each with the
+    launch counters set to 0 just before it and read just after: only the
+    expected kernel launches; the same iterations per timestep as the
+    straight run of the same dtype and path in this call, and its 11
+    physics fields equal bit for bit; the planes come back as
+    ``init_folded_grid`` made them (the kernels' share of the walltime is
+    :func:`folded_kernel_rows`'s). Returns the runs, their launch counts and
+    their final grids."""
+    import torch
+
+    from stencilstream_tpu_torch.models import convection
+    from stencilstream_tpu_torch.trace_cells import convection_experiment, convection_updates
+
+    runs, counts, outs = {}, {}, {}
+    for name, (straight, expect) in FOLDED_PATHS.items():
+        grid, run, n, options = paths[name]
+        for module in counters.values():
+            module.launches = 0
+        out, info = run(grid, n, **options)
+        counts[name] = {k: m.launches for k, m in counters.items()}
+        runs[name], outs[name] = info, out
+        H, W = grid.shape
+        wall = info["pt_walltime"]
+        iters = [s["iters"] for s in info["stats"]]
+        straight_iters = [s["iters"] for s in conv_runs[straight]["stats"]]
+        e = max_err(convection.physics_cell(out.arrays), conv_outs[straight].arrays)
+        dtype = np.float64 if " f64 " in name else np.float32
+        init = convection.init_folded_grid(convection_experiment(1024), dtype, device=grid.device).arrays
+        planes_kept = all(torch.equal(getattr(out.arrays, f), getattr(init, f)) for f in convection.PLANES)
+        del init
+        cell_iterations = H * W * sum(iters)
+        log(f"  {name}: iterations {iters} (straight {straight_iters}) -> "
+            f"{getattr(info['pt_update'], 'resolved_backend', 'tiling')} "
+            f"{[getattr(u, 'resolved_config', None) for u in convection_updates(info)]} (lean, full, thermal); "
+            f"launches {counts[name]}; pseudo-transient walltime {wall:.6f} s, {cell_iterations / wall / 1e9:.3f} "
+            f"GCell/s (straight {conv_runs[straight]['pt_walltime']:.6f} s), whole run {info['total_time']:.6f} s "
+            f"(host clock); physics fields against the straight run max_abs_err={e:.3g} (tol 0), planes unchanged: "
+            f"{planes_kept} [{card}]")
+        assert {k for k, c in counts[name].items() if c} == {expect}, (name, counts[name])
+        assert iters == straight_iters and e == 0 and planes_kept, (name, iters, straight_iters, e)
+    return runs, counts, outs
+
+
+def folded_kernel_rows(runs, counts, outs, conv_kernels, device, card) -> dict:
+    """Phase 5, the folded functors (lean and full) on each folded path's
+    final grid at the path's geometry: one pass of each update, device time
+    by ``torch.profiler`` (the kernel alone; ``call_ms`` by CUDA events
+    includes the launch's widening of the 7 bool planes, timed on its own
+    as ``widen_ms``), beside the plain version and the straight functor's
+    row of the same path from this call (``convection kernels:`` line).
+    Bound: each variant field read and written once and each invariant
+    field the functor reads read once, the bool planes as their 1-byte
+    bools (``cuda_lib.cell_traffic_bytes``: float32 full 71 + 40 B a cell,
+    lean 62 + 32; float64 135 + 80 and 118 + 64), or 50 operations a
+    cell-iteration over 67 TFLOP/s (float32) or 34 (float64). No single
+    PyTorch call computes a pass. With each update's passes on the path,
+    the folded kernels' share of the path's pseudo-transient walltime
+    (passes times device time a pass, over the walltime). Returns one row a
+    (path, update)."""
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.models import convection
+    from stencilstream_tpu_torch.tile_sweep import device_ms
+    from stencilstream_tpu_torch.trace_cells import convection_updates, kernel_launch
+
+    rows = {}
+    halo = convection.folded_zero_cell()
+    for name, (straight, kernel) in FOLDED_PATHS.items():
+        cell = outs[name].arrays
+        H, W = cell.T.shape
+        info = runs[name]
+        n_blocks = sum(s["iters"] for s in info["stats"]) // sum(
+            u.params.n_iterations for u in convection_updates(info)[:-1])
+        busy_ms = 0.0
+        for update in convection_updates(info)[:-1]:
+            tf = update.params.transition_function
+            launched, fn, plain, what, n = kernel_launch(update, cell, halo)
+            assert launched == kernel, (name, launched)
+            ms, call_ms, plain_ms = device_ms(fn, 5), cuda_ms(fn, 5), cuda_ms(plain, 1)
+            assert ms > 0, f"the profiler saw no {kernel} kernel"
+            widen_ms = cuda_ms(lambda: [cuda_lib.widened(getattr(cell, f), cell.T.dtype)
+                                        for f in convection.BOOL_PLANES], 5)
+            e = max_err(fn(), plain())
+            read, written = cuda_lib.cell_traffic_bytes(cell, tf)
+            b, by = bound((read + written) * H * W, tf.n_operations * n * H * W, tf.dtype.itemsize == 8)
+            beside = conv_kernels[f"{straight} {tf.cuda_op.replace('folded_', '')}"]
+            row = f"{name} {tf.cuda_op}"
+            log(f"  {kernel} {row} {H}x{W}, {what}: kernel {ms:.4f} ms (device time; {call_ms:.4f} ms a call back "
+                f"to back, widening included; widening the {len(convection.BOOL_PLANES)} bool planes alone "
+                f"{widen_ms:.4f} ms) = {b / ms:.1%} of its bound {b:.4f} ms ({by}, {read}+{written} B a cell), plain "
+                f"{plain_ms:.4f} ms, library none: no single PyTorch call, max_abs_err={e:.3g}, {counts[name][kernel]} "
+                f"launches on the path; the straight functor's pass {beside['ms']:.4f} ms ({beside['workload']}) "
+                f"[{card}]")
+            assert e <= CONVECTION_ATOL, (row, e)
+            passes = n_blocks * -(-update.params.n_iterations // n)
+            busy_ms += passes * ms
+            rows[row] = dict(kernel=kernel, ms=ms, call_ms=call_ms, widen_ms=widen_ms, plain_ms=plain_ms, bound_ms=b,
+                             bound_by=by, library_ms=None, max_abs_err=e, launches=counts[name][kernel],
+                             passes=passes, straight_ms=beside["ms"], workload=f"{tf.cuda_op} {H}x{W}, {what}")
+        log(f"  {name}: folded kernels {busy_ms:.3f} ms of device time over the path's passes = kernel share "
+            f"{busy_ms / 1e3 / info['pt_walltime']:.3f} of its pseudo-transient walltime {info['pt_walltime']:.6f} s "
+            f"[{card}]")
+    return rows
+
+
+def host_module_checks(device, card) -> dict:
+    """Phase 7, the port's host-side modules on the card's machine:
+
+    * gradients: the ``reference`` backend on CUDA tensors gives the
+      gradient of sum(x_4^2) with respect to x0 for Jacobi5 at 1024^2, n=4,
+      within 1e-5 (largest difference over the largest magnitude) of the
+      CPU's; every backend that runs a kernel (``tiling`` in both window
+      modes, ``monotile``, ``auto``, ``distributed`` on a (2, 2) mesh and
+      ``ring`` of 4, their positions all on the one card) raises on a field
+      that requires grad and launches nothing;
+    * native I/O: ``format_indexed_text`` of a HotSpot 8192^2 temperature
+      grid timed, and at 1024^2 ``write_indexed_text`` through the native
+      library and through the Python path, which must write the same bytes;
+    * checkpoints: a HotSpot 8192^2 grid saved and loaded again, which must
+      equal it bit for bit and come back on the card.
+
+    Returns the numbers it logs."""
+    import unittest.mock
+
+    import torch
+
+    from stencilstream_tpu_torch import Grid, Params, create_update, native, reference
+    from stencilstream_tpu_torch.backends import cuda_lib
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends import monotile as mt
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.models import hotspot, jacobi
+    from stencilstream_tpu_torch.parallel import make_mesh
+    from stencilstream_tpu_torch.trace_cells import JACOBI5_COEFS
+    from stencilstream_tpu_torch.utils import checkpoint
+    from stencilstream_tpu_torch.utils import io as ssio
+
+    out = {}
+    j5 = jacobi.make_kernel("jacobi5_general", JACOBI5_COEFS)
+    x = np.random.default_rng(12).random((1024, 1024), np.float32)
+    grads, seconds = {}, {}
+    for where in ("cpu", device):
+        x0 = torch.tensor(x, device=where, requires_grad=True)
+        t0 = time.perf_counter()
+        (reference.apply_iterations(Grid(x0), j5, 4).arrays ** 2).sum().backward()
+        grads[str(where)] = x0.grad.cpu()
+        seconds[str(where)] = time.perf_counter() - t0
+    g_cpu, g_card = grads["cpu"], grads[str(device)]
+    rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    log(f"  reference gradient, jacobi5 1024^2 n=4, d sum(x_4^2)/d x0: card against CPU {rel:.3g} of the largest "
+        f"(tol 1e-5); forward and backward {seconds[str(device)]:.3f} s on the card, {seconds['cpu']:.3f} s on the "
+        f"CPU (host clock) [{card}]")
+    assert rel <= 1e-5 and float(g_cpu.abs().max()) > 0, rel
+    out["grad_rel_err"] = rel
+    counters = (tp, lc, mt)
+    backends = {
+        "tiling": {}, "tiling linecache": {"window_mode": "linecache"}, "monotile": {}, "auto": {},
+        "distributed 2x2": {"mesh": make_mesh(shape=(2, 2), devices=[device] * 4)},
+        "ring 4": {"mesh": make_mesh(shape=(4,), devices=[device] * 4), "iters_per_pass": 2},
+    }
+    for label, kw in backends.items():
+        backend = label.split()[0]
+        update = create_update(Params(transition_function=j5, n_iterations=4), backend=backend, **kw)
+        before = [m.launches for m in counters]
+        try:
+            update(Grid(torch.tensor(x, device=device, requires_grad=True)))
+        except NotImplementedError as err:
+            assert "'reference'" in str(err), err
+        else:
+            raise AssertionError(f"{label} returned a result for a grid that requires grad")
+        assert [m.launches for m in counters] == before, label
+    log(f"  every kernel backend raised on a grid that requires grad, launching nothing: {list(backends)}")
+
+    path, build_s = native.build()
+    temps = hotspot_cell((8192, 8192), 7, device).temp.cpu().numpy()
+    t0 = time.perf_counter()
+    text = native.format_indexed_text(temps)
+    native_s = time.perf_counter() - t0
+    lines = text.count(b"\n")
+    assert lines == temps.size, lines
+    del text
+    small = temps[:1024, :1024]
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        t0 = time.perf_counter()
+        ssio.write_indexed_text(os.path.join(tmp, "native.txt"), small)
+        small_native_s = time.perf_counter() - t0
+        with unittest.mock.patch.object(native, "available", return_value=False):
+            t0 = time.perf_counter()
+            ssio.write_indexed_text(os.path.join(tmp, "python.txt"), small)
+            small_python_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "native.txt"), "rb") as a, open(os.path.join(tmp, "python.txt"), "rb") as b:
+            same = a.read() == b.read()
+    log(f"  native I/O ({path.name}, {build_s:.2f} s to build here, 0 when phase 2 built it): format_indexed_text "
+        f"of hotspot 8192^2 temperatures, {lines} lines, {native_s:.3f} s; write_indexed_text at 1024^2 native "
+        f"{small_native_s:.3f} s, Python path {small_python_s:.3f} s, the same bytes: {same} (host clock) [{card}]")
+    assert same
+    out.update(native_8192_s=native_s, native_1024_s=small_native_s, python_1024_s=small_python_s)
+
+    cell = hotspot_cell((8192, 8192), 7, device)
+    with tempfile.TemporaryDirectory(dir=cuda_lib.BUILD_DIR) as tmp:
+        file = os.path.join(tmp, "ck.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        checkpoint.save_checkpoint(file, Grid(cell), iteration=200)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(file)
+        t0 = time.perf_counter()
+        got, it = checkpoint.load_checkpoint(file, like=Grid(cell))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    equal = it == 200 and torch.equal(got.arrays.temp, cell.temp) and torch.equal(got.arrays.power, cell.power)
+    log(f"  checkpoint of hotspot 8192^2 ({size} B): save {save_s:.3f} s, load onto {got.device} {load_s:.3f} s "
+        f"(host clock), bit for bit: {equal} [{card}]")
+    assert equal and got.device == cell.temp.device
+    out.update(checkpoint_save_s=save_s, checkpoint_load_s=load_s, checkpoint_bytes=size)
+    return out
 
 
 def convection_kernel_rows(runs, counts, outs, device, card) -> dict:
@@ -1416,6 +1689,10 @@ def main() -> int:
     path, seconds, report = cuda_lib.build()
     cuda_lib.library()
     log(f"built {path.name} in {seconds:.1f} s")
+    from stencilstream_tpu_torch import native
+
+    io_path, io_seconds = native.build()
+    log(f"built {io_path.name} (native host I/O, g++) in {io_seconds:.2f} s")
     for line in report.splitlines():
         if "Used" in line or "spill" in line:
             log("  ptxas:", line.strip())
@@ -1453,12 +1730,12 @@ def main() -> int:
         "hotspot 2048^2 auto": (12, ATOL, {"tile_pass"}),
     }
     paths = main_paths(device)
-    assert set(paths) == set(checks) | set(CONVECTION_PATHS) | set(MULTI_PATHS), sorted(paths)
+    assert set(paths) == set(checks) | set(CONVECTION_PATHS) | set(FOLDED_PATHS) | set(MULTI_PATHS), sorted(paths)
     totals = dict.fromkeys(counters, 0)
     path_errs = dict.fromkeys(counters, 0.0)
     runs, path_counts, fdtd_outs = {}, {}, {}
     for name, (grid, run, n, options) in paths.items():
-        if name in CONVECTION_PATHS or name in MULTI_PATHS:
+        if name in CONVECTION_PATHS or name in FOLDED_PATHS or name in MULTI_PATHS:
             continue
         n_small, tol, expect = checks[name]
         for module in counters.values():
@@ -1506,6 +1783,10 @@ def main() -> int:
     for name, kernel in CONVECTION_PATHS.items():
         for k in counters:
             totals[k] += conv_counts[name][k]
+    fold_runs, fold_counts, fold_outs = folded_runs(paths, counters, conv_runs, conv_outs, card)
+    for name in FOLDED_PATHS:
+        for k in counters:
+            totals[k] += fold_counts[name][k]
     log(f"main path launches: {totals}")
     multi_runs, multi_counts, multi_err = multi_device_runs(paths, counters, card)
     extended_launches = sum(c["tile_pass"] for c in multi_counts.values())
@@ -1698,15 +1979,22 @@ def main() -> int:
     )
     conv_kernels = convection_kernel_rows(conv_runs, conv_counts, conv_outs, device, card)
     log("convection kernels: " + json.dumps(conv_kernels))
-    for row in conv_kernels.values():
+    folded_kernels = folded_kernel_rows(fold_runs, fold_counts, fold_outs, conv_kernels, device, card)
+    log("folded kernels: " + json.dumps(folded_kernels))
+    for row in [*conv_kernels.values(), *folded_kernels.values()]:
         kernels[row["kernel"]]["max_abs_err"] = max(kernels[row["kernel"]]["max_abs_err"], row["max_abs_err"])
-    del conv_outs
+    del conv_outs, fold_outs
     log(f"phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # Phase 6: the experiments/ microbenchmarks' kernels.
     log("experiments/ kernels:")
     micro_rows = experiments_phase(device, card, totals)
     log(f"phase 6 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 7: gradients, native host I/O and checkpoints on the card's machine.
+    log("host modules:")
+    log("host modules: " + json.dumps(host_module_checks(device, card)))
+    log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     order = ("tile_pass", "monotile", "line_cache", "tile_pass_bf16", "monotile_bf16", "line_cache_bf16",
              "tile_pass_extended")

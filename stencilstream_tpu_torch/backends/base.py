@@ -6,21 +6,29 @@ mutations apply to the next call, a pure ``update(grid) -> grid`` call, and
 the accumulated ``n_processed_cells`` / ``walltime`` counters.
 
 There is no fallback: a kernel that fails to build or to launch raises.
+Only ``reference`` is differentiable; every other backend raises on a grid
+or a transition function that carries a tensor requiring grad
+(:func:`check_no_grad`), since the CUDA kernels have no backward.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
+import types
+from collections.abc import Mapping
 from typing import Any
 
-from ..core.cell import cell_dtypes, cell_field_names, cell_map, cell_zeros, storage_scalar
+import torch
+
+from ..core.cell import cell_dtypes, cell_field_names, cell_leaves, cell_map, cell_zeros, storage_scalar
 from ..core.grid import Grid, synchronize
 from ..core.params import Params
 from ..core.transition import validate_transition_function
 from ..tdv import resolve_tdv_strategy
 from .cuda_lib import require_device_op
 
-__all__ = ["StencilUpdateBase", "resolve_halo"]
+__all__ = ["StencilUpdateBase", "check_no_grad", "resolve_halo"]
 
 
 def resolve_halo(halo_value: Any, grid: Grid) -> Any:
@@ -37,10 +45,57 @@ def resolve_halo(halo_value: Any, grid: Grid) -> Any:
     return cell_map(storage_scalar, halo_value, cell_dtypes(grid.arrays))
 
 
+def _grad_tensors(value: Any, seen: set[int] | None = None) -> bool:
+    """Whether ``value`` is, or holds at any depth of containers, mappings
+    and attributes, a tensor that requires grad."""
+    if isinstance(value, torch.Tensor):
+        return value.requires_grad
+    if isinstance(value, (type, types.ModuleType)):
+        return False
+    seen = set() if seen is None else seen
+    if id(value) in seen:
+        return False
+    seen.add(id(value))
+    if isinstance(value, Mapping):
+        items = value.values()
+    elif isinstance(value, (tuple, list, set, frozenset)):
+        items = value
+    elif dataclasses.is_dataclass(value):
+        items = [getattr(value, f.name) for f in dataclasses.fields(value)]
+    elif hasattr(value, "__dict__"):
+        items = vars(value).values()
+    else:
+        return False
+    return any(_grad_tensors(v, seen) for v in items)
+
+
+def check_no_grad(grid: Grid, tf: Any, backend: str) -> None:
+    """Raise ``NotImplementedError`` when grad mode is on and a field of
+    ``grid`` or a parameter of ``tf`` is a tensor that requires grad:
+    ``backend`` runs CUDA kernels, which have no backward, so its result
+    would silently drop the gradient. The ``reference`` backend
+    differentiates. Under ``torch.no_grad()`` a detached result is what was
+    asked for, and nothing is checked."""
+    if not torch.is_grad_enabled():
+        return
+    names = cell_field_names(grid.arrays) or ("",)
+    fields = [n for n, t in zip(names, cell_leaves(grid.arrays)) if _grad_tensors(t)]
+    what = [f"field {n!r}" if n else "the grid" for n in fields]
+    if _grad_tensors(tf):
+        what.append(f"a parameter of {type(tf).__name__}")
+    if what:
+        raise NotImplementedError(
+            f"the {backend!r} backend runs the CUDA kernels, which have no backward, but "
+            f"{' and '.join(what)} requires grad; differentiate through the 'reference' backend"
+        )
+
+
 class StencilUpdateBase:
     """Base class for all stencil updaters."""
 
     Params = Params
+    #: Whether a call carries autograd graphs (``reference`` only).
+    differentiable = False
 
     def __init__(self, params: Params):
         if isinstance(params, dict):
@@ -61,6 +116,8 @@ class StencilUpdateBase:
         if not isinstance(grid, Grid):
             grid = Grid(grid)
         p = self.params
+        if not self.differentiable:
+            check_no_grad(grid, p.transition_function, type(self).__module__.rpartition(".")[2])
         start = time.perf_counter()
         out = self._update(grid)
         if p.blocking:

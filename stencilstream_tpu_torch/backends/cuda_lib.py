@@ -273,6 +273,17 @@ def kernel_view(t: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tens
     return t
 
 
+def widened(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An invariant field as a functor of element ``dtype`` takes it: a
+    bool field beside floating fields (the folded convection cell's masks)
+    widened to ``dtype``, 0 or 1, a copy made on the field's device for the
+    launch, since a functor has one element type; any other field as
+    :func:`kernel_view` gives it."""
+    if t.dtype == torch.bool and dtype.is_floating_point:
+        return t.to(dtype)
+    return kernel_view(t, dtype)
+
+
 def _halo_bits(value: Any, field: torch.Tensor, view: torch.Tensor) -> float:
     """A halo value as the kernel's double for ``view`` of ``field``: an
     int32 value read as float32 bits keeps its bits."""
@@ -379,7 +390,10 @@ def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFi
             f"{getattr(tf, 'cuda_tdv', None)}, but functor {op!r} takes {info['tdv_dtype']}"
         )
     stored = leaves
-    leaves = [kernel_view(t, info["dtype"] if j in invariant_index else None) for j, t in enumerate(stored)]
+    leaves = [
+        widened(t, info["dtype"]) if j in invariant_index else kernel_view(t)
+        for j, t in enumerate(stored)
+    ]
     shape = tuple(leaves[0].shape)
     device = leaves[0].device
     check_field_dtypes(op, info["dtype"], names, stored, leaves)
@@ -413,13 +427,19 @@ def check_field_dtypes(op: str, dtype: torch.dtype, names, stored, views) -> Non
 
 
 def cell_field_bytes(arrays: Any, tf: Any) -> tuple[int, int]:
-    """Bytes of one cell's variant fields and of its invariant fields.
-    Without a device functor every field counts as variant."""
+    """Bytes of one cell's variant fields and of its invariant fields, as
+    the kernels hold them: a bool invariant field beside floating variant
+    fields at their width (:func:`widened`). Without a device functor every
+    field counts as variant."""
     names = cell_field_names(arrays)
     variant = getattr(tf, "cuda_variant", names)
+    leaves = cell_leaves(arrays)
+    invariant = [bool(names) and names[j] not in variant for j in range(len(leaves))]
+    floats = [t for t, inv in zip(leaves, invariant) if not inv and t.dtype.is_floating_point]
     sizes = [0, 0]
-    for j, t in enumerate(cell_leaves(arrays)):
-        sizes[bool(names) and names[j] not in variant] += t.element_size()
+    for t, inv in zip(leaves, invariant):
+        wide = inv and t.dtype == torch.bool and floats
+        sizes[inv] += floats[0].element_size() if wide else t.element_size()
     return sizes[0], sizes[1]
 
 

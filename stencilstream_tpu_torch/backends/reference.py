@@ -11,8 +11,6 @@ from __future__ import annotations
 
 from typing import Any
 
-import torch
-
 from ..core.cell import canonicalize_cell, cell_field_names, cell_leaves, cell_map
 from ..core.grid import Grid
 from ..core.stencil import Stencil
@@ -86,9 +84,12 @@ def run_iterations(
 
 
 class StencilUpdate(StencilUpdateBase):
-    """Plain PyTorch stencil updater (the oracle backend)."""
+    """Plain PyTorch stencil updater (the oracle backend). It is
+    differentiable: a field or a transition-function parameter that
+    requires grad gives a result with its autograd graph."""
 
-    @torch.no_grad()
+    differentiable = True
+
     def _update(self, grid: Grid) -> Grid:
         p = self.params
         return Grid(

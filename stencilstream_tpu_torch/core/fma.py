@@ -3,7 +3,8 @@
 XLA on the CPU fuses some multiply-adds of the JAX package's transition
 functions, in float32 and in float64 alike, and the port's device functors
 fuse the same ones with ``__fmaf_rn`` / ``__fma_rn``. Their torch twins need
-the same rounding: ``a * b + c`` computed exactly and rounded once.
+the same rounding: ``a * b + c`` computed exactly and rounded once. Under
+autograd they differentiate as ``a * b + c``.
 """
 
 from __future__ import annotations
@@ -13,6 +14,46 @@ import torch
 __all__ = ["fma", "fma_f32", "fma_f64"]
 
 
+class _FusedMultiplyAdd(torch.autograd.Function):
+    """An exact fused multiply-add whose backward is that of ``a * b + c``
+    (the emulations' own graphs are not: where ``c`` dominates, float64's
+    returns ``c`` itself, which would give ``a`` no gradient)."""
+
+    @staticmethod
+    def forward(ctx, a, b, c, exact):
+        ctx.save_for_backward(a, b)
+        ctx.c_shape = c.shape
+        return exact(a, b, c)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        grads = [None] * 4
+        if ctx.needs_input_grad[0]:
+            grads[0] = (g * b).sum_to_size(a.shape)
+        if ctx.needs_input_grad[1]:
+            grads[1] = (g * a).sum_to_size(b.shape)
+        if ctx.needs_input_grad[2]:
+            grads[2] = g.sum_to_size(ctx.c_shape)
+        return tuple(grads)
+
+
+def _differentiable(exact):
+    """``exact`` as it is, or through :class:`_FusedMultiplyAdd` where an
+    operand requires grad."""
+
+    def fused(a, b, c):
+        operands = (a, b, c)
+        if torch.is_grad_enabled() and any(isinstance(t, torch.Tensor) and t.requires_grad for t in operands):
+            a, b, c = (torch.as_tensor(t, dtype=a.dtype, device=a.device) for t in operands)
+            return _FusedMultiplyAdd.apply(a, b, c, exact)
+        return exact(a, b, c)
+
+    fused.__name__, fused.__qualname__, fused.__doc__ = exact.__name__, exact.__qualname__, exact.__doc__
+    return fused
+
+
+@_differentiable
 def fma_f32(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to float32 (round to nearest even), for
     float32 tensors ``a``, ``c`` and a float32 tensor or float32-valued
@@ -97,6 +138,7 @@ def _scaled(x: torch.Tensor, k: torch.Tensor, sign: int) -> torch.Tensor:
     return torch.where(k, x * 2.0 ** (sign * _SCALE), x)
 
 
+@_differentiable
 def fma_f64(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     """``a * b + c`` rounded once to float64 (round to nearest even), for
     float64 tensors ``a``, ``c`` and a float64 tensor or number ``b``.

@@ -21,29 +21,33 @@
 #include "jacobi.cuh"
 #include "probe.cuh"
 
-#define SS_FOR_EACH_OP(X)                               \
-  X(hotspot, ss::HotspotOp)                             \
-  X(jacobi1_general, ss::Jacobi1GeneralOp)              \
-  X(jacobi2_constant, ss::Jacobi2ConstantOp)            \
-  X(jacobi3_constant, ss::Jacobi3ConstantOp)            \
-  X(jacobi4_constant, ss::Jacobi4ConstantOp)            \
-  X(jacobi5_constant, ss::Jacobi5ConstantOp)            \
-  X(jacobi4_general, ss::Jacobi4GeneralOp)              \
-  X(jacobi5_general, ss::Jacobi5GeneralOp)              \
-  X(jacobi9_general, ss::Jacobi9GeneralOp)              \
-  X(conway, ss::ConwayOp)                               \
-  X(probe, ss::ProbeOp)                                 \
-  X(probe_tdv, ss::ProbeTdvOp)                          \
-  X(probe_radius2, ss::ProbeRadius2Op)                  \
-  X(fdtd_coef, ss::FdtdCoefOp)                          \
-  X(fdtd_lut, ss::FdtdLutOp)                            \
-  X(fdtd_render, ss::FdtdRenderOp)                      \
-  X(convection_pt_f32, ss::ConvectionPtF32Op)           \
-  X(convection_pt_f64, ss::ConvectionPtF64Op)           \
-  X(convection_pt_lean_f32, ss::ConvectionPtLeanF32Op)  \
-  X(convection_pt_lean_f64, ss::ConvectionPtLeanF64Op)  \
-  X(convection_thermal_f32, ss::ConvectionThermalF32Op) \
-  X(convection_thermal_f64, ss::ConvectionThermalF64Op)
+#define SS_FOR_EACH_OP(X)                                           \
+  X(hotspot, ss::HotspotOp)                                         \
+  X(jacobi1_general, ss::Jacobi1GeneralOp)                          \
+  X(jacobi2_constant, ss::Jacobi2ConstantOp)                        \
+  X(jacobi3_constant, ss::Jacobi3ConstantOp)                        \
+  X(jacobi4_constant, ss::Jacobi4ConstantOp)                        \
+  X(jacobi5_constant, ss::Jacobi5ConstantOp)                        \
+  X(jacobi4_general, ss::Jacobi4GeneralOp)                          \
+  X(jacobi5_general, ss::Jacobi5GeneralOp)                          \
+  X(jacobi9_general, ss::Jacobi9GeneralOp)                          \
+  X(conway, ss::ConwayOp)                                           \
+  X(probe, ss::ProbeOp)                                             \
+  X(probe_tdv, ss::ProbeTdvOp)                                      \
+  X(probe_radius2, ss::ProbeRadius2Op)                              \
+  X(fdtd_coef, ss::FdtdCoefOp)                                      \
+  X(fdtd_lut, ss::FdtdLutOp)                                        \
+  X(fdtd_render, ss::FdtdRenderOp)                                  \
+  X(convection_pt_f32, ss::ConvectionPtF32Op)                       \
+  X(convection_pt_f64, ss::ConvectionPtF64Op)                       \
+  X(convection_pt_lean_f32, ss::ConvectionPtLeanF32Op)              \
+  X(convection_pt_lean_f64, ss::ConvectionPtLeanF64Op)              \
+  X(convection_thermal_f32, ss::ConvectionThermalF32Op)             \
+  X(convection_thermal_f64, ss::ConvectionThermalF64Op)             \
+  X(convection_folded_pt_f32, ss::ConvectionFoldedPtF32Op)          \
+  X(convection_folded_pt_f64, ss::ConvectionFoldedPtF64Op)          \
+  X(convection_folded_pt_lean_f32, ss::ConvectionFoldedPtLeanF32Op) \
+  X(convection_folded_pt_lean_f64, ss::ConvectionFoldedPtLeanF64Op)
 
 #define SS_FOR_EACH_NARROW_OP(X)                                       \
   X(hotspot__bf16, ss::Narrow<ss::HotspotOp, ss::Bf16>)                \

@@ -1,6 +1,7 @@
 // Thermal-convection device functors: the C++ twins of
-// stencilstream_tpu_torch/models/convection.py:PseudoTransientKernel and
-// ThermalSolverKernel, in float32 and float64.
+// stencilstream_tpu_torch/models/convection.py:PseudoTransientKernel,
+// FoldedPseudoTransientKernel and ThermalSolverKernel, in float32 and
+// float64.
 //
 // The cell's 11 fields, in storage order: T, Pt, Vx, Vy, tau_xx, tau_yy,
 // sigma_xy, dVxd_tau, dVyd_tau, ErrV, ErrP. The active region is (nx, ny)
@@ -203,11 +204,118 @@ struct ConvectionThermalOp {
   }
 };
 
+// The folded pseudo-transient update (FoldedPseudoTransientKernel), k=3: the
+// straight update's mathematics with the coordinate guards read from 12
+// invariant planes of the cell (models/convection.py:PLANES): 7 bool masks,
+// which reach the kernels widened to T (0 or 1; backends/cuda_lib.py:
+// kernel_fields), and 5 coefficient planes that fold the masks of Pt, dV?d
+// and V? into multiply-adds, which therefore run on every cell: Pt =
+// fma(dV1, -c_pt, Pt), dV?d = fma(dV?d, a_v?, c_v?*R?), V? = fma(dV?d, c_v?,
+// V?). The other updates keep the straight functor's forms under the masks.
+// Variant fields as ConvectionPtOp's; invariant: T, then (without kWithErr)
+// ErrV and ErrP, then the planes. Parameters
+// (FoldedPseudoTransientKernel.cuda_params()): inv_dx, inv_dy, 1/3, dedT,
+// eta0, deltaT/2, 1/rho, roh0_g_alpha.
+template <class Real, bool kWithErr, class Self>
+struct ConvectionFoldedPtOp {
+  using T = Real;
+  static constexpr int kRadius = 1;
+  static constexpr int kSubiterations = 3;
+  static constexpr int kVariant = kWithErr ? 10 : 8;
+  static constexpr int kInvariant = kWithErr ? 13 : 15;
+  static constexpr int kParams = 8;
+  enum { kPt, kVx, kVy, kTauXX, kTauYY, kSigmaXY, kDVx, kDVy, kErrV, kErrP };
+  // The planes, in the cell's order, and the first one's invariant index.
+  enum { kMV, kMP, kMSig, kCPt, kCVx, kAVx, kCVy, kAVy, kMBx0, kMBx1, kMBy0, kMBy1 };
+  static constexpr int kFirstPlane = kWithErr ? 1 : 3;
+
+  T inv_dx, inv_dy, third, dedT, eta0, half_deltaT, inv_rho, g;
+
+  static Self from_params(const double* p) {
+    Self op{};
+    T* dst[] = {&op.inv_dx, &op.inv_dy, &op.third, &op.dedT, &op.eta0, &op.half_deltaT, &op.inv_rho, &op.g};
+    for (int j = 0; j < kParams; ++j) *dst[j] = static_cast<T>(p[j]);
+    return op;
+  }
+
+  template <class Tp>
+  __device__ __forceinline__ static T plane(const Tp& s, int j) {
+    return s.i(kFirstPlane + j, 0, 0);
+  }
+  template <class Tp>
+  __device__ __forceinline__ static bool mask(const Tp& s, int j) {
+    return plane(s, j) != T(0);
+  }
+
+  template <class Tp>
+  __device__ __forceinline__ void operator()(const Tp& s, T* out) const {
+#pragma unroll
+    for (int f = 0; f < kVariant; ++f) out[f] = s.v(f, 0, 0);
+    if (s.subiteration == 0) {
+      if constexpr (kWithErr) {
+        if (mask(s, kMV)) out[kErrV] = s.v(kVy, 0, 0);
+        if (mask(s, kMP)) out[kErrP] = s.v(kPt, 0, 0);
+      }
+      const T d_xa_vx = s.v(kVx, 1, 0) - s.v(kVx, 0, 0);
+      const T d_ya_vy = s.v(kVy, 0, 1) - s.v(kVy, 0, 0);
+      const T ax = d_xa_vx * inv_dx;
+      const T ay = d_ya_vy * inv_dy;
+      const T dV1 = fused_multiply_add(d_xa_vx, inv_dx, ay);
+      const T dV2 = fused_multiply_add(d_ya_vy, inv_dy, ax);
+      const T eta = eta0 * fused_multiply_add(s.i(0, 0, 0) + half_deltaT, -dedT, T(1));
+      const T two_eta = T(2) * eta;
+      out[kPt] = fused_multiply_add(dV1, -plane(s, kCPt), s.v(kPt, 0, 0));
+      if (mask(s, kMP)) {
+        out[kTauXX] = two_eta * fused_multiply_add(dV2, -third, ax);
+        out[kTauYY] = two_eta * fused_multiply_add(dV1, -third, ay);
+      }
+      if (mask(s, kMSig)) {
+        const T d_yi_vx = s.v(kVx, 1, 1) - s.v(kVx, 1, 0);
+        const T d_xi_vy = s.v(kVy, 1, 1) - s.v(kVy, 0, 1);
+        out[kSigmaXY] = eta * fused_multiply_add(d_xi_vy, inv_dx, d_yi_vx * inv_dy);
+      }
+      return;
+    }
+    if (s.subiteration == 1) {
+      const T dtxx = s.v(kTauXX, 0, 0) - s.v(kTauXX, -1, 0);
+      const T dsx = s.v(kSigmaXY, -1, 0) - s.v(kSigmaXY, -1, -1);
+      const T dPx = s.v(kPt, 0, 0) - s.v(kPt, -1, 0);
+      const T Rx = inv_rho * fused_multiply_add(dPx, -inv_dx, fused_multiply_add(dsx, inv_dy, dtxx * inv_dx));
+      const T dvx = fused_multiply_add(s.v(kDVx, 0, 0), plane(s, kAVx), plane(s, kCVx) * Rx);
+      out[kDVx] = dvx;
+      out[kVx] = fused_multiply_add(dvx, plane(s, kCVx), s.v(kVx, 0, 0));
+      const T dtyy = s.v(kTauYY, 0, 0) - s.v(kTauYY, 0, -1);
+      const T dsy = s.v(kSigmaXY, 0, -1) - s.v(kSigmaXY, -1, -1);
+      const T dPy = s.v(kPt, 0, 0) - s.v(kPt, 0, -1);
+      const T Tm = (s.i(0, 0, -1) + s.i(0, 0, 0)) * T(0.5);
+      const T sy = fused_multiply_add(dPy, -inv_dy, fused_multiply_add(dsy, inv_dx, dtyy * inv_dy));
+      const T Ry = inv_rho * fused_multiply_add(Tm, g, sy);
+      const T dvy = fused_multiply_add(s.v(kDVy, 0, 0), plane(s, kAVy), plane(s, kCVy) * Ry);
+      out[kDVy] = dvy;
+      out[kVy] = fused_multiply_add(dvy, plane(s, kCVy), s.v(kVy, 0, 0));
+      return;
+    }
+    // Sub-step 2: boundary conditions and the error update.
+    if (mask(s, kMBx0)) out[kVx] = s.v(kVx, 0, 1);
+    if (mask(s, kMBx1)) out[kVx] = s.v(kVx, 0, -1);
+    if (mask(s, kMBy0)) out[kVy] = s.v(kVy, 1, 0);
+    if (mask(s, kMBy1)) out[kVy] = s.v(kVy, -1, 0);
+    if constexpr (kWithErr) {
+      if (mask(s, kMV)) out[kErrV] = s.v(kErrV, 0, 0) - out[kVy];
+      if (mask(s, kMP)) out[kErrP] = s.v(kErrP, 0, 0) - s.v(kPt, 0, 0);
+    }
+  }
+};
+
 struct ConvectionPtF32Op : ConvectionPtOp<float, true, ConvectionPtF32Op> {};
 struct ConvectionPtF64Op : ConvectionPtOp<double, true, ConvectionPtF64Op> {};
 struct ConvectionPtLeanF32Op : ConvectionPtOp<float, false, ConvectionPtLeanF32Op> {};
 struct ConvectionPtLeanF64Op : ConvectionPtOp<double, false, ConvectionPtLeanF64Op> {};
 struct ConvectionThermalF32Op : ConvectionThermalOp<float, ConvectionThermalF32Op> {};
 struct ConvectionThermalF64Op : ConvectionThermalOp<double, ConvectionThermalF64Op> {};
+struct ConvectionFoldedPtF32Op : ConvectionFoldedPtOp<float, true, ConvectionFoldedPtF32Op> {};
+struct ConvectionFoldedPtF64Op : ConvectionFoldedPtOp<double, true, ConvectionFoldedPtF64Op> {};
+struct ConvectionFoldedPtLeanF32Op : ConvectionFoldedPtOp<float, false, ConvectionFoldedPtLeanF32Op> {};
+struct ConvectionFoldedPtLeanF64Op : ConvectionFoldedPtOp<double, false, ConvectionFoldedPtLeanF64Op> {};
 
 }  // namespace ss

@@ -29,6 +29,8 @@ __all__ = [
     "StreamTDV",
     "cast_storage_kernel",
     "convection_experiment",
+    "convection_folded_grid",
+    "convection_folded_pt_kernel",
     "convection_grid",
     "convection_pt_kernel",
     "convection_thermal_kernel",
@@ -138,6 +140,18 @@ def convection_pt_kernel(fields: Any) -> convection.PseudoTransientKernel:
     """The port's pseudo-transient kernel from a JAX one's fields
     (``with_err`` included); its parameters' dtype names the functor's."""
     return transition_function_from_fields(convection.PseudoTransientKernel, fields)
+
+
+def convection_folded_grid(arrays: Any, *, device) -> Grid:
+    """The port's folded convection grid (the 11 fields and the coordinate
+    planes, bool masks included) from a JAX folded grid's ``to_numpy()``."""
+    return grid_from_numpy(convection.FoldedConvectionCell, arrays, device=device)
+
+
+def convection_folded_pt_kernel(fields: Any) -> convection.FoldedPseudoTransientKernel:
+    """The port's folded pseudo-transient kernel from a JAX one's fields
+    (``with_err`` included)."""
+    return transition_function_from_fields(convection.FoldedPseudoTransientKernel, fields)
 
 
 def convection_thermal_kernel(fields: Any) -> convection.ThermalSolverKernel:

@@ -1,14 +1,20 @@
 """Thermal convection — the 2D mantle-convection miniapp, on the PyTorch/CUDA port.
 
-Counterpart of ``stencilstream_tpu/models/convection.py`` (the straight
-kernels; the folded coordinate-plane variant is not ported yet): an
-11-field cell, two transition functions over one grid — the
+Counterpart of ``stencilstream_tpu/models/convection.py``: an 11-field
+cell, two transition functions over one grid — the
 pseudo-transient momentum/pressure update (k=3) and the thermal
 advection/diffusion update (k=2) — a host convergence loop that reads five
 masked maxima after each block of ``nerr`` iterations, and the adaptive
 ``dt`` written into the thermal update's live parameters before each
 thermal step. The reference's cell is 11 doubles; ``float64`` and
 ``float32`` both run on the CUDA kernels.
+
+The folded variant (``run(folded=True)``, :class:`FoldedConvectionCell`)
+stores the coordinate masks as 12 invariant planes beside the 11 fields: 7
+bool planes and 5 coefficient planes. A device functor has one element
+type, so the kernels take the bool planes widened to the cell's float
+dtype, a copy made on the device for each launch
+(``backends/cuda_lib.py:widened``); the grid keeps its bool planes.
 
 The active region is ``(nx, ny)`` inside an ``(nx+1, ny+1)`` grid; the
 reference's coordinate guards are ``torch.where`` masks here and branches
@@ -23,7 +29,7 @@ here, ``__fmaf_rn``/``__fma_rn`` in the functors): see
 reciprocals and quotients are computed in the cell's dtype, as JAX
 computes them on its traced scalars. Run it on the card::
 
-    python -m stencilstream_tpu_torch.models.convection experiment.json outdir [--dtype float64]
+    python -m stencilstream_tpu_torch.models.convection experiment.json outdir [--dtype float64] [--folded]
 """
 
 from __future__ import annotations
@@ -46,13 +52,20 @@ from ..utils.io import write_csv_frame
 
 __all__ = [
     "ThermalConvectionCell",
+    "FoldedConvectionCell",
     "PseudoTransientKernel",
+    "FoldedPseudoTransientKernel",
     "ThermalSolverKernel",
     "Experiment",
     "zero_cell",
+    "folded_zero_cell",
+    "folded_planes",
     "make_pseudo_transient_kernel",
+    "make_folded_pseudo_transient_kernel",
     "make_thermal_kernel",
     "init_grid",
+    "init_folded_grid",
+    "physics_cell",
     "run",
     "main",
     "FLOPS_PER_CELL",
@@ -64,6 +77,11 @@ FLOPS_PER_CELL = 50
 
 #: The fields in storage order (the JAX package's).
 FIELDS = ("T", "Pt", "Vx", "Vy", "tau_xx", "tau_yy", "sigma_xy", "dVxd_tau", "dVyd_tau", "ErrV", "ErrP")
+#: The folded cell's coordinate planes, after :data:`FIELDS` (the JAX
+#: package's order): bool masks and the coefficient planes ``c_*``, ``a_*``.
+PLANES = ("m_v", "m_p", "m_sig", "c_pt", "c_vx", "a_vx", "c_vy", "a_vy", "m_bx0", "m_bx1", "m_by0", "m_by1")
+#: The bool planes among :data:`PLANES`.
+BOOL_PLANES = ("m_v", "m_p", "m_sig", "m_bx0", "m_bx1", "m_by0", "m_by1")
 
 
 @cell_type
@@ -84,6 +102,12 @@ class ThermalConvectionCell:
 def zero_cell() -> ThermalConvectionCell:
     """The halo cell: every field 0 (rounded to the grid's dtype)."""
     return ThermalConvectionCell(**{f: 0.0 for f in FIELDS})
+
+
+def physics_cell(arrays) -> ThermalConvectionCell:
+    """The 11 physics fields of a cell (a folded one's, without its
+    planes): the very tensors, nothing copied."""
+    return ThermalConvectionCell(**{f: getattr(arrays, f) for f in FIELDS})
 
 
 def _param_dtype(value) -> torch.dtype:
@@ -357,6 +381,212 @@ class ThermalSolverKernel:
 
 
 # --------------------------------------------------------------------------- #
+# Folded variant: coordinate masks precomputed into invariant cell planes    #
+# --------------------------------------------------------------------------- #
+@cell_type
+class FoldedConvectionCell:
+    """The 11 physics fields, then the precomputed coordinate planes
+    (:data:`PLANES`), as in the JAX package.
+
+    The coordinates never change, so the reference's coordinate guards are
+    functions of position alone, computed once (:func:`folded_planes`):
+    bool masks, and coefficient planes into which the accumulate-style
+    updates fold their mask (``c_*`` zero and ``a_*`` one outside it). The
+    planes are loop-invariant: no kernel writes them."""
+
+    T: torch.Tensor
+    Pt: torch.Tensor
+    Vx: torch.Tensor
+    Vy: torch.Tensor
+    tau_xx: torch.Tensor
+    tau_yy: torch.Tensor
+    sigma_xy: torch.Tensor
+    dVxd_tau: torch.Tensor
+    dVyd_tau: torch.Tensor
+    ErrV: torch.Tensor
+    ErrP: torch.Tensor
+    m_v: torch.Tensor  # bool: x<nx & y<ny+1 (Vy/ErrV region)
+    m_p: torch.Tensor  # bool: x<nx & y<ny (pressure region)
+    m_sig: torch.Tensor  # bool: m_p & x<nx-1 & y<ny-1
+    c_pt: torch.Tensor  # m_p * delta_tau_iter/beta
+    c_vx: torch.Tensor  # mask_x * delta_tau_iter
+    a_vx: torch.Tensor  # 1 + mask_x*(dampX-1)
+    c_vy: torch.Tensor  # mask_y * delta_tau_iter
+    a_vy: torch.Tensor  # 1 + mask_y*(dampY-1)
+    m_bx0: torch.Tensor  # bool: bc region & y==0
+    m_bx1: torch.Tensor  # bool: bc region & y==ny-1
+    m_by0: torch.Tensor  # bool: bc region & x==0
+    m_by1: torch.Tensor  # bool: bc region & x==nx-1
+
+
+def folded_zero_cell() -> FoldedConvectionCell:
+    """The folded halo cell: every field 0, every bool plane False."""
+    return FoldedConvectionCell(**{f: False if f in BOOL_PLANES else 0.0 for f in FIELDS + PLANES})
+
+
+def folded_planes(e: "Experiment", shape, dtype=np.float32) -> dict:
+    """The coordinate planes of :class:`FoldedConvectionCell` on a grid of
+    ``shape``, as numpy arrays (the JAX package's ``folded_planes``).
+
+    The coefficients equal the straight kernel's arithmetic bit for bit:
+    each scalar parameter is rounded to ``dtype`` first and combined in
+    ``dtype`` (the straight kernel computes ``dtype(delta_tau_iter) /
+    dtype(beta)`` the same way)."""
+    nx, ny = e.nx, e.ny
+    x = np.arange(shape[0])[:, None]
+    y = np.arange(shape[1])[None, :]
+    bb = lambda v: np.broadcast_to(v, shape).copy()  # noqa: E731
+    m_v = (x < nx) & (y < ny + 1)
+    m_p = (x < nx) & (y < ny)
+    inner = (x >= 1) & (y >= 1)
+    mask_x = inner & (x < nx) & (y < ny - 1)
+    mask_y = inner & (x < nx - 1) & (y < ny)
+    mask_bcx = (x < nx + 1) & (y < ny)
+    mask_bcy = (x < nx) & (y < ny + 1)
+    dtau = dtype(e.delta_tau_iter)
+    dtau_over_beta = dtype(dtau / dtype(e.beta))
+    sel = lambda m, v: np.where(m, v, dtype(0.0)).astype(dtype)  # noqa: E731
+    return dict(
+        m_v=bb(m_v), m_p=bb(m_p),
+        m_sig=bb(m_p & (x < nx - 1) & (y < ny - 1)),
+        c_pt=bb(sel(m_p, dtau_over_beta)),
+        c_vx=bb(sel(mask_x, dtau)),
+        a_vx=bb(np.where(mask_x, dtype(e.dampX), dtype(1.0)).astype(dtype)),
+        c_vy=bb(sel(mask_y, dtau)),
+        a_vy=bb(np.where(mask_y, dtype(e.dampY), dtype(1.0)).astype(dtype)),
+        m_bx0=bb(mask_bcx & (y == 0)),
+        m_bx1=bb(mask_bcx & (y == ny - 1)),
+        m_by0=bb(mask_bcy & (x == 0)),
+        m_by1=bb(mask_bcy & (x == nx - 1)),
+    )
+
+
+@transition_function
+class FoldedPseudoTransientKernel:
+    """The pseudo-transient iteration over :class:`FoldedConvectionCell`:
+    the mathematics of :class:`PseudoTransientKernel`, bit for bit, with the
+    coordinate masks read from the planes and the accumulate-style updates
+    folded into coefficient-plane multiply-adds (``convection.cpp:76-183``).
+    ``with_err=False`` drops the ErrV/ErrP bookkeeping, as in the straight
+    kernel.
+
+    The multiply-adds XLA fuses are the straight kernel's, with the
+    coefficient planes in place of the masked scalars (found as there, by
+    emulating the candidate forms in numpy against the JAX folded twin on
+    ``reference``): ``Pt = fma(dV1, -c_pt, Pt)``; ``dV?d_tau = fma(dV?d_tau,
+    a_v?, c_v?*R?)``; ``V? = fma(dV?d_tau, c_v?, V?)``. The three updates
+    run on every cell (the planes make them the identity outside their
+    region); the others keep the straight kernel's forms under the bool
+    planes.
+    """
+
+    stencil_radius = 1
+    n_subiterations = 3
+    handles_boundary = True
+    #: Operations per cell and iteration, the reference harness's count.
+    n_operations = FLOPS_PER_CELL
+
+    eta0: float = 0.0
+    deltaT: float = 0.0
+    delta_eta_delta_T: float = 0.0
+    roh0_g_alpha: float = 0.0
+    dx: float = 1.0
+    dy: float = 1.0
+    rho: float = 1.0
+    with_err: bool = static_field(default=True)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The cell's dtype: that of the parameters."""
+        return _param_dtype(self.dx)
+
+    @property
+    def cuda_op(self) -> str:
+        """``convection_folded_pt[_lean]_{f32,f64}`` (``csrc/ops/convection.cuh``)."""
+        width = "f64" if self.dtype == torch.float64 else "f32"
+        return f"convection_folded_pt_{width}" if self.with_err else f"convection_folded_pt_lean_{width}"
+
+    @property
+    def cuda_variant(self) -> tuple:
+        """Every physics field but T; lean also leaves ErrV and ErrP
+        invariant."""
+        return FIELDS[1:] if self.with_err else FIELDS[1:-2]
+
+    @property
+    def cuda_invariant_reads(self) -> tuple:
+        """T and the planes; lean reads neither ErrV, ErrP nor ``m_v``."""
+        return ("T", *PLANES) if self.with_err else ("T", *PLANES[1:])
+
+    def get_time_dependent_value(self, i):
+        return None
+
+    def scalars(self) -> dict:
+        """The scalar operands, each computed in the cell's dtype as JAX
+        computes it on its traced scalars."""
+        D = np.float64 if self.dtype == torch.float64 else np.float32
+        one = D(1.0)
+        return _scalars(
+            self.dtype,
+            inv_dx=one / D(self.dx), inv_dy=one / D(self.dy), third=D(1.0 / 3.0), dedT=D(self.delta_eta_delta_T),
+            eta0=D(self.eta0), half_deltaT=D(self.deltaT) / D(2.0), inv_rho=one / D(self.rho),
+            g=D(self.roh0_g_alpha),
+        )
+
+    def cuda_params(self) -> tuple:
+        """The functor's parameters, in its order: :meth:`scalars`."""
+        return tuple(self.scalars().values())
+
+    def __call__(self, s):
+        c = s[0, 0]
+        _check_dtype(self, c.T)
+        k = self.scalars()
+        inv_dx, inv_dy = k["inv_dx"], k["inv_dy"]
+
+        if s.subiteration == 0:
+            upd = {}
+            if self.with_err:
+                upd["ErrV"] = torch.where(c.m_v, c.Vy, c.ErrV)
+                upd["ErrP"] = torch.where(c.m_p, c.Pt, c.ErrP)
+            d_xa_vx = s[1, 0].Vx - c.Vx
+            d_ya_vy = s[0, 1].Vy - c.Vy
+            ax, ay = d_xa_vx * inv_dx, d_ya_vy * inv_dy
+            dV1 = fma(d_xa_vx, inv_dx, ay)
+            dV2 = fma(d_ya_vy, inv_dy, ax)
+            eta = k["eta0"] * fma(c.T + k["half_deltaT"], -k["dedT"], torch.ones_like(c.T))
+            two_eta = 2.0 * eta
+            upd["Pt"] = fma(dV1, -c.c_pt, c.Pt)
+            upd["tau_xx"] = torch.where(c.m_p, two_eta * fma(dV2, -k["third"], ax), c.tau_xx)
+            upd["tau_yy"] = torch.where(c.m_p, two_eta * fma(dV1, -k["third"], ay), c.tau_yy)
+            d_yi_vx = s[1, 1].Vx - s[1, 0].Vx
+            d_xi_vy = s[1, 1].Vy - s[0, 1].Vy
+            upd["sigma_xy"] = torch.where(c.m_sig, eta * fma(d_xi_vy, inv_dx, d_yi_vx * inv_dy), c.sigma_xy)
+            return dataclasses.replace(c, **upd)
+
+        if s.subiteration == 1:
+            sx = fma(s[-1, 0].sigma_xy - s[-1, -1].sigma_xy, inv_dy, (c.tau_xx - s[-1, 0].tau_xx) * inv_dx)
+            Rx = k["inv_rho"] * fma(c.Pt - s[-1, 0].Pt, -inv_dx, sx)
+            dVxd_tau = fma(c.dVxd_tau, c.a_vx, c.c_vx * Rx)
+            Vx = fma(dVxd_tau, c.c_vx, c.Vx)
+            sy = fma(s[0, -1].sigma_xy - s[-1, -1].sigma_xy, inv_dx, (c.tau_yy - s[0, -1].tau_yy) * inv_dy)
+            sy = fma(c.Pt - s[0, -1].Pt, -inv_dy, sy)
+            Ry = k["inv_rho"] * fma((s[0, -1].T + c.T) * 0.5, k["g"], sy)
+            dVyd_tau = fma(c.dVyd_tau, c.a_vy, c.c_vy * Ry)
+            Vy = fma(dVyd_tau, c.c_vy, c.Vy)
+            return dataclasses.replace(c, dVxd_tau=dVxd_tau, Vx=Vx, dVyd_tau=dVyd_tau, Vy=Vy)
+
+        # sub-iteration 2: boundary conditions + error update
+        Vx = torch.where(c.m_bx0, s[0, 1].Vx, c.Vx)
+        Vx = torch.where(c.m_bx1, s[0, -1].Vx, Vx)
+        Vy = torch.where(c.m_by0, s[1, 0].Vy, c.Vy)
+        Vy = torch.where(c.m_by1, s[-1, 0].Vy, Vy)
+        upd = dict(Vx=Vx, Vy=Vy)
+        if self.with_err:
+            upd["ErrV"] = torch.where(c.m_v, c.ErrV - Vy, c.ErrV)
+            upd["ErrP"] = torch.where(c.m_p, c.ErrP - c.Pt, c.ErrP)
+        return dataclasses.replace(c, **upd)
+
+
+# --------------------------------------------------------------------------- #
 # Experiment configuration and the host convergence loop                      #
 # --------------------------------------------------------------------------- #
 @dataclasses.dataclass
@@ -475,6 +705,26 @@ def make_thermal_kernel(e: Experiment, dtype=np.float32, dt: float = 0.0) -> The
     )
 
 
+def make_folded_pseudo_transient_kernel(
+    e: Experiment, dtype=np.float32, with_err: bool = True
+) -> FoldedPseudoTransientKernel:
+    """The folded pseudo-transient kernel of an experiment, its parameters
+    in ``dtype``, as the JAX package makes it."""
+    f = lambda v: dtype(v)  # noqa: E731
+    return FoldedPseudoTransientKernel(
+        eta0=f(e.eta0), deltaT=f(e.deltaT), delta_eta_delta_T=f(e.delta_eta_delta_T),
+        roh0_g_alpha=f(e.roh0_g_alpha), dx=f(e.dx), dy=f(e.dy), rho=f(e.rho), with_err=with_err,
+    )
+
+
+def init_folded_grid(e: Experiment, dtype=np.float32, *, device="cuda") -> Grid:
+    """:func:`init_grid`'s initial condition with the coordinate planes
+    (:func:`folded_planes`), on the card unless ``device`` says otherwise."""
+    base = init_grid(e, dtype, device="cpu").to_numpy()
+    planes = folded_planes(e, (e.nx + 1, e.ny + 1), dtype)
+    return Grid.from_numpy(FoldedConvectionCell(**{f: getattr(base, f) for f in FIELDS}, **planes), device=device)
+
+
 def init_grid(e: Experiment, dtype=np.float32, *, device="cuda") -> Grid:
     """Initial condition: hot bottom plate, cold top plate, Gaussian blob
     (``convection.cpp:380-397``), on the card unless ``device`` says
@@ -530,30 +780,32 @@ def run(
     (no Err bookkeeping) and one full one, except on ``reference``, which
     runs ``nerr`` full ones; both give the same grid. ``float64`` runs on
     the CUDA kernels like ``float32``.
-    """
-    if folded:
-        raise NotImplementedError(
-            "the folded convection variant (coordinate planes beside the fields) is not "
-            "ported yet: it needs a cell of mixed dtypes (ROADMAP.md, queue 1)"
-        )
-    dtype = np.dtype(dtype).type
-    halo = zero_cell()
-    use_lean = e.nerr > 1 and backend != "reference"
 
-    def update(tf, n, **params):
+    ``folded=True`` runs :class:`FoldedPseudoTransientKernel` over
+    :func:`init_folded_grid`, with the lean/full split on every backend (as
+    the JAX package's folded path does; the JAX package runs float64 and
+    ``reference`` straight, the port runs them folded). Its fields equal the
+    straight run's bit for bit. The thermal step runs the straight thermal
+    kernel on the folded grid's 11 physics fields (the same tensors), which
+    neither reads nor writes the planes.
+    """
+    dtype = np.dtype(dtype).type
+    halo = folded_zero_cell() if folded else zero_cell()
+    use_lean = e.nerr > 1 and (folded or backend != "reference")
+    make_pt = make_folded_pseudo_transient_kernel if folded else make_pseudo_transient_kernel
+
+    def update(tf, n, halo, **params):
         return create_update(
             Params(transition_function=tf, halo_value=halo, n_iterations=n, **params),
             backend=backend, **backend_kwargs,
         )
 
-    pt_update = update(make_pseudo_transient_kernel(e, dtype, with_err=True),
-                       1 if use_lean else e.nerr, blocking=True)
+    pt_update = update(make_pt(e, dtype, with_err=True), 1 if use_lean else e.nerr, halo, blocking=True)
     lean_update = (
-        update(make_pseudo_transient_kernel(e, dtype, with_err=False), e.nerr - 1, blocking=True)
-        if use_lean else None
+        update(make_pt(e, dtype, with_err=False), e.nerr - 1, halo, blocking=True) if use_lean else None
     )
-    thermal_update = update(make_thermal_kernel(e, dtype), 1)
-    grid = init_grid(e, dtype, device=device)
+    thermal_update = update(make_thermal_kernel(e, dtype), 1, zero_cell())
+    grid = (init_folded_grid if folded else init_grid)(e, dtype, device=device)
 
     stats = []
     start = time.perf_counter()
@@ -584,7 +836,10 @@ def run(
         # A live parameter: the next launch reads it, nothing rebuilds
         # (convection.cpp:452-457 rebuilds the whole updater here instead).
         thermal_update.get_params().transition_function.dt = dtype(dt)
-        grid = thermal_update(grid)
+        # The thermal step reads and writes the 11 physics fields only, so a
+        # folded grid's planes stay as they are.
+        T = thermal_update(Grid(physics_cell(grid.arrays))).arrays.T
+        grid = Grid(dataclasses.replace(grid.arrays, T=T))
 
         stats.append({"it": it, "iters": iters, "errV": errV, "errP": errP, "dt": dt})
 
@@ -609,6 +864,10 @@ def main(argv=None) -> int:
     parser.add_argument("--backend", default="auto")
     parser.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
+    parser.add_argument(
+        "--folded", action="store_true",
+        help="run the folded pseudo-transient kernel (coordinate masks stored as invariant planes)",
+    )
     args = parser.parse_args(argv)
 
     if not os.path.isfile(args.experiment):
@@ -620,7 +879,8 @@ def main(argv=None) -> int:
 
     e = Experiment.load(args.experiment)
     run(e, out_dir=args.output_dir, backend=args.backend,
-        dtype=np.float64 if args.dtype == "float64" else np.float32, device=torch.device(args.device))
+        dtype=np.float64 if args.dtype == "float64" else np.float32, folded=args.folded,
+        device=torch.device(args.device))
     return 0
 
 

@@ -137,11 +137,16 @@ def _table_params(state: dict) -> tuple:
 
 
 def _gather(state: dict, index: torch.Tensor) -> CoefMaterial:
-    """The table's entries at ``index`` (int tensor, values in range)."""
+    """The table's entries at ``index`` (int tensor, values in range). A
+    table given as a tensor is gathered from as it is, so that a gradient
+    reaches it through the ``reference`` backend."""
     index = index.long()
-    return CoefMaterial(
-        **{f: torch.tensor(state[f], device=index.device)[index] for f in COEFFICIENTS}
-    )
+    tables = {
+        f: state[f].to(index.device) if isinstance(state[f], torch.Tensor)
+        else torch.tensor(state[f], device=index.device)
+        for f in COEFFICIENTS
+    }
+    return CoefMaterial(**{f: t[index] for f, t in tables.items()})
 
 
 # --------------------------------------------------------------------------- #

@@ -106,15 +106,17 @@ class HotspotKernel:
         # (hotspot.py:95-109 there):
         #   new = old * (1 - Cap*(2Ry+2Rx+Rz)) + Cap*(power + AMB*Rz
         #         + (b+t)*Ry + (r+l)*Rx)
-        rx, ry, rz, cap = f32(self.Rx_1), f32(self.Ry_1), f32(self.Rz_1), f32(self.Cap_1)
         # XLA on the CPU fuses four multiply-adds, old_coef's included, and so
-        # does the device functor (__fmaf_rn).
-        conductance = torch.tensor([f32(2.0) * ry + f32(2.0) * rx + rz])
-        old_coef = float(fma_f32(conductance, -float(cap), torch.ones(1))[0])
-        acc = power + float(f32(AMB_TEMP) * rz)
-        acc = fma_f32(bottom + top, float(ry), acc)
-        acc = fma_f32(right + left, float(rx), acc)
-        new_temp = fma_f32(old, old_coef, acc * float(cap))
+        # does the device functor (__fmaf_rn). The coefficients are float32
+        # tensors (0-d): a parameter given as a tensor keeps its autograd
+        # graph, one given as a number rounds to float32 as before.
+        rx, ry, rz, cap = (torch.as_tensor(v, dtype=torch.float32) for v in self.cuda_params())
+        conductance = (2.0 * ry + 2.0 * rx + rz).reshape(1)
+        old_coef = fma_f32(conductance, -cap, torch.ones_like(conductance))[0]
+        acc = power + rz * float(f32(AMB_TEMP))
+        acc = fma_f32(bottom + top, ry, acc)
+        acc = fma_f32(right + left, rx, acc)
+        new_temp = fma_f32(old, old_coef, acc * cap)
         return HotspotCell(temp=new_temp, power=power)
 
     def get_time_dependent_value(self, i):

@@ -37,6 +37,15 @@ __all__ = ["VARIANTS", "make_kernel", "init_grid", "run", "main"]
 f32 = np.float32
 
 
+def _f32(value):
+    """A coefficient rounded to float32: a Python float (exact) for a
+    number; for a tensor, a float32 tensor, which keeps its autograd graph
+    (the ``reference`` backend differentiates through it)."""
+    if isinstance(value, torch.Tensor):
+        return value.to(torch.float32)
+    return float(f32(value))
+
+
 class _Jacobi:
     """What the variants share: radius 1, no sub-steps, no TDV, one field
     updated by the functor named after the variant."""
@@ -62,10 +71,10 @@ class Jacobi1General(_Jacobi):
     coef: float = 1.0
 
     def cuda_params(self):
-        return (float(f32(self.coef)),)
+        return (_f32(self.coef),)
 
     def __call__(self, s):
-        return s[0, 0] * float(f32(self.coef))
+        return s[0, 0] * _f32(self.coef)
 
 
 @transition_function
@@ -129,7 +138,7 @@ class Jacobi4General(_Jacobi):
     c3: float = 0.25
 
     def cuda_params(self):
-        return tuple(float(f32(c)) for c in (self.c0, self.c1, self.c2, self.c3))
+        return tuple(_f32(c) for c in (self.c0, self.c1, self.c2, self.c3))
 
     def __call__(self, s):
         c0, c1, c2, c3 = self.cuda_params()
@@ -153,7 +162,7 @@ class Jacobi5General(_Jacobi):
     c4: float = 0.2
 
     def cuda_params(self):
-        return tuple(float(f32(c)) for c in (self.c0, self.c1, self.c2, self.c3, self.c4))
+        return tuple(_f32(c) for c in (self.c0, self.c1, self.c2, self.c3, self.c4))
 
     def __call__(self, s):
         c0, c1, c2, c3, c4 = self.cuda_params()
@@ -179,7 +188,7 @@ class Jacobi9General(_Jacobi):
     coef: tuple = (0.111111,) * 9
 
     def cuda_params(self):
-        return tuple(float(f32(c)) for c in self.coef)
+        return tuple(_f32(c) for c in self.coef)
 
     def __call__(self, s):
         coef = self.cuda_params()

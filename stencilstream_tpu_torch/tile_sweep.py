@@ -60,6 +60,7 @@ import json
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -139,10 +140,22 @@ def convection_sweep_case(device, op, shape=CONVECTION_SHAPE):
         f: torch.tensor(rng.standard_normal(shape).astype(dtype), device=device) for f in convection.FIELDS})
     if "thermal" in op:
         tf = convection.make_thermal_kernel(e, dtype, dt=e.dt_diff)
+    elif "folded" in op:
+        tf = convection.make_folded_pseudo_transient_kernel(e, dtype, with_err="lean" not in op)
+        cell = folded_cell(cell, convection.folded_planes(e, shape, dtype), device)
     else:
         tf = convection.make_pseudo_transient_kernel(e, dtype, with_err="lean" not in op)
     assert tf.cuda_op == op, (tf.cuda_op, op)
-    return cell, tf, convection.zero_cell()
+    return cell, tf, convection.folded_zero_cell() if "folded" in op else convection.zero_cell()
+
+
+def folded_cell(cell, planes: dict, device) -> "convection.FoldedConvectionCell":
+    """A straight convection cell with the folded cell's ``planes`` (numpy
+    arrays, :func:`.models.convection.folded_planes`) beside its fields."""
+    return convection.FoldedConvectionCell(
+        **{f: getattr(cell, f) for f in convection.FIELDS},
+        **{k: torch.tensor(v, device=device) for k, v in planes.items()},
+    )
 
 
 def convection_case(op, shape, rng, device, active=None):
@@ -151,7 +164,8 @@ def convection_case(op, shape, rng, device, active=None):
     random parameters that are not powers of two (the viscosity's
     temperature coefficient of order 0.1), the active region ``active =
     (nx, ny)`` (default: the grid less its last row and column) and a halo
-    of 0.5 in every field."""
+    of 0.5 in every field; a folded functor's cell carries the planes of
+    that region at random coefficients (the bool planes' halo: True)."""
     dtype = np.float64 if op.endswith("f64") else np.float32
     nx, ny = active or (shape[0] - 1, shape[1] - 1)
     fields = {f: torch.tensor(rng.standard_normal(shape).astype(dtype), device=device) for f in convection.FIELDS}
@@ -159,6 +173,18 @@ def convection_case(op, shape, rng, device, active=None):
     if "thermal" in op:
         tf = convection.ThermalSolverKernel(nx=nx, ny=ny, dx=u(.05, .2), dy=u(.05, .2), dt=u(1e-3, 1e-2),
                                             DcT=u(.3, 1.5))
+    elif "folded" in op:
+        tf = convection.FoldedPseudoTransientKernel(
+            eta0=u(.5, 2), deltaT=u(.5, 2), delta_eta_delta_T=u(.05, .2), roh0_g_alpha=u(30, 300),
+            dx=u(.05, .2), dy=u(.05, .2), rho=u(.5, 2), with_err="lean" not in op,
+        )
+        region = types.SimpleNamespace(nx=nx, ny=ny, delta_tau_iter=u(.01, .1), beta=u(.5, 2), dampX=u(.8, 1),
+                                       dampY=u(.8, 1))
+        halo = convection.FoldedConvectionCell(**{f: 0.5 for f in convection.FIELDS + convection.PLANES})
+        cell = folded_cell(convection.ThermalConvectionCell(**fields), convection.folded_planes(region, shape, dtype),
+                           device)
+        assert tf.cuda_op == op, (tf.cuda_op, op)
+        return cell, tf, halo
     else:
         tf = convection.PseudoTransientKernel(
             nx=nx, ny=ny, roh0_g_alpha=u(30, 300), delta_eta_delta_T=u(.05, .2), eta0=u(.5, 2),

@@ -9,7 +9,9 @@ drives too) through the entry point a user calls (HotSpot 1024² and
 512², render 1024² through the line cache, lut 1024²; ``convection.run``
 of the JAX bench's experiment: 3072×1024 in float32 and float64 through
 ``auto``, 384×128 in float64 through ``auto``, 3072×1024 in float32 through
-the line cache; and on narrow storage (``backends/storage_cast.py``), as
+the line cache, and the folded variant (``folded=True``) at 3072×1024 in
+float32 and float64 through ``auto`` and in float32 through the line cache;
+and on narrow storage (``backends/storage_cast.py``), as
 the JAX bench's ``bf16_storage`` rows store them: Jacobi5 8192² in
 bfloat16 through ``auto`` and through the line cache, HotSpot 8192² and
 FDTD coef 1024² in bfloat16 through ``auto``, Jacobi5 1024² in bfloat16
@@ -105,6 +107,10 @@ def main_paths(device) -> dict:
         "convection f64 384x128 auto": convection_run(128, np.float64, device, **auto),
         "convection f32 3072x1024 tiling linecache": convection_run(
             1024, np.float32, device, backend="tiling", window_mode="linecache"),
+        "convection folded f32 3072x1024 auto": convection_run(1024, np.float32, device, folded=True, **auto),
+        "convection folded f64 3072x1024 auto": convection_run(1024, np.float64, device, folded=True, **auto),
+        "convection folded f32 3072x1024 tiling linecache": convection_run(
+            1024, np.float32, device, backend="tiling", window_mode="linecache", folded=True),
         "jacobi5 bf16 8192^2 auto": (*narrow_jacobi5(8192, bf16), 200, auto),
         "jacobi5 bf16 8192^2 tiling linecache": (
             *narrow_jacobi5(8192, bf16), 200, {"backend": "tiling", "window_mode": "linecache"}),

@@ -16,6 +16,7 @@ JAX calls bit for bit; whole runs, whose JAX calls span nerr iterations
 that XLA fuses across, agree within a stated tolerance.
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -379,9 +380,133 @@ def test_mutated_dt_takes_effect_on_the_next_call():
     assert not np.array_equal(first, second)
 
 
-def test_folded_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pc.run(tiny_experiment(), folded=True, device="cpu")
+# -- the folded variant ------------------------------------------------------------
+# Its parity inputs are 48x16 (res 16): on a 24x8 grid XLA's CPU code for
+# JAX's float64 folded kernel leaves the multiply-adds of a few cells in
+# rows 7 and 15 unfused (a loop remainder, compiled apart from the
+# vectorized body), so JAX disagrees with itself from cell to cell there;
+# at res 16 and 32 every cell takes the forms the twin fuses.
+
+PLANES = pc.PLANES
+
+
+def _folded_experiment():
+    """res 16 (a 48x16 grid), eta0, DcT, deltaT and dmp not powers of two."""
+    return dataclasses.replace(tiny_experiment(), eta0=1.37, DcT=0.71, deltaT=1.19, dmp=1.3)
+
+
+def _random_folded_pt(e, dtype, seed, with_err=True):
+    """JAX's folded pseudo-transient kernel with random parameters, the
+    viscosity's temperature coefficient of order 0.1."""
+    rng = np.random.default_rng(seed)
+    k = jc.make_folded_pseudo_transient_kernel(e, dtype, with_err=with_err)
+    values = dict(roh0_g_alpha=rng.uniform(30, 300), delta_eta_delta_T=rng.uniform(0.05, 0.2),
+                  dx=rng.uniform(0.05, 0.2), dy=rng.uniform(0.05, 0.2), rho=rng.uniform(0.5, 2))
+    return dataclasses.replace(k, **{n: dtype(v) for n, v in values.items()})
+
+
+def _folded_backend(backend, dtype) -> tuple:
+    """:data:`BACKENDS`' entry, but for the float64 folded cell (264 B of
+    shared memory) the tile pass takes its own p, 1: no window of p=2 fits
+    one block."""
+    name, kw = BACKENDS[backend]
+    if dtype == np.float64:
+        kw = {k: v for k, v in kw.items() if k != "iters_per_pass"}
+    return name, kw
+
+
+def _jax_folded_steps(jtf, arrays: dict, n) -> dict:
+    """``n`` one-iteration calls of JAX's ``reference`` backend on a folded
+    grid."""
+    dtype = arrays["T"].dtype
+    with jax.enable_x64(dtype == np.float64):
+        grid = JGrid.from_numpy(jc.FoldedConvectionCell(**{k: jnp.asarray(v) for k, v in arrays.items()}))
+        update = j_create_update(
+            JParams(transition_function=jtf, halo_value=jc.folded_zero_cell(jnp.dtype(dtype)), n_iterations=1),
+            backend="reference",
+        )
+        for _ in range(n):
+            grid = update(grid)
+        out = grid.to_numpy()
+    return {f: np.asarray(getattr(out, f)) for f in FIELDS + PLANES}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+def test_folded_planes_and_grid_equal_jax(dtype):
+    e = _folded_experiment()
+    shape = (e.nx + 1, e.ny + 1)
+    got, want = pc.folded_planes(e, shape, dtype), jc.folded_planes(e, shape, dtype)
+    assert list(got) == list(want) == list(PLANES)
+    for k in PLANES:
+        assert got[k].dtype == want[k].dtype and (k in pc.BOOL_PLANES) == (got[k].dtype == bool), k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    with jax.enable_x64(dtype == np.float64):
+        jgrid = jc.init_folded_grid(e, dtype).to_numpy()
+    grid = pc.init_folded_grid(e, dtype, device="cpu").to_numpy()
+    for f in FIELDS + PLANES:
+        assert getattr(grid, f).dtype == np.asarray(getattr(jgrid, f)).dtype, f
+        np.testing.assert_array_equal(getattr(grid, f), np.asarray(getattr(jgrid, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("backend", list(BACKENDS))
+@pytest.mark.parametrize("with_err", [True, False], ids=["full", "lean"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+def test_folded_steps_equal_jax_bit_for_bit(dtype, with_err, backend):
+    """Three folded iterations in one call of the port (``reference`` or a
+    kernel's plain version) equal three one-iteration calls of JAX's folded
+    twin bit for bit, on random fields and parameters, every field and
+    plane; the port's halo is 0.5 (True in the bool planes)."""
+    e = _folded_experiment()
+    shape = (e.nx + 1, e.ny + 1)
+    arrays = {**_random_fields(shape, dtype, 21), **jc.folded_planes(e, shape, dtype)}
+    jtf = _random_folded_pt(e, dtype, 22, with_err)
+    want = _jax_folded_steps(jtf, arrays, 3)
+    tf = interop.convection_folded_pt_kernel(dataclasses.asdict(jtf))
+    assert tf.with_err is with_err and tf.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+    name, kw = _folded_backend(backend, dtype)
+    halo = pc.FoldedConvectionCell(**{f: 0.5 for f in FIELDS + PLANES})
+    update = create_update(Params(transition_function=tf, halo_value=halo, n_iterations=3), backend=name, **kw)
+    out = update(interop.convection_folded_grid(arrays, device="cpu")).to_numpy()
+    for f in FIELDS + PLANES:
+        assert getattr(out, f).dtype == want[f].dtype, f
+        np.testing.assert_array_equal(getattr(out, f), want[f], err_msg=f)
+
+
+@pytest.mark.parametrize("backend", list(BACKENDS))
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+def test_folded_equals_straight_bit_for_bit(dtype, backend):
+    """Seven iterations of the folded kernel (full, and six lean then one
+    full) on the tiny experiment's initial grid equal seven of the straight
+    kernel bit for bit, on every physics field (after
+    ``tests/test_convection.py``'s TestFoldedKernel)."""
+    e = tiny_experiment()
+    name, kw = _folded_backend(backend, dtype)
+
+    def update(tf, n, halo):
+        return create_update(Params(transition_function=tf, halo_value=halo, n_iterations=n), backend=name, **kw)
+
+    straight = update(pc.make_pseudo_transient_kernel(e, dtype), 7, pc.zero_cell())(
+        pc.init_grid(e, dtype, device="cpu")).to_numpy()
+    grid = pc.init_folded_grid(e, dtype, device="cpu")
+    halo = pc.folded_zero_cell()
+    full = update(pc.make_folded_pseudo_transient_kernel(e, dtype), 7, halo)(grid).to_numpy()
+    lean = update(pc.make_folded_pseudo_transient_kernel(e, dtype, with_err=False), 6, halo)(grid)
+    split = update(pc.make_folded_pseudo_transient_kernel(e, dtype), 1, halo)(lean).to_numpy()
+    assert np.abs(straight.Vy).max() > 0
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(full, f), getattr(straight, f), err_msg=f)
+        np.testing.assert_array_equal(getattr(split, f), getattr(straight, f), err_msg=f)
+
+
+def test_folded_kernels_name_their_functors():
+    e = tiny_experiment()
+    for dtype, width in ((np.float32, "f32"), (np.float64, "f64")):
+        full = pc.make_folded_pseudo_transient_kernel(e, dtype)
+        lean = pc.make_folded_pseudo_transient_kernel(e, dtype, with_err=False)
+        assert (full.cuda_op, lean.cuda_op) == (f"convection_folded_pt_{width}", f"convection_folded_pt_lean_{width}")
+        assert full.cuda_variant == FIELDS[1:] and lean.cuda_variant == FIELDS[1:-2]
+        assert full.cuda_invariant_reads == ("T", *PLANES) and "m_v" not in lean.cuda_invariant_reads
+        assert len(full.cuda_params()) == 8
 
 
 # -- whole runs -----------------------------------------------------------------
@@ -429,6 +554,54 @@ def test_run_equals_jax_run(dtype):
         assert np.abs(getattr(out, f) - want).max() <= field_tol * np.abs(want).max(), f
 
 
+_JAX_FOLDED_RUNS = {}
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=lambda d: d.__name__)
+def test_folded_run_equals_jax_folded_run(dtype):
+    """``run(folded=True)`` through ``auto`` against JAX's ``run(folded=True,
+    backend="monotile")`` (its resident-grid kernel in interpret mode; JAX
+    runs float64 on ``reference``, straight): the same iterations per
+    timestep, and errV, errP, dt and the physics fields within
+    :data:`RUN_TOLERANCE`; the planes come back as they went in."""
+    field_tol, stat_tol = RUN_TOLERANCE[dtype]
+    if dtype not in _JAX_FOLDED_RUNS:
+        with pytest.warns(UserWarning) if dtype == np.float64 else contextlib.nullcontext():
+            grid, info = jc.run(tiny_experiment(), backend="monotile", dtype=dtype, verbose=False, folded=True)
+        _JAX_FOLDED_RUNS[dtype] = (grid.to_numpy(), info["stats"])
+    want_grid, want_stats = _JAX_FOLDED_RUNS[dtype]
+    grid, info = pc.run(tiny_experiment(), backend="auto", dtype=dtype, verbose=False, folded=True, device="cpu")
+    assert isinstance(info["pt_update"].transition_function, pc.FoldedPseudoTransientKernel)
+    assert info["lean_update"] is not None and info["pt_update"].resolved_backend == "monotile"
+    assert [s["iters"] for s in info["stats"]] == [s["iters"] for s in want_stats]
+    for got, want in zip(info["stats"], want_stats):
+        for key in ("errV", "errP", "dt"):
+            assert abs(got[key] - want[key]) <= stat_tol * abs(want[key]), (key, got, want)
+    out = grid.to_numpy()
+    for f in FIELDS:
+        want = np.asarray(getattr(want_grid, f))
+        assert getattr(out, f).dtype == dtype
+        assert np.abs(getattr(out, f) - want).max() <= field_tol * np.abs(want).max(), f
+    planes = pc.folded_planes(tiny_experiment(), grid.shape, dtype)
+    for f in PLANES:
+        np.testing.assert_array_equal(getattr(out, f), planes[f], err_msg=f)
+
+
+def test_folded_run_through_every_backend_is_the_straight_run():
+    """``run(folded=True)`` on every backend (the three kernels' plain
+    versions and ``reference``) gives the straight ``reference`` run bit for
+    bit: statistics and physics fields."""
+    e = tiny_experiment(nt=2, iterMax=100)
+    want, want_info = pc.run(e, backend="reference", dtype=np.float64, verbose=False, device="cpu")
+    for backend, kw in (("reference", {}), ("tiling", {}), ("tiling", {"window_mode": "linecache", "strip_rows": 8}),
+                        ("monotile", {})):
+        got, info = pc.run(e, backend=backend, dtype=np.float64, verbose=False, folded=True, device="cpu", **kw)
+        assert isinstance(got.arrays, pc.FoldedConvectionCell)
+        assert info["stats"] == want_info["stats"], backend
+        for f in FIELDS:
+            np.testing.assert_array_equal(getattr(got.to_numpy(), f), getattr(want.to_numpy(), f), err_msg=f)
+
+
 def test_run_through_every_backend_is_one_run():
     """The lean/full split and the three kernels' plain versions give the
     ``reference`` backend's run bit for bit."""
@@ -451,7 +624,8 @@ def test_cli_end_to_end(tmp_path):
     """``python -m stencilstream_tpu_torch.models.convection exp.json out
     --device cpu --dtype float64``: the JAX CLI's report lines and its exit
     codes, and one CSV frame of the (nx, ny) T region per timestep, equal as
-    text to the library run's and within 1e-9 of JAX's."""
+    text to the library run's and within 1e-9 of JAX's; with ``--folded``
+    the same frames, byte for byte."""
     cfg = dataclasses.asdict(tiny_experiment(nt=2, iterMax=100))
     (tmp_path / "exp.json").write_text(json.dumps(cfg))
     dirs = {k: tmp_path / k for k in ("cli", "lib", "jax")}
@@ -470,6 +644,14 @@ def test_cli_end_to_end(tmp_path):
         data = np.loadtxt(dirs["cli"] / f"{it}.csv", delimiter=",")
         assert data.shape == (cfg["res"] * 3 - 1, cfg["res"] - 1)
         np.testing.assert_allclose(data, np.loadtxt(dirs["jax"] / f"{it}.csv", delimiter=","), rtol=1e-9, atol=1e-12)
+    folded = tmp_path / "folded"
+    folded.mkdir()
+    proc = subprocess.run([*cmd, str(tmp_path / "exp.json"), str(folded), "--device", "cpu", "--dtype", "float64",
+                           "--folded"], capture_output=True, text=True, cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "it = 2 (iter = 100" in proc.stdout
+    for it in (1, 2):
+        assert (folded / f"{it}.csv").read_text() == (dirs["cli"] / f"{it}.csv").read_text()
     for args, message in (([str(tmp_path / "none.json"), str(dirs["cli"])], "experiment file does not exist"),
                           ([str(tmp_path / "exp.json"), str(tmp_path / "none")], "output directory does not exist")):
         proc = subprocess.run([*cmd, *args, "--device", "cpu"], capture_output=True, text=True, cwd=REPO, timeout=300)

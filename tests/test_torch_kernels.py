@@ -74,9 +74,10 @@ NARROW_OPS = ["hotspot__bf16", "jacobi5_general__bf16", "fdtd_coef__bf16", "jaco
 ALL_OPS = OPS + TDV_OPS + NARROW_OPS
 #: The probes, whose cells must all stay Normal.
 PROBES = ("probe", "probe_tdv", "probe_radius2")
-#: The convection functors: pseudo-transient (full and lean) and thermal, in
-#: float32 and float64.
-CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "thermal") for width in ("f32", "f64")]
+#: The convection functors: pseudo-transient (full and lean, straight and
+#: folded) and thermal, in float32 and float64.
+CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean", "thermal", "folded_pt", "folded_pt_lean")
+                  for width in ("f32", "f64")]
 
 
 def _case(op, shape, seed, device, iteration=0):
@@ -763,13 +764,17 @@ def test_convection_functors_on_every_kernel(cuda, op, shape, active):
     from iteration 1 of a call of 5 from 1 (the second pass partial); the
     line cache at strips of 8 (one-row runs) or 16 (the thermal functor's
     8-row runs), panels of 32, segments of 16; the resident grid at q=1 and
-    2 on 8-row bands, and the plan's geometry."""
+    2 on 8-row bands, and the plan's geometry. The float64 folded cells
+    (264 and 248 B of shared memory) take the tile pass at 8x32 cores and
+    p=1, and 4-row bands where 8 rows do not fit one block."""
     cell, tf, halo = convection_case(op, shape, np.random.default_rng(31), cuda, active)
-    for i_start in (1, 3):
-        kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=2)
+    limits = cuda_lib.device_limits(cuda)
+    tile, p = _fitted((16, 32), 2, cell, tf, limits)
+    for i_start in (1, 1 + p):
+        kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=p)
         want = tp.tile_pass_plain(cell, tf, halo, **kw)
         before = (tp.launches, lc.launches)
-        got = tp.tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+        got = tp.tile_pass(cell, tf, halo, tile=tile, **kw)
         assert _max_err(got, want) == 0, ("tile_pass", i_start)
         strip = 16 if "thermal" in op else 8
         got = lc.line_cache_pass(cell, tf, halo, strip_rows=strip, panel_cols=32, segment_rows=16, **kw)
@@ -777,8 +782,10 @@ def test_convection_functors_on_every_kernel(cuda, op, shape, active):
         assert _max_err(got, want) == 0, ("line_cache", i_start)
         assert (tp.launches, lc.launches) == (before[0] + 1, before[1] + 1)
     want = mt.monotile_plain(cell, tf, halo, offset=1, n_iterations=3)
-    for plan in (_band_plan(shape, 1, cuda_lib.device_limits(cuda), band=8),
-                 _band_plan(shape, 2, cuda_lib.device_limits(cuda), band=8), None):
+    cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+    bands = [8 if mt.monotile_smem_bytes(8, q, shape[1], 1, cell_bytes) <= limits.smem_per_block else 4
+             for q in (1, 2)]
+    for plan in (_band_plan(shape, 1, limits, band=bands[0]), _band_plan(shape, 2, limits, band=bands[1]), None):
         got = mt.monotile(cell, tf, halo, offset=1, n_iterations=3, plan=plan)
         torch.cuda.synchronize()
         assert _max_err(got, want) == 0, ("monotile", plan)
@@ -788,21 +795,23 @@ def test_convection_functors_on_every_kernel(cuda, op, shape, active):
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", CONVECTION_OPS)
 def test_convection_partial_passes_through_tiling(cuda, op):
-    """n = nerr - 1 = 49 at p=2 (24 full passes and a partial one) through
+    """n = nerr - 1 = 49 at p=2 (24 full passes and a partial one; p=1 for
+    the float64 folded cells, whose p=2 window fits no tile) through
     ``tiling`` in both window modes, against the reference backend on the
     card: exact. 384x128 (res 128), an iteration offset of 7."""
     cell, tf, halo = convection_case(op, (384, 128), np.random.default_rng(32), cuda)
     grid = Grid(cell)
+    p = _fitted((8, 32), 2, cell, tf, cuda_lib.device_limits(cuda))[1]
 
     def update(backend, **kw):
         return create_update(Params(tf, halo_value=halo, iteration_offset=7, n_iterations=49), backend=backend, **kw)
 
     want = update("reference")(grid)
-    for kw in ({"iters_per_pass": 2}, {"iters_per_pass": 2, "window_mode": "linecache"}):
+    for kw in ({"iters_per_pass": p}, {"iters_per_pass": p, "window_mode": "linecache"}):
         before = (tp.launches, lc.launches)
         got = update("tiling", **kw)(grid)
         launched = (tp.launches - before[0], lc.launches - before[1])
-        assert launched == ((0, 25) if "window_mode" in kw else (25, 0))
+        assert launched == ((0, -(-49 // p)) if "window_mode" in kw else (-(-49 // p), 0))
         assert _max_err(got.arrays, want.arrays) == 0, kw
 
 
@@ -823,17 +832,23 @@ CONVECTION_PATHS = [
     (1024, np.float64, "auto", {}, "tile_pass"),
     (128, np.float64, "auto", {}, "monotile"),
     (1024, np.float32, "tiling", {"window_mode": "linecache"}, "line_cache"),
+    (1024, np.float32, "auto", {"folded": True}, "tile_pass"),
+    (1024, np.float64, "auto", {"folded": True}, "tile_pass"),
+    (128, np.float64, "monotile", {"folded": True}, "monotile"),
+    (1024, np.float32, "tiling", {"window_mode": "linecache", "folded": True}, "line_cache"),
 ]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("res,dtype,backend,kw,expect", CONVECTION_PATHS,
-                         ids=[f"{r}-{d.__name__}-{b}-{e}" for r, d, b, _, e in CONVECTION_PATHS])
+                         ids=[f"{r}-{d.__name__}-{b}-{e}" + ("-folded" if kw.get("folded") else "")
+                              for r, d, b, kw, e in CONVECTION_PATHS])
 def test_convection_paths_launch_their_kernel(cuda, res, dtype, backend, kw, expect):
     """``convection.run`` of the JAX bench's experiment, cut to one block of
     nerr iterations and one thermal step, through the backend a user calls:
     only the expected kernel launches, and the grid and the statistics equal
-    the reference backend's run on the card."""
+    the reference backend's straight run on the card (a folded run's 11
+    physics fields; its planes are the initial ones, untouched)."""
     e = dataclasses.replace(convection_experiment(res), iterMax=50, nt=1)
     counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
     before = {k: m.launches for k, m in counters.items()}
@@ -842,7 +857,10 @@ def test_convection_paths_launch_their_kernel(cuda, res, dtype, backend, kw, exp
     assert launched == {expect}
     want, want_info = convection.run(e, backend="reference", dtype=dtype, verbose=False, device=cuda)
     assert info["stats"] == want_info["stats"]
-    assert _max_err(got.arrays, want.arrays) == 0
+    assert _max_err(convection.physics_cell(got.arrays), want.arrays) == 0
+    if kw.get("folded"):
+        planes = convection.init_folded_grid(e, dtype, device=cuda).arrays
+        assert all(torch.equal(getattr(got.arrays, f), getattr(planes, f)) for f in convection.PLANES)
 
 
 # -- narrow storage: bfloat16 and float8 e4m3 cells, float32 compute --------

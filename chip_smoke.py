@@ -143,7 +143,15 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    I/O library (built in phase 2 with ``g++``): HotSpot 8192^2's indexed
    text timed, and at 1024^2 the same bytes as the Python path; a
    checkpoint of HotSpot 8192^2 saved and loaded back onto the card, bit
-   for bit.
+   for bit;
+8. the bench (:func:`bench_phase`): ``python -m stencilstream_tpu_torch.bench``
+   through its ``main`` on :data:`BENCH_CASES` (``max_perf`` of HotSpot
+   8192^2 on ``tiling``, 1024^2 on ``monotile``, Jacobi5 8192^2 through the
+   line cache, FDTD 1024^2, convection at ``--size 3072``; one
+   ``grid_scaling`` of HotSpot; ``strong_scaling`` of HotSpot 2048^2), each
+   launching only its kernel, exactly the passes of its warm-up and
+   samples, every metrics file naming the card and no model share above
+   1.05; their GCell/s on a ``bench:`` line before the ``kernels`` line.
 
 The line before the last is a JSON object describing each kernel at one
 workload that stays the same from run to run (tile pass: HotSpot 8192^2;
@@ -269,6 +277,18 @@ MULTI_PATHS = {
     "hotspot 2048^2 distributed 2x1": ATOL,
     "hotspot 2048^2 distributed 2x2": ATOL,
 }
+#: The bench phase (``python -m stencilstream_tpu_torch.bench``, through
+#: ``bench.__main__.main``): the CLI's arguments, and the kernel each case
+#: must launch, and no other.
+BENCH_CASES = [
+    (["max_perf", "hotspot", "--backend", "tiling", "--size", "8192"], "tile_pass"),
+    (["max_perf", "hotspot", "--backend", "monotile", "--size", "1024"], "monotile"),
+    (["max_perf", "jacobi", "--backend", "tiling", "--window-mode", "linecache", "--size", "8192"], "line_cache"),
+    (["max_perf", "fdtd", "--size", "1024"], "tile_pass"),
+    (["max_perf", "convection", "--size", "3072"], "tile_pass"),
+    (["grid_scaling", "hotspot", "--samples", "1"], "tile_pass"),
+    (["strong_scaling", "hotspot", "--size", "2048"], "tile_pass"),
+]
 #: The tile pass's extended mode: functor -> p (``tests/test_torch_kernels.py``
 #: holds the same cases): HotSpot (an invariant field), the probe at radius
 #: 2 with its TDV, FDTD coef with its TDV, convection's lean cell and
@@ -427,10 +447,12 @@ def cuda_ms(fn, reps: int) -> float:
 def bound(n_bytes: float, n_flops: float, wide: bool = False) -> tuple[float, str]:
     """The least time, in ms, the card could take: the larger of the bytes
     over HBM's rate and the operations over the card's float32 peak (its
-    float64 peak if ``wide``), by the port's one table of H100 rates."""
-    from stencilstream_tpu_torch.experiments.common import FP32_FLOP_PER_S, FP64_FLOP_PER_S, bound_ms
+    float64 peak if ``wide``), by the port's one table of H100 rates
+    (``bench/model.py:H100_SXM``)."""
+    from stencilstream_tpu_torch.bench.model import H100_SXM
+    from stencilstream_tpu_torch.experiments.common import bound_ms
 
-    return bound_ms(n_bytes, n_flops, FP64_FLOP_PER_S if wide else FP32_FLOP_PER_S)
+    return bound_ms(n_bytes, n_flops, H100_SXM.flops_f64 if wide else H100_SXM.flops_f32)
 
 
 def library_jacobi(y, steps):
@@ -1537,6 +1559,56 @@ def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) ->
     return fdtd_kernels
 
 
+def bench_phase(card) -> dict:
+    """Phase 8: each of :data:`BENCH_CASES` through the bench's CLI into a
+    temporary directory, with the kernels' launch counters set to 0 just
+    before it. The case's kernel must have launched exactly the passes of
+    its warm-up and timed samples, as each metrics file's kernel stats
+    count them (so no plain path was timed), and no other kernel; every
+    file names the card, and no share in its model (of the bound, of the
+    float peak, of the HBM rate) reads above ``SHARE_LIMIT``. Returns each
+    run's GCell/s, walltime, share of the bound and launches."""
+    import glob
+
+    from stencilstream_tpu_torch.backends import line_cache as lc
+    from stencilstream_tpu_torch.backends import monotile as mt
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.bench.__main__ import main as bench
+    from stencilstream_tpu_torch.bench.model import SHARE_LIMIT
+
+    counters = {"tile_pass": tp, "monotile": mt, "line_cache": lc}
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, (args, kernel) in enumerate(BENCH_CASES):
+            out = os.path.join(tmp, str(k))
+            os.makedirs(out)
+            for module in counters.values():
+                module.launches = 0
+            t0 = time.perf_counter()
+            assert bench([*args, "--out-dir", out]) == 0, args
+            counts = {name: m.launches for name, m in counters.items()}
+            expect = 0
+            for path in sorted(glob.glob(os.path.join(out, "metrics.*.json"))):
+                with open(path) as f:
+                    d = json.load(f)
+                stats, m = d["kernel"], d["model"]
+                assert d["card"] in card and d["card"] in m["hardware"], (d["card"], m["hardware"], card)
+                assert stats["kernel"] == kernel, (args, stats["kernel"])
+                expect += (1 + len(d["samples_s"])) * stats["launches"]
+                shares = {"model_accuracy": m["model_accuracy"], "flop_utilization": m["flop_utilization"],
+                          "hbm_bw_fraction": stats["hbm_bw_fraction"]}
+                assert max(shares.values()) <= SHARE_LIMIT, (d["variant"], shares)
+                rows[f"{args[0]} {d['variant']}"] = dict(
+                    gcell_per_s=d["cells_per_s"] / 1e9, walltime_s=d["walltime_s"], n=d["n_iterations"],
+                    share_of_bound=m["model_accuracy"], config=stats["config"], launches_per_call=stats["launches"],
+                )
+            assert expect and counts == {name: expect if name == kernel else 0 for name in counters}, (
+                args, counts, expect)
+            log(f"  bench {' '.join(args)}: {kernel} launched {expect} times (warm-up and samples), "
+                f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return rows
+
+
 def experiments_phase(device, card, launches) -> list:
     """Phase 6, the ``experiments/`` microbenchmarks' two kernels: every
     variant of the strip kernel (``csrc/micro_strip.cu``) at each p it is
@@ -1995,6 +2067,12 @@ def main() -> int:
     log("host modules:")
     log("host modules: " + json.dumps(host_module_checks(device, card)))
     log(f"phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
+    # Phase 8: the bench CLI on the kernels.
+    log("bench:")
+    bench_rows = bench_phase(card)
+    log(f"phase 8 done at {time.perf_counter() - t_start:.1f} s")
+    log("bench: " + json.dumps(bench_rows))
 
     order = ("tile_pass", "monotile", "line_cache", "tile_pass_bf16", "monotile_bf16", "line_cache_bf16",
              "tile_pass_extended")

@@ -9,16 +9,18 @@ from typing import Callable
 
 import torch
 
+from ..bench.model import H100_SXM
+
 __all__ = ["HBM_BYTES_PER_S", "FP32_FLOP_PER_S", "FP64_FLOP_PER_S", "bound_ms", "card_line", "chain_seconds", "marginal",
            "ping_pong", "rate_line", "resolve_device"]
 
-#: NVIDIA H100 SXM at 700 W (NVIDIA's data sheet): HBM3 bytes a second, and
-#: float32 and float64 operations a second outside the tensor cores (a fused
-#: multiply-add counts as two). The port's one table of the card's peaks:
-#: ``chip_smoke.py`` takes its bounds from here too.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
-FP64_FLOP_PER_S = 34e12
+#: NVIDIA H100 SXM at 700 W: HBM3 bytes a second, and float32 and float64
+#: operations a second outside the tensor cores (a fused multiply-add counts
+#: as two), read from the port's one table of the card's peaks,
+#: ``bench/model.py:H100_SXM``.
+HBM_BYTES_PER_S = H100_SXM.hbm_bandwidth
+FP32_FLOP_PER_S = H100_SXM.flops_f32
+FP64_FLOP_PER_S = H100_SXM.flops_f64
 
 
 def resolve_device(name: str) -> torch.device:
@@ -28,10 +30,10 @@ def resolve_device(name: str) -> torch.device:
     CPU."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available: the microbenchmarks run their kernels on the card "
+        raise RuntimeError("no CUDA device is available: the kernels run on the card "
                            "(--device cpu runs the plain versions, for the tests)")
     if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"the microbenchmarks run on a CUDA card or the CPU, not {device}")
+        raise ValueError(f"the entry points run on a CUDA card or the CPU, not {device}")
     return device
 
 

@@ -46,6 +46,7 @@ import torch
 
 from . import Grid
 from .backends.storage_cast import CastStorageKernel, cast_storage
+from .bench.profile import profiled
 from .models import convection, conway, fdtd, hotspot, jacobi
 
 __all__ = [
@@ -271,30 +272,6 @@ class CardSampler:
             self.summary[key] = [values[0], values[len(values) // 2], values[-1]] if values else []
         self.summary["samples"] = len(rows)
         return False
-
-
-def _device_us(event) -> float:
-    for name in ("self_device_time_total", "self_cuda_time_total"):
-        if hasattr(event, name):
-            return float(getattr(event, name))
-    return 0.0
-
-
-def profiled(fn) -> tuple:
-    """``fn()`` under ``torch.profiler``: its result, and the device time
-    and count of each of the package's kernels (``ss::..._kernel``) and of
-    every other operation on the card (copies, fills, PyTorch's own
-    kernels), in ms."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        result = fn()
-    kernels, other = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA or _device_us(e) <= 0:
-            continue
-        ours = "ss::" in e.key and "_kernel" in e.key
-        (kernels if ours else other)[e.key] = {"ms": _device_us(e) / 1e3, "count": e.count}
-    return result, kernels, other
 
 
 def trace(name, grid, run, n, options) -> tuple[dict, object]:

@@ -24,6 +24,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..core.grid import Grid
 from . import distributed, monotile, tiling
 from .base import StencilUpdateBase
@@ -75,10 +76,14 @@ class StencilUpdate(StencilUpdateBase):
     def __call__(self, grid):
         if not isinstance(grid, Grid):
             grid = Grid(grid)
-        name = choose_backend(grid, self.params.transition_function)
-        self.resolved_backend = name
-        delegate = self._delegate_for(name)
-        out = delegate(grid)
+        with tracing.call(self, grid) if tracing.on else tracing.OFF:
+            with tracing.span("backends.choose") if tracing.on else tracing.OFF as choice:
+                name = choose_backend(grid, self.params.transition_function)
+                delegate = self._delegate_for(name)
+                if choice is not None:
+                    choice.attrs["backend"] = name
+            self.resolved_backend = name
+            out = delegate(grid)
         self.resolved_config = getattr(delegate, "resolved_config", None)
         self._walltime = sum(d.get_walltime() for d in self._delegates.values())
         self._n_processed_cells = sum(d.get_n_processed_cells() for d in self._delegates.values())

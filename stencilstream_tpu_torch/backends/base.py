@@ -21,6 +21,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..core.cell import cell_dtypes, cell_field_names, cell_leaves, cell_map, cell_zeros, storage_scalar
 from ..core.grid import Grid, synchronize
 from ..core.params import Params
@@ -116,14 +117,17 @@ class StencilUpdateBase:
         if not isinstance(grid, Grid):
             grid = Grid(grid)
         p = self.params
-        if not self.differentiable:
-            check_no_grad(grid, p.transition_function, type(self).__module__.rpartition(".")[2])
-        start = time.perf_counter()
-        out = self._update(grid)
-        if p.blocking:
-            for device in self._devices(out):
-                synchronize(device)
-        self._walltime += time.perf_counter() - start
+        with tracing.call(self, grid) if tracing.on else tracing.OFF:
+            if not self.differentiable:
+                with tracing.span("entry.check_no_grad") if tracing.on else tracing.OFF:
+                    check_no_grad(grid, p.transition_function, type(self).__module__.rpartition(".")[2])
+            start = time.perf_counter()
+            out = self._update(grid)
+            if p.blocking:
+                with tracing.span("entry.sync") if tracing.on else tracing.OFF:
+                    for device in self._devices(out):
+                        synchronize(device)
+            self._walltime += time.perf_counter() - start
         self._n_processed_cells += int(p.n_iterations) * grid.height * grid.width
         return out
 
@@ -151,9 +155,9 @@ class StencilUpdateBase:
         """The current call's TDV stream on the grid's device (see
         :mod:`..tdv`): element ``i_rel`` is step ``i_rel``'s value."""
         p = self.params
-        return self._tdv_strategy().prepare(
-            p.transition_function, int(p.iteration_offset), int(p.n_iterations), grid.device
-        )
+        strategy = self._tdv_strategy()
+        with tracing.span("backends.tdv", strategy=type(strategy).__name__) if tracing.on else tracing.OFF:
+            return strategy.prepare(p.transition_function, int(p.iteration_offset), int(p.n_iterations), grid.device)
 
     def require_device_op(self) -> str:
         """Check that the transition function can run on the CUDA kernels

@@ -30,6 +30,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves
 from ..tdv import tdv_stream
 from .cuda_lib import (
@@ -316,29 +317,33 @@ def line_cache_pass(
     into a returned cell's fields without cloning them first.
     """
     global launches
-    check_geometry(strip_rows, panel_cols, tf.stencil_radius, run_rows(arrays, tf))
-    device = cell_leaves(arrays)[0].device
-    if device.type == "cpu":
-        return line_cache_pass_plain(
-            arrays, tf, halo_cell, i_start=i_start, offset=offset,
-            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv,
-        )
-    fields = kernel_fields(arrays, tf, halo_cell, offset)
-    if tdv is None:
-        tdv = tdv_stream(tf, offset, n_iterations, device)
-    H, W = fields.variant[0].shape
-    dst = variant_outputs(arrays, fields, out)
-    fn = entry("ss_line_cache_", fields.op)
-    with torch.cuda.device(device):
-        code = fn(
-            pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-            H, W, strip_rows, panel_cols, segment_rows, iters_per_pass, i_start, offset,
-            n_iterations, fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
-    check(code, "line-cache kernel")
-    launches += 1
-    return with_variant(arrays, fields, dst)
+    with (tracing.span("kernels.launch", kernel="line_cache", pass_index=(i_start - offset) // iters_per_pass)
+          if tracing.on else tracing.OFF):
+        check_geometry(strip_rows, panel_cols, tf.stencil_radius, run_rows(arrays, tf))
+        device = cell_leaves(arrays)[0].device
+        if device.type == "cpu":
+            return line_cache_pass_plain(
+                arrays, tf, halo_cell, i_start=i_start, offset=offset,
+                n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv,
+            )
+        fields = kernel_fields(arrays, tf, halo_cell, offset)
+        if tdv is None:
+            tdv = tdv_stream(tf, offset, n_iterations, device)
+        H, W = fields.variant[0].shape
+        dst = variant_outputs(arrays, fields, out)
+        fn = entry("ss_line_cache_", fields.op)
+        with torch.cuda.device(device):
+            args = (
+                pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
+                H, W, strip_rows, panel_cols, segment_rows, iters_per_pass, i_start, offset,
+                n_iterations, fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
+                torch.cuda.current_stream(device).cuda_stream,
+            )
+            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
+                code = fn(*args)
+        check(code, "line-cache kernel")
+        launches += 1
+        return with_variant(arrays, fields, dst)
 
 
 def line_cache_residency(tf: Any, strip_rows: int, panel_cols: int, iters_per_pass: int, device) -> int:

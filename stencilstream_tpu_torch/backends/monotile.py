@@ -35,6 +35,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from .. import tracing
 from ..core.cell import cell_leaves
 from ..core.grid import Grid
 from ..tdv import tdv_stream
@@ -214,36 +215,39 @@ def monotile(
     place into a returned cell's fields without cloning them first.
     """
     global launches
-    device = cell_leaves(arrays)[0].device
-    if device.type == "cpu":
-        return monotile_plain(
-            arrays, tf, halo_cell, offset=offset, n_iterations=n_iterations, tdv=tdv
-        )
-    fields = kernel_fields(arrays, tf, halo_cell, offset)
-    if tdv is None:
-        tdv = tdv_stream(tf, offset, n_iterations, device)
-    H, W = fields.variant[0].shape
-    if plan is None:
-        plan = require_plan(H, W, tf, cell_smem_bytes(arrays, tf), device_limits(device))
-    r = tf.stencil_radius
-    dst = [torch.empty_like(t) for t in fields.variant]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    side_bytes = len(dst) * plan.q * r * (W + 2 * r) * dst[0].element_size()
-    ex = _exchange(device, stream, 2 * plan.n_ctas * 2 * side_bytes, plan.n_ctas)
-    fn = entry("ss_monotile_", fields.op)
-    with torch.cuda.device(device):
-        code = fn(
-            pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-            H, W, plan.band, plan.n_ctas, plan.q, plan.threads, offset, n_iterations,
-            fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
-            ex.buffer.data_ptr(), ex.flags.data_ptr(),
-            ex.epoch & 0xFFFFFFFF, stream,
-        )
-    check(code, "resident-grid kernel")
-    steps = n_iterations * tf.n_subiterations
-    ex.epoch += max(0, -(-steps // plan.q) - 1)  # the exchanges this launch made
-    launches += 1
-    return with_variant(arrays, fields, dst)
+    with tracing.span("kernels.launch", kernel="monotile", pass_index=0) if tracing.on else tracing.OFF:
+        device = cell_leaves(arrays)[0].device
+        if device.type == "cpu":
+            return monotile_plain(
+                arrays, tf, halo_cell, offset=offset, n_iterations=n_iterations, tdv=tdv
+            )
+        fields = kernel_fields(arrays, tf, halo_cell, offset)
+        if tdv is None:
+            tdv = tdv_stream(tf, offset, n_iterations, device)
+        H, W = fields.variant[0].shape
+        if plan is None:
+            plan = require_plan(H, W, tf, cell_smem_bytes(arrays, tf), device_limits(device))
+        r = tf.stencil_radius
+        dst = [torch.empty_like(t) for t in fields.variant]
+        stream = torch.cuda.current_stream(device).cuda_stream
+        side_bytes = len(dst) * plan.q * r * (W + 2 * r) * dst[0].element_size()
+        ex = _exchange(device, stream, 2 * plan.n_ctas * 2 * side_bytes, plan.n_ctas)
+        fn = entry("ss_monotile_", fields.op)
+        with torch.cuda.device(device):
+            args = (
+                pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
+                H, W, plan.band, plan.n_ctas, plan.q, plan.threads, offset, n_iterations,
+                fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
+                ex.buffer.data_ptr(), ex.flags.data_ptr(),
+                ex.epoch & 0xFFFFFFFF, stream,
+            )
+            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
+                code = fn(*args)
+        check(code, "resident-grid kernel")
+        steps = n_iterations * tf.n_subiterations
+        ex.epoch += max(0, -(-steps // plan.q) - 1)  # the exchanges this launch made
+        launches += 1
+        return with_variant(arrays, fields, dst)
 
 
 def monotile_residency(tf: Any, plan: MonotilePlan, width: int, device) -> int:
@@ -282,13 +286,16 @@ class StencilUpdate(StencilUpdateBase):
         tf = p.transition_function
         n = int(p.n_iterations)
         H, W = grid.shape
-        plan = require_plan(H, W, tf, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device))
+        with tracing.span("backends.plan") if tracing.on else tracing.OFF as span:
+            plan = require_plan(H, W, tf, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device))
+            halo_cell = resolve_halo(p.halo_value, grid)
+            if span is not None:
+                span.attrs["geometry"] = plan._asdict()
         if n == 0:
             return grid
         return Grid(
             monotile(
-                grid.arrays, tf, resolve_halo(p.halo_value, grid),
-                offset=int(p.iteration_offset), n_iterations=n, tdv=self._tdv_stream(grid),
-                plan=plan,
+                grid.arrays, tf, halo_cell, offset=int(p.iteration_offset), n_iterations=n,
+                tdv=self._tdv_stream(grid), plan=plan,
             )
         )

@@ -36,6 +36,7 @@ from typing import Any
 
 import torch
 
+from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves, cell_map, cell_unflatten
 from ..tdv import step_value, tdv_stream
 from .cuda_lib import (
@@ -182,39 +183,43 @@ def tile_pass(
     stored halo is too narrow (:func:`check_block`).
     """
     global launches
-    device = cell_leaves(arrays)[0].device
-    block = dict(origin=tuple(origin), grid_range=grid_range, stored_halo=tuple(stored_halo))
-    if device.type == "cpu":
-        return tile_pass_plain(
-            arrays, tf, halo_cell, i_start=i_start, offset=offset,
-            n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv, **block,
-        )
-    fields = kernel_fields(arrays, tf, halo_cell, offset)
-    if tdv is None:
-        tdv = tdv_stream(tf, offset, n_iterations, device)
-    Hs, Ws = fields.variant[0].shape
-    H, W = (Hs, Ws) if grid_range is None else grid_range
-    hs, cs = stored_halo
-    check_block((Hs, Ws), origin, (H, W), (hs, cs), halo_width(tf.stencil_radius, iters_per_pass,
-                                                               tf.n_subiterations))
-    h, w = Hs - 2 * hs, Ws - 2 * cs
-    dst = variant_outputs(arrays, fields, out, (h, w))
-    tile_h, tile_w = tile
-    if tile_w < WARP or tile_h < RUN_ROWS:
-        raise ValueError(f"the tile-pass kernel takes tiles of at least {RUN_ROWS}x{WARP} (got {tile})")
-    fn = entry("ss_tile_pass_", fields.op)
-    with torch.cuda.device(device):
-        code = fn(
-            pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-            Hs, Ws, origin[0], origin[1], H, W, hs, cs, h, w, tile_h, tile_w, iters_per_pass,
-            i_start, offset, n_iterations, fields.params, fields.halo,
-            tdv_pointer(tf, tdv, n_iterations, device), torch.cuda.current_stream(device).cuda_stream,
-        )
-    check(code, f"tile-pass kernel (tile {tile})")
-    launches += 1
-    if hs or cs:
-        arrays = cell_map(lambda a: a[hs : Hs - hs, cs : Ws - cs], arrays)
-    return with_variant(arrays, fields, dst)
+    with (tracing.span("kernels.launch", kernel="tile_pass", pass_index=(i_start - offset) // iters_per_pass)
+          if tracing.on else tracing.OFF):
+        device = cell_leaves(arrays)[0].device
+        block = dict(origin=tuple(origin), grid_range=grid_range, stored_halo=tuple(stored_halo))
+        if device.type == "cpu":
+            return tile_pass_plain(
+                arrays, tf, halo_cell, i_start=i_start, offset=offset,
+                n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv, **block,
+            )
+        fields = kernel_fields(arrays, tf, halo_cell, offset)
+        if tdv is None:
+            tdv = tdv_stream(tf, offset, n_iterations, device)
+        Hs, Ws = fields.variant[0].shape
+        H, W = (Hs, Ws) if grid_range is None else grid_range
+        hs, cs = stored_halo
+        check_block((Hs, Ws), origin, (H, W), (hs, cs), halo_width(tf.stencil_radius, iters_per_pass,
+                                                                   tf.n_subiterations))
+        h, w = Hs - 2 * hs, Ws - 2 * cs
+        dst = variant_outputs(arrays, fields, out, (h, w))
+        tile_h, tile_w = tile
+        if tile_w < WARP or tile_h < RUN_ROWS:
+            raise ValueError(f"the tile-pass kernel takes tiles of at least {RUN_ROWS}x{WARP} (got {tile})")
+        fn = entry("ss_tile_pass_", fields.op)
+        with torch.cuda.device(device):
+            args = (
+                pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
+                Hs, Ws, origin[0], origin[1], H, W, hs, cs, h, w, tile_h, tile_w, iters_per_pass,
+                i_start, offset, n_iterations, fields.params, fields.halo,
+                tdv_pointer(tf, tdv, n_iterations, device), torch.cuda.current_stream(device).cuda_stream,
+            )
+            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
+                code = fn(*args)
+        check(code, f"tile-pass kernel (tile {tile})")
+        launches += 1
+        if hs or cs:
+            arrays = cell_map(lambda a: a[hs : Hs - hs, cs : Ws - cs], arrays)
+        return with_variant(arrays, fields, dst)
 
 
 def tile_pass_residency(tf: Any, tile: tuple[int, int], iters_per_pass: int, device) -> int:

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core.grid import Grid
 from .base import StencilUpdateBase, resolve_halo
 from .cuda_lib import DeviceLimits, cell_field_bytes, cell_smem_bytes, device_limits
@@ -182,30 +183,33 @@ class StencilUpdate(StencilUpdateBase):
         tf = p.transition_function
         n = int(p.n_iterations)
         offset = int(p.iteration_offset)
-        halo_cell = resolve_halo(p.halo_value, grid)
-        H, W = grid.shape
-        limits = device_limits(grid.device)
-        if self.window_mode == "linecache":
-            cfg = pick_linecache_config(
-                H, W, tf.stencil_radius, tf.n_subiterations, n,
-                *cell_field_bytes(grid.arrays, tf), limits, self.iters_per_pass, self.strip_rows,
-            )
-            self.resolved_config = dict(window_mode="linecache", **cfg._asdict())
-            ipp = cfg.iters_per_pass
-            geometry = dict(
-                strip_rows=cfg.strip_rows, panel_cols=cfg.panel_cols, segment_rows=cfg.segment_rows
-            )
-            run_pass = line_cache_pass
-        else:
-            th, tw, ipp = pick_config(
-                H, W, tf.stencil_radius, tf.n_subiterations, n,
-                cell_smem_bytes(grid.arrays, tf), limits, self.iters_per_pass,
-            )
-            self.resolved_config = dict(
-                window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp
-            )
-            geometry = dict(tile=(th, tw))
-            run_pass = tile_pass
+        with tracing.span("backends.plan") if tracing.on else tracing.OFF as span:
+            halo_cell = resolve_halo(p.halo_value, grid)
+            H, W = grid.shape
+            limits = device_limits(grid.device)
+            if self.window_mode == "linecache":
+                cfg = pick_linecache_config(
+                    H, W, tf.stencil_radius, tf.n_subiterations, n,
+                    *cell_field_bytes(grid.arrays, tf), limits, self.iters_per_pass, self.strip_rows,
+                )
+                self.resolved_config = dict(window_mode="linecache", **cfg._asdict())
+                ipp = cfg.iters_per_pass
+                geometry = dict(
+                    strip_rows=cfg.strip_rows, panel_cols=cfg.panel_cols, segment_rows=cfg.segment_rows
+                )
+                run_pass = line_cache_pass
+            else:
+                th, tw, ipp = pick_config(
+                    H, W, tf.stencil_radius, tf.n_subiterations, n,
+                    cell_smem_bytes(grid.arrays, tf), limits, self.iters_per_pass,
+                )
+                self.resolved_config = dict(
+                    window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp
+                )
+                geometry = dict(tile=(th, tw))
+                run_pass = tile_pass
+            if span is not None:
+                span.attrs["geometry"] = self.resolved_config
         tdv = self._tdv_stream(grid)
         arrays = grid.arrays
         # Pass i writes into pass i-2's result: two buffers, never the input.

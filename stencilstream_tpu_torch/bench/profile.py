@@ -5,8 +5,8 @@ reference's offline profiling (AOCL ``profile.json`` Gantt rendering,
 ``scripts/gantt_of_profile.jl:16-37``; Nsight Compute metric extraction,
 ``scripts/benchmark-common.jl:229-282``):
 
-* :func:`trace` and :func:`annotate` capture ``torch.profiler`` traces
-  (a Chrome trace of every kernel and host span); :func:`profiled` sums a
+* :func:`trace` captures a ``torch.profiler`` trace (a Chrome trace of
+  every kernel, host event and span of the port); :func:`profiled` sums a
   call's device time by kernel, the package's own (``ss::..._kernel``) apart
   from everything else on the card.
 * :func:`kernel_stats` counts what one pass of the port's kernels moves and
@@ -21,12 +21,19 @@ reference's offline profiling (AOCL ``profile.json`` Gantt rendering,
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import tempfile
 
 import torch
 
-__all__ = ["trace", "annotate", "profiled", "device_us", "kernel_stats"]
+from .. import tracing
+
+__all__ = ["trace", "profiled", "device_us", "kernel_stats"]
+
+#: The Chrome trace row (thread id) of the port's spans: no thread of the
+#: process has id 0.
+SPAN_ROW = 0
 
 
 @contextlib.contextmanager
@@ -37,21 +44,48 @@ def trace(log_dir: str | None = None):
 
         with bench.profile.trace("traces/hotspot"):
             update(grid)
+
+    The port's spans (:mod:`..tracing`) are on for the block; the file holds
+    them too, as complete events on the profiler's clock in a row of their
+    own (``stencilstream_tpu_torch spans``), each with its call id, parent
+    and attributes under ``args``.
     """
     log_dir = log_dir or os.path.join(tempfile.gettempdir(), "stencilstream-trace")
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield log_dir
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    was_on = tracing.on
+    tracing.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield log_dir
+    finally:
+        if not was_on:
+            tracing.disable()
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        data = json.load(f)
+    data["traceEvents"].extend(_span_events(tracing.collect(), data.get("baseTimeNanoseconds", 0)))
+    with open(path, "w") as f:
+        json.dump(data, f)
 
 
-def annotate(name: str):
-    """A named span in the trace (``torch.profiler.record_function``) for a
-    host-side phase, e.g. the pass loop of an app."""
-    return torch.profiler.record_function(name)
+def _span_events(spans, base_ns: int) -> list[dict]:
+    """The port's spans as Chrome trace events in microseconds from
+    ``base_ns`` (a trace's ``baseTimeNanoseconds``), in the row
+    ``SPAN_ROW`` of this process, named by a metadata event."""
+    pid = os.getpid()
+    events = [{"ph": "M", "name": "thread_name", "pid": pid, "tid": SPAN_ROW,
+               "args": {"name": "stencilstream_tpu_torch spans"}}]
+    for s in spans:
+        events.append({
+            "ph": "X", "name": s.name, "cat": "stencilstream", "pid": pid, "tid": SPAN_ROW,
+            "ts": (tracing.to_unix_ns(s.start_ns) - base_ns) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"call": s.call, "parent": s.parent, **s.attrs},
+        })
+    return events
 
 
 def device_us(event) -> float:

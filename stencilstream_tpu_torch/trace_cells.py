@@ -26,9 +26,7 @@ kernels in the profiled call, the device time of everything else the call
 ran on the card, and the kernels' share of the mean unprofiled walltime
 (for convection, :func:`trace_convection`: the pseudo-transient updates'
 walltime and GCell/s, as the JAX CLI's "transient computation time", and
-the whole run's device share and idle time a block).
-For each stencil run that resolves to ``monotile`` it then prints the host
-time of each stage of the call (:func:`monotile_host_split`). Needs a CUDA card;
+the whole run's device share and idle time a block). Needs a CUDA card;
 there is no CPU fallback.
 """
 
@@ -39,7 +37,6 @@ import dataclasses
 import json
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -274,8 +271,8 @@ class CardSampler:
         return False
 
 
-def trace(name, grid, run, n, options) -> tuple[dict, object]:
-    """The run's record, and its transition function."""
+def trace(name, grid, run, n, options) -> dict:
+    """The run's record."""
     run(grid, n, **options)  # warm up
     with CardSampler() as card:
         walltimes = [run(grid, n, **options)[1].get_walltime() for _ in range(5)]
@@ -294,7 +291,7 @@ def trace(name, grid, run, n, options) -> tuple[dict, object]:
         "device_ms": device_ms,
         "other_device_ms": sum(k["ms"] for k in other.values()),
         "kernel_share_of_walltime": device_ms / 1e3 / (sum(walltimes) / len(walltimes)),
-    }, update.params.transition_function
+    }
 
 
 def trace_convection(name, grid, run, n, options) -> dict:
@@ -350,77 +347,6 @@ def trace_convection(name, grid, run, n, options) -> dict:
     }
 
 
-def monotile_host_split(grid, tf, n, reps: int = 20) -> dict:
-    """Mean host microseconds of each stage of one ``monotile`` call through
-    ``auto`` (``StencilUpdate._update`` -> ``monotile`` -> the C launcher),
-    each stage timed on its own over ``reps`` runs: the backend choice, the
-    plan, the halo and time-dependent-value lookup, ``kernel_fields``, the
-    output and exchange buffers, the whole ``monotile`` call up to its
-    return (``launch_us`` is that less the fields and buffers: the
-    ``ctypes`` call with the C side's attribute check and cooperative
-    launch), and the wait in ``synchronize``; beside them the kernel's
-    device time (CUDA events) and the walltime of a whole blocking call as
-    the updater counts it (``get_walltime``, as :func:`trace` reports)."""
-    from .backends import auto, cuda_lib
-    from .backends import monotile as mt
-    from .backends.base import resolve_halo
-
-    def mean_us(fn) -> float:
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - start) / reps * 1e6
-
-    H, W = grid.shape
-    limits = cuda_lib.device_limits(grid.device)
-    cell_bytes = cuda_lib.cell_smem_bytes(grid.arrays, tf)
-    update = mt.StencilUpdate(mt.StencilUpdate.Params(transition_function=tf, n_iterations=n, blocking=True))
-    halo = resolve_halo(None, grid)
-    plan = mt.require_plan(H, W, tf, cell_bytes, limits)
-    fields = cuda_lib.kernel_fields(grid.arrays, tf, halo, 0)
-    side = len(fields.variant) * plan.q * tf.stencil_radius * (W + 2 * tf.stencil_radius)
-    stream = torch.cuda.current_stream(grid.device).cuda_stream
-    out = {
-        "choose_backend_us": mean_us(lambda: auto.choose_backend(grid, tf)),
-        "require_plan_us": mean_us(
-            lambda: mt.require_plan(H, W, tf, cuda_lib.cell_smem_bytes(grid.arrays, tf),
-                                    cuda_lib.device_limits(grid.device))),
-        "halo_and_tdv_us": mean_us(lambda: (resolve_halo(None, grid), update._tdv_stream(grid))),
-        "kernel_fields_us": mean_us(lambda: cuda_lib.kernel_fields(grid.arrays, tf, halo, 0)),
-        "buffers_us": mean_us(lambda: ([torch.empty_like(t) for t in fields.variant],
-                                       mt._exchange(grid.device, stream, 4 * plan.n_ctas * side
-                                                    * fields.variant[0].element_size(), plan.n_ctas))),
-    }
-    call, wait, device = [], [], []
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        mt.monotile(grid.arrays, tf, halo, offset=0, n_iterations=n, plan=plan)
-        stop.record()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        call.append((t1 - t0) * 1e6)
-        wait.append((t2 - t1) * 1e6)
-        device.append(start.elapsed_time(stop) * 1e3)
-    out["monotile_call_us"] = sum(call) / len(call)
-    out["launch_us"] = out["monotile_call_us"] - out["kernel_fields_us"] - out["buffers_us"]
-    out["synchronize_us"] = sum(wait) / len(wait)
-    out["kernel_device_us"] = sum(device) / len(device)
-    walls = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        whole = auto.StencilUpdate(auto.StencilUpdate.Params(transition_function=tf, n_iterations=n, blocking=True))
-        whole(grid)
-        walls.append(whole.get_walltime() * 1e6)
-    out["walltime_us"] = walls
-    out["host_loss_us"] = sum(walls) / len(walls) - out["kernel_device_us"]
-    return out
-
-
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="trace_cells", description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines to this file")
@@ -440,18 +366,13 @@ def main(argv=None) -> int:
     for name, (grid, run, n, options) in main_paths(torch.device("cuda", 0)).items():
         if wanted and not any(w in name for w in wanted):
             continue
-        tf = None
         if name.startswith("convection"):
             result = trace_convection(name, grid, run, n, options)
         else:
-            result, tf = trace(name, grid, run, n, options)
+            result = trace(name, grid, run, n, options)
         result["card"] = card
         lines.append(json.dumps(result))
         print(lines[-1], flush=True)
-        if tf is not None and result["backend"] == "monotile":
-            split = monotile_host_split(grid, tf, n)
-            lines.append(json.dumps({"run": name, "monotile_host_split": split, "card": card}))
-            print(lines[-1], flush=True)
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n".join(lines) + "\n")

@@ -468,11 +468,22 @@ def test_tables_match_jax():
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The port's spans go into the trace as complete events beside the
+    profiler's, on its clock, and are off again after the block."""
+    from stencilstream_tpu_torch import Grid, Params, create_update, tracing
+    from stencilstream_tpu_torch.models import hotspot
+
+    grid = Grid(hotspot.HotspotCell(temp=torch.full((16, 32), 80.0), power=torch.zeros(16, 32)))
+    update = create_update(Params(transition_function=hotspot.derive_coefficients(16, 32), n_iterations=2,
+                                  blocking=True), backend="tiling")
     with profile.trace(str(tmp_path)) as where:
-        with profile.annotate("ss::bench-span"):
-            torch.ones(8).sum()
-    data = json.loads(Path(where, "trace.json").read_text())
-    assert any(e.get("name") == "ss::bench-span" for e in data["traceEvents"])
+        update(grid)
+    assert not tracing.on and tracing.collect() == []
+    events = json.loads(Path(where, "trace.json").read_text())["traceEvents"]
+    call = [e for e in events if e.get("name") == "entry.call"]
+    assert len(call) == 1 and call[0]["ph"] == "X" and call[0]["args"]["backend"] == "tiling"
+    ops = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    assert ops and all(call[0]["ts"] <= e["ts"] <= call[0]["ts"] + call[0]["dur"] for e in ops)
 
 
 def test_trace_cells_takes_profiled_from_the_bench():

@@ -1812,15 +1812,19 @@ def main() -> int:
         n_small, tol, expect = checks[name]
         for module in counters.values():
             module.launches = 0
+        tp.vector_launches = 0
         out, update = run(grid, n, **options)
         counts = {k: m.launches for k, m in counters.items()}
         runs[name], path_counts[name] = update, counts
         launched = {k for k, c in counts.items() if c}
         log(f"  {name}, n={n}: -> {getattr(update, 'resolved_backend', 'tiling')} "
-            f"{update.resolved_config or ''}; launches {counts}; walltime {update.get_walltime():.6f} s, "
-            f"{grid.shape[0] * grid.shape[1] * n / update.get_walltime() / 1e9:.3f} GCell/s "
-            f"(host clock, build excluded) [{card}]")
+            f"{update.resolved_config or ''}; launches {counts} (vector map {tp.vector_launches}); walltime "
+            f"{update.get_walltime():.6f} s, {grid.shape[0] * grid.shape[1] * n / update.get_walltime() / 1e9:.3f} "
+            f"GCell/s (host clock, build excluded) [{card}]")
         assert launched == expect, (name, counts)
+        # Every tile pass of a functor that takes the vector map takes it.
+        op = cuda_lib.require_device_op(update.params.transition_function)
+        assert tp.vector_launches == (counts["tile_pass"] if cuda_lib.op_info(op)["vector_map"] else 0), name
         for k in counters:
             totals[k] += counts[k]
         fields = cell_leaves(out.arrays)

@@ -298,14 +298,17 @@ def _halo_bits(value: Any, field: torch.Tensor, view: torch.Tensor) -> float:
 @functools.cache
 def op_info(op: str) -> dict:
     """The functor's shape as compiled: radius, sub-iterations, field
-    counts, parameter count, element dtype and the dtype of its
-    time-dependent value (``None`` when it takes none)."""
-    info = (ctypes.c_int * 9)()
+    counts, parameter count, element dtype, the dtype of its
+    time-dependent value (``None`` when it takes none) and ``vector_map``,
+    whether the tile pass's interior sub-steps take the vector thread map
+    (``csrc/tile_pass.cu``: ``vector_map``)."""
+    info = (ctypes.c_int * 10)()
     entry("ss_op_info_", op)(info)
     keys = ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params")
     out = dict(zip(keys, info))
     out["dtype"] = _DTYPES[(info[5], info[6])]
     out["tdv_dtype"] = _DTYPES[(info[7], info[8])] if info[7] else None
+    out["vector_map"] = bool(info[9])
     return out
 
 

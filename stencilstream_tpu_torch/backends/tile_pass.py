@@ -43,6 +43,7 @@ from .cuda_lib import (
     check,
     entry,
     kernel_fields,
+    op_info,
     pointer_array,
     require_device_op,
     tdv_pointer,
@@ -51,10 +52,16 @@ from .cuda_lib import (
 )
 from .fused import fused_substep, halo_width, mask_out_of_grid
 
-__all__ = ["check_block", "tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes", "launches"]
+__all__ = [
+    "check_block", "count_launch", "tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes",
+    "launches", "vector_launches",
+]
 
 #: Kernel launches made by :func:`tile_pass` (CUDA tensors only).
 launches = 0
+#: Those of them whose functor takes the vector thread map in its interior
+#: sub-steps (``csrc/tile_pass.cu``: ``vector_map``; :func:`.cuda_lib.op_info`).
+vector_launches = 0
 
 #: Elements a shared-memory row pitch is rounded up to, and each plane's pad
 #: (``csrc/common.cuh``: ``kPitchAlign``).
@@ -64,6 +71,9 @@ WARP = 32
 #: Rows of one thread's run for a one-field cell (``csrc/common.cuh``:
 #: ``kRun``): the shortest tile the kernel takes.
 RUN_ROWS = 8
+#: Rows of one thread's run in the vector thread map (``csrc/tile_pass.cu``:
+#: ``kQuadRun``), whose lanes take 4 adjacent columns each.
+QUAD_RUN = 8
 
 
 def tile_smem_bytes(tile_h: int, tile_w: int, halo: int, cell_bytes: int) -> int:
@@ -182,9 +192,8 @@ def tile_pass(
     narrower than a warp or shorter than a run, and for a block whose
     stored halo is too narrow (:func:`check_block`).
     """
-    global launches
     with (tracing.span("kernels.launch", kernel="tile_pass", pass_index=(i_start - offset) // iters_per_pass)
-          if tracing.on else tracing.OFF):
+          if tracing.on else tracing.OFF) as span:
         device = cell_leaves(arrays)[0].device
         block = dict(origin=tuple(origin), grid_range=grid_range, stored_halo=tuple(stored_halo))
         if device.type == "cpu":
@@ -216,10 +225,24 @@ def tile_pass(
             with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
                 code = fn(*args)
         check(code, f"tile-pass kernel (tile {tile})")
-        launches += 1
+        thread_map = count_launch(fields.op)
+        if span is not None:
+            span.attrs["map"] = thread_map
         if hs or cs:
             arrays = cell_map(lambda a: a[hs : Hs - hs, cs : Ws - cs], arrays)
         return with_variant(arrays, fields, dst)
+
+
+def count_launch(op: str) -> str:
+    """Count one launch of the kernel for device functor ``op`` in
+    :data:`launches`, and in :data:`vector_launches` if the functor takes the
+    vector thread map; returns the map, ``"vec4"`` or ``"scalar"``."""
+    global launches, vector_launches
+    launches += 1
+    if op_info(op)["vector_map"]:
+        vector_launches += 1
+        return "vec4"
+    return "scalar"
 
 
 def tile_pass_residency(tf: Any, tile: tuple[int, int], iters_per_pass: int, device) -> int:

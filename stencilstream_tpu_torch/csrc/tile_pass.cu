@@ -14,14 +14,17 @@
 // one, from the call's stream (common.cuh: read_tdv); the steps of a partial
 // pass past the call's last iteration read nothing.
 //
-// What bounds it on Hopper (PERF.md, measured by tile_sweep.py): not device
-// memory. At HotSpot 8192^2, p=8, the law's 56x112 core stages a window
-// 1.47x the core, ~15.8 B a cell, which alone takes about a third of the
-// pass; the rest is shared-memory bandwidth and instruction throughput in the
-// sub-steps, which compute whole 32-column chunks and kRun-row runs of the
-// narrowing window (1.35 lane-cells per useful cell-step at that geometry)
-// with ~4.4 shared loads and ~20 instructions a cell in the interior run
-// loop. What the design does about it:
+// What bounds it on Hopper (PERF.md, measured by tile_sweep.py and clock64
+// stamps): not device memory. At HotSpot 8192^2, p=8, the law's 56x112 core
+// stages a window 1.47x the core, ~15.8 B a cell, which takes about a third
+// of the pass; the rest is the sub-steps, which compute whole chunks and
+// runs of the narrowing window (1.35 lane-cells per useful cell-step at that
+// geometry). With one column a lane they take ~4.4 shared words and ~20
+// instructions a cell-step, near the SM's shared-memory and issue rates; the
+// vector map of one-field 4-byte cells (below) takes 2.5 words and ~12
+// instructions, and latency holds it back: 9 of the 16 warps have a run at
+// that tile, each waits on its loads and shuffles, and each sub-step ends at
+// a barrier. What the design does about it:
 //
 // * A 2D thread map without division. A warp covers 32 consecutive columns
 //   of one row (conflict-free shared accesses); each thread computes a run of
@@ -34,6 +37,12 @@
 //   stores any, so the compiler loads each shared tap that neighbouring cells
 //   of the run read once and keeps it in a register; the functors keep their
 //   Taps interface (common.cuh).
+// * A vector map for cells of one 4-byte variant field and at most one
+//   invariant field, radius 1 (HotSpot, the Jacobi functors), in interior
+//   tiles (substep_quads): a lane takes 4 adjacent columns, so a row of taps
+//   is one 16-byte load, the side taps come from the neighbouring lanes by
+//   shuffles and the outputs go in one 16-byte store. Every other functor,
+//   and edge tiles, keep the map above.
 // * Edge-free interior tiles. One CTA-uniform test decides whether the whole
 //   window (compound halo included) lies inside the grid; such tiles run the
 //   sub-steps with no out-of-grid test. Edge tiles write the halo value into
@@ -96,6 +105,16 @@ constexpr int kMinBlocks = 2;    // CTAs per SM the register budget is cut for
 // (common.cuh: stage_block_outlined): inlined, the block arguments cost the
 // HotSpot and Jacobi5 8192^2 passes 2-5% in their sub-steps (PERF.md).
 constexpr int kOutlineStagingBytes = 4;
+// Rows of a thread's run in the vector map (PERF.md: 8 measured fastest at
+// HotSpot's and Jacobi5's 8192^2 tiles, of 4 to 8 and 16).
+constexpr int kQuadRun = 8;
+
+// Whether a functor's interior sub-steps take the vector map (substep_quads):
+// cells of one 4-byte variant field and at most one invariant field, radius 1.
+template <class Op>
+__host__ __device__ constexpr bool vector_map() {
+  return sizeof(typename Op::T) == 4 && Op::kVariant == 1 && Op::kInvariant <= 1 && Op::kRadius == 1;
+}
 
 // One field's window, staged (common.cuh: stage_block).
 template <class T>
@@ -192,14 +211,182 @@ __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const G& g, c
   }
 }
 
+// Four 4-byte cells of one shared row, read or written as one 16-byte access.
+template <class T>
+using Quad = std::conditional_t<std::is_floating_point<T>::value, float4, int4>;
+
+template <class T>
+__device__ __forceinline__ void load_quad(const T* p, T (&v)[4]) {
+  const Quad<T> q = *reinterpret_cast<const Quad<T>*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+template <class T>
+__device__ __forceinline__ void store_quad(T* p, const T (&v)[4]) {
+  *reinterpret_cast<Quad<T>*>(p) = Quad<T>{v[0], v[1], v[2], v[3]};
+}
+
+// The taps of cell J of a lane's group of 4 in the vector map. Variant taps
+// come from the register window: rows up, mid and down, each the group's 4
+// cells with the column left of it first and the one right of it last.
+// Invariant taps come from the cell row's 16-byte load, or, at another row
+// or beyond the group, from shared memory.
+template <class T, class D, int J>
+struct QuadTaps {
+  using Storage = T;
+  const T (&up)[6];
+  const T (&mid)[6];
+  const T (&down)[6];
+  const T (&iq)[4];   // invariant field 0 on the cell's row, the group's 4 cells
+  const T* inv;       // invariant field 0 at the group's first cell
+  int pitch;
+  int row, col;       // global coordinates of the cell
+  int H, W;
+  int iteration;
+  int subiteration;
+  D tdv;
+
+  __device__ __forceinline__ T v(int, int dr, int dc) const {
+    return (dr < 0 ? up : dr > 0 ? down : mid)[1 + J + dc];
+  }
+  __device__ __forceinline__ T i(int, int dr, int dc) const {
+    return dr == 0 && J + dc >= 0 && J + dc < 4 ? iq[J + dc] : inv[dr * pitch + J + dc];
+  }
+};
+
+// The global column a vector-map cell of an interior tile shows its functor.
+// A cell of the narrowed window keeps its own, which lies R or more columns
+// inside the grid; an overhanging cell, which may lie at the grid's edge or
+// past it and whose value no later sub-step reads, gets the nearest such
+// column, so that the functor's edge tests fold.
+template <int R>
+__device__ __forceinline__ int interior_col(int gc, int W) {
+  gc = min(max(gc, R), W - 1 - R);
+  __builtin_assume(gc >= R && gc < W - R);
+  return gc;
+}
+
+// One row of `lane`'s register window: its group's 4 cells at `row + c`
+// (one 16-byte load), the column left of them from the lane before
+// (`left_src`) and the one right of them from the lane after, by shuffles.
+// Lane 0's left column and the right column of lanes at or past `last` are
+// `row[oc]`, which each lane loads: lane 0 its own left column, every other
+// lane the column right of the last group (one address: a broadcast).
+template <class T>
+__device__ __forceinline__ void load_window_row(const T* row, int c, int oc, int lane, int left_src, int last,
+                                                T (&w)[6]) {
+  T q[4];
+  load_quad(row + c, q);
+  const T o = row[oc];
+  const T left = __shfl_sync(0xffffffffu, q[3], left_src);
+  const T right = __shfl_down_sync(0xffffffffu, q[0], 1);
+  w[0] = lane == 0 ? o : left;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[1 + j] = q[j];
+  w[5] = lane >= last ? o : right;
+}
+
+// One interior sub-step in the vector map (vector_map<Op>()): src -> dst over
+// the window narrowed by m per side, as substep computes it, with another
+// thread map. A lane computes a group of 4 adjacent cells on each row of a
+// run of kQuadRun rows; a warp takes 32 groups side by side (128 columns),
+// so a row's taps are one 16-byte load and its side taps two shuffles, and
+// its outputs one 16-byte store. Groups start at the columns c whose shared
+// address is 16-byte aligned, (sh + c) % 4 == 0: [gl, gl + 4 * n_groups)
+// covers the narrowed window and overhangs it by at most 3 columns a side
+// (run_steps says where those land). A chunk of fewer than 32 groups gives
+// its surplus lanes its last group, which they compute from the same taps
+// and store with the same bits. The run keeps a window of three rows and
+// loads one row ahead of the row it computes. `tid` (the thread's index in
+// the CTA) and `pitch` come in registers (tile_pass_kernel says why).
+template <class Op>
+__device__ __forceinline__ void substep_quads(const TilePassArgs<Op>& a, const Op& op,
+                                              const typename Op::T* src, typename Op::T* dst,
+                                              const typename Op::T* inv, int m, int gl, int n_groups,
+                                              int sh, int row0, int col0, int H, int W, int iteration,
+                                              int sub, tdv_t<Op> tdv, int tid, int pitch) {
+  using T = typename Op::T;
+  using D = tdv_t<Op>;
+  constexpr int R = Op::kRadius;
+  constexpr int V = kQuadRun;
+  const int WH = a.tile_h + 2 * a.halo;
+  const int n_runs = (WH - 2 * m + V - 1) / V;
+  const int n_chunks = (n_groups + 31) >> 5;
+  const int lane = tid & 31;
+  const int last = min(n_groups, 32) - 1;  // the chunk's last lane with a group of its own
+  const int left_src = min(lane, last) - 1;
+  int jx = tid >> 5, jy = 0;
+  if (n_chunks == 1) {  // the law's tiles: a warp's first run is its index
+    jy = jx;
+    jx = 0;
+  }
+  while (jx >= n_chunks) jx -= n_chunks, ++jy;
+  while (jy < n_runs) {
+    const int r = min(m + jy * V, WH - m - V);
+    const int g0 = max(0, min(jx << 5, n_groups - 32));  // the chunk's first group
+    const int c = gl + 4 * (g0 + min(lane, last));
+    // Lane 0's left column: never before the plane's first element (there
+    // only cells of an overhanging group read it).
+    const int oc = lane == 0 ? max(c - 1, -sh) : gl + 4 * (g0 + last) + 4;
+    const T* s = src + (r - R) * pitch;
+    T w[V + 2][6];
+    T iq[V][4];
+    load_window_row(s, c, oc, lane, left_src, last, w[0]);
+    load_window_row(s + pitch, c, oc, lane, left_src, last, w[1]);
+    load_window_row(s + 2 * pitch, c, oc, lane, left_src, last, w[2]);
+    if constexpr (Op::kInvariant > 0) load_quad(inv + r * pitch + c, iq[0]);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      if (k + 3 < V + 2) load_window_row(s + (k + 3) * pitch, c, oc, lane, left_src, last, w[k + 3]);
+      if constexpr (Op::kInvariant > 0)
+        if (k + 1 < V) load_quad(inv + (r + k + 1) * pitch + c, iq[k + 1]);
+      const int gr = row0 + r + k;
+      // Every run lies inside the narrowed window: all its cells' neighbours
+      // lie in the grid.
+      __builtin_assume(gr >= R && gr < H - R);
+      const T* iv = inv + (r + k) * pitch + c;
+      const int gc = col0 + c;
+      T out[4];
+      op(QuadTaps<T, D, 0>{w[k], w[k + 1], w[k + 2], iq[k], iv, pitch, gr, interior_col<R>(gc, W), H, W,
+                           iteration, sub, tdv},
+         &out[0]);
+      op(QuadTaps<T, D, 1>{w[k], w[k + 1], w[k + 2], iq[k], iv, pitch, gr, interior_col<R>(gc + 1, W), H, W,
+                           iteration, sub, tdv},
+         &out[1]);
+      op(QuadTaps<T, D, 2>{w[k], w[k + 1], w[k + 2], iq[k], iv, pitch, gr, interior_col<R>(gc + 2, W), H, W,
+                           iteration, sub, tdv},
+         &out[2]);
+      op(QuadTaps<T, D, 3>{w[k], w[k + 1], w[k + 2], iq[k], iv, pitch, gr, interior_col<R>(gc + 3, W), H, W,
+                           iteration, sub, tdv},
+         &out[3]);
+      store_quad(dst + (r + k) * pitch + c, out);
+    }
+    jx += kTileWarps;
+    while (jx >= n_chunks) jx -= n_chunks, ++jy;
+  }
+}
+
 // The pass's sub-steps on one staged tile; returns the buffer holding the
-// result (`cur` or `other`).
+// result (`cur` or `other`). `sh`: the planes' shift (window column c is
+// 16-byte aligned where (sh + c) % 4 == 0).
+//
+// Interior sub-steps of a functor with vector_map<Op>() take substep_quads,
+// whose groups overhang the narrowed window by up to 3 columns a side. An
+// overhanging column c in [0, WW) is a cell outside the narrowed window (no
+// later sub-step and no write-back reads it); one left of the window lands,
+// through the row pitch, at column pitch + c of the row above, one right of
+// it at column c - pitch of the row below, or in the padding between rows.
+// Such a cell is outside the narrowed window too, or padding, unless the
+// window fills the pitch, m = 1 and sh = 2: that sub-step takes substep.
 template <class Op, bool kEdge, class G>
 __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, const G& g,
                                                      const Op& op, typename Op::T* cur,
                                                      typename Op::T* other,
                                                      const typename Op::T* inv, int row0,
-                                                     int col0, int H, int W) {
+                                                     int col0, int H, int W, int sh, int tid, int pitch) {
   constexpr int R = Op::kRadius;
   constexpr int K = Op::kSubiterations;
   for (int s = 0; s < a.steps; ++s) {
@@ -207,8 +394,20 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
     // Past the call's last iteration every cell passes through unchanged,
     // so the core already holds the result (uniform across the CTA).
     if (iteration >= a.i_end) break;
-    substep<Op, kEdge>(a, g, op, cur, other, inv, R * (s + 1), row0, col0, H, W, iteration, s % K,
-                       read_tdv<Op>(a.tdv, iteration - a.offset));
+    const int m = R * (s + 1);
+    const tdv_t<Op> tdv = read_tdv<Op>(a.tdv, iteration - a.offset);
+    if constexpr (!kEdge && vector_map<Op>()) {
+      const int WW = a.tile_w + 2 * a.halo;
+      const int gl = ((sh + m) & ~3) - sh;           // first column of the first group
+      const int ge = ((sh + WW - m + 3) & ~3) - sh;  // end of the last group
+      if (gl + m >= WW - g.pitch && ge <= g.pitch + m)
+        substep_quads<Op>(a, op, cur, other, inv, m, gl, (ge - gl) >> 2, sh, row0, col0, H, W, iteration,
+                          s % K, tdv, tid, pitch);
+      else
+        substep<Op, false>(a, g, op, cur, other, inv, m, row0, col0, H, W, iteration, s % K, tdv);
+    } else {
+      substep<Op, kEdge>(a, g, op, cur, other, inv, m, row0, col0, H, W, iteration, s % K, tdv);
+    }
     __syncthreads();
     typename Op::T* t = cur;
     cur = other;
@@ -259,6 +458,12 @@ tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
   // those tests.
   const int H = a.H, W = a.W;
   const bool interior = row0 >= 0 && col0 >= 0 && row0 + WH <= H && col0 + WW <= W;
+  // The vector map's thread index and row pitch, read once and held in
+  // registers: the compiler would otherwise read them again at each sub-step
+  // (S2R, LDC), and those reads wait behind the SM's shared-memory traffic,
+  // some 650 cycles before a warp's first load (PERF.md).
+  int tid = threadIdx.y * 32 + threadIdx.x, pitch = a.pitch;
+  if constexpr (vector_map<Op>()) asm volatile("" : "+r"(tid), "+r"(pitch));
   const T* res;
   if constexpr (is_narrow<T>()) {
     // Narrow cells take the shared pitch and plane as values: read through
@@ -267,11 +472,11 @@ tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
     // loads its taps again (float8 Jacobi5: 40 shared loads a run, not 26).
     // Float32 cells measured faster reading the arguments.
     const Planes g{a.pitch, a.plane};
-    res = interior ? run_steps<Op, false>(a, g, op, cur, other, inv, row0, col0, H, W)
-                   : run_steps<Op, true>(a, g, op, cur, other, inv, row0, col0, H, W);
+    res = interior ? run_steps<Op, false>(a, g, op, cur, other, inv, row0, col0, H, W, sh, tid, pitch)
+                   : run_steps<Op, true>(a, g, op, cur, other, inv, row0, col0, H, W, sh, tid, pitch);
   } else {
-    res = interior ? run_steps<Op, false>(a, a, op, cur, other, inv, row0, col0, H, W)
-                   : run_steps<Op, true>(a, a, op, cur, other, inv, row0, col0, H, W);
+    res = interior ? run_steps<Op, false>(a, a, op, cur, other, inv, row0, col0, H, W, sh, tid, pitch)
+                   : run_steps<Op, true>(a, a, op, cur, other, inv, row0, col0, H, W, sh, tid, pitch);
   }
 
   // Write the tile's core back (core coordinates).
@@ -387,7 +592,8 @@ constexpr int element_kind() {
 
 // Shape of a functor, for the Python wrapper's checks: {radius,
 // n_subiterations, n_variant, n_invariant, n_params, element bytes,
-// element kind, TDV bytes (0: it takes none), TDV is floating point}.
+// element kind, TDV bytes (0: it takes none), TDV is floating point,
+// the tile pass takes the vector map}.
 template <class Op>
 int op_info(int* info) {
   using D = tdv_t<Op>;
@@ -401,6 +607,7 @@ int op_info(int* info) {
   info[6] = element_kind<typename Op::T>();
   info[7] = kTdv ? static_cast<int>(sizeof(D)) : 0;
   info[8] = std::is_floating_point<D>::value ? 1 : 0;
+  info[9] = vector_map<Op>() ? 1 : 0;
   return 0;
 }
 

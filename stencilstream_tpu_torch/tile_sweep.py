@@ -17,7 +17,8 @@ Five parts, each printing one JSON line per measurement:
   the JAX bench's 3072x1024 on :data:`CONVECTION_TILES`, with the CTAs per SM that
   the CUDA occupancy calculator reports, the time of a pass with no step
   active (staging and write-back alone, ``copy_ms``), and the cells the
-  thread map computes per useful cell-step (:func:`thread_map_work`).
+  thread map computes per useful cell-step (:func:`thread_map_work`, or
+  :func:`vector_map_work` for a functor that takes the vector map).
   Compare ``ms_per_iteration``; ``device_ms`` is the kernel's own device
   time (``torch.profiler``), which a pass shorter than its host call
   (FDTD's) needs, since back-to-back calls then leave the card idle.
@@ -25,8 +26,8 @@ Five parts, each printing one JSON line per measurement:
   each functor, the loops of the tile-pass kernel that load and store
   shared memory and hold no other such loop (the run loops of the interior
   and the edge sub-steps), with their instructions, shared loads (``LDS``)
-  and stores (``STS``), and the shared loads per cell-step (``LDS`` x
-  variant fields / ``STS``).
+  and stores (``STS``) in 4-byte words, and shuffles (``SHFL``), and the
+  shared words loaded per cell-step (``LDS`` x variant fields / ``STS``).
 * ``linecache``: one line-cache pass at each (strip, window, p, waves) whose
   CTA fits one block's shared memory, same cases and size, the panel being
   the window less both halos and the segments those of the law
@@ -77,7 +78,8 @@ from .trace_cells import JACOBI5_COEFS, convection_experiment
 from . import probe
 
 __all__ = [
-    "extended_blocks", "main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "TILES", "PASSES",
+    "extended_blocks", "main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "vector_map_work",
+    "TILES", "PASSES",
 ]
 
 #: Core tiles of the geometry sweep, heights a multiple of the run: widths a
@@ -258,6 +260,67 @@ def thread_map_work(tile, halo: int, radius: int, run: int = tp.RUN_ROWS) -> tup
     return lanes / useful, window / useful
 
 
+def vector_map_work(tile, halo: int, radius: int, run: int = tp.QUAD_RUN, sh: int = 0) -> dict:
+    """A model of the tile pass's vector thread map (``csrc/tile_pass.cu``:
+    ``substep_quads`` and the choice in ``run_steps``) over the interior
+    sub-steps of one tile whose planes are shifted by ``sh`` elements
+    (window column c is 16-byte aligned where ``(sh + c) % 4 == 0``).
+
+    Sub-step s computes the window narrowed by m = s + 1 per side: in groups
+    of 4 aligned columns, 32 a warp, and whole runs of ``run`` rows; or, where an
+    overhanging group would land on a cell that a later sub-step reads, in
+    the scalar map's 32-column chunks (``scalar_steps``). Returns the
+    lane-cells per useful cell-step (core cells x sub-steps), the extreme
+    offsets read (``read``) and written (``written``) from a plane's first
+    element (the plane is ``plane`` elements), the narrowed windows' cells
+    that no lane computed (``uncovered``) and the writes that land on
+    another cell of a narrowed window (``clobbered``)."""
+    if radius != 1:
+        raise ValueError("the vector map takes functors of radius 1")
+    th, tw = tile
+    wh, ww = th + 2 * halo, tw + 2 * halo
+    pitch = -(-ww // tp.PITCH_ALIGN) * tp.PITCH_ALIGN
+    lanes = np.arange(tp.WARP)
+    lane_cells, uncovered, clobbered, scalar_steps = 0, 0, 0, 0
+    reads, writes = [], []
+    for m in range(1, halo + 1):
+        gl = ((sh + m) & ~3) - sh
+        ge = ((sh + ww - m + 3) & ~3) - sh
+        if gl + m >= ww - pitch and ge <= pitch + m:
+            n_groups = (ge - gl) // 4
+            last = min(n_groups, tp.WARP) - 1
+            starts = [max(0, min(32 * j, n_groups - 32)) for j in range(-(-n_groups // tp.WARP))]
+            cols = [gl + 4 * (g0 + np.minimum(lanes, last)) for g0 in starts]
+            outer = [np.where(lanes == 0, np.maximum(c - 1, -sh), c[last] + 4) for c in cols]
+            cols = [(c[:, None] + np.arange(4)).ravel() for c in cols]
+            rows_run, chunk = run, 4 * tp.WARP
+        else:
+            scalar_steps += 1
+            cols = [min(m + 32 * j, ww - m - 32) + lanes for j in range(-(-(ww - 2 * m) // tp.WARP))]
+            outer = [np.concatenate([c - 1, c + 1]) for c in cols]
+            rows_run, chunk = tp.RUN_ROWS, tp.WARP
+        n_runs = -(-(wh - 2 * m) // rows_run)
+        lane_cells += n_runs * rows_run * len(cols) * chunk
+        computed = np.zeros((wh, ww), bool)
+        for jy in range(n_runs):
+            r = min(m + jy * rows_run, wh - m - rows_run)
+            rows = np.arange(r, r + rows_run)[:, None]
+            for c, o in zip(cols, outer):
+                written = rows * pitch + sh + c
+                writes.append(written)
+                reads += [(rows + dr) * pitch + sh + c for dr in (-1, 0, 1)]
+                reads.append(np.arange(r - 1, r + rows_run + 1)[:, None] * pitch + sh + o)
+                inside = (c >= 0) & (c < ww)
+                computed[r : r + rows_run, c[inside]] = True
+                row2, col2 = np.divmod(written[:, ~inside] - sh, pitch)
+                clobbered += int(((row2 >= m) & (row2 < wh - m) & (col2 >= m) & (col2 < ww - m)).sum())
+        uncovered += int((~computed[m : wh - m, m : ww - m]).sum())
+    reads, writes = np.concatenate([x.ravel() for x in reads]), np.concatenate([x.ravel() for x in writes])
+    return dict(lane_cells_per_cell_step=lane_cells / (th * tw * halo), read=(int(reads.min()), int(reads.max())),
+                written=(int(writes.min()), int(writes.max())), plane=wh * pitch + tp.PITCH_ALIGN,
+                uncovered=uncovered, clobbered=clobbered, scalar_steps=scalar_steps)
+
+
 def line_cache_work(panel: int, halo: int, radius: int, strip: int, segment: int, warmup: int) -> float:
     """Lane-cells the line-cache kernel's thread map computes per useful
     cell-step (core cells x halo/radius levels) on a segment that is not
@@ -296,14 +359,28 @@ def kernel_report(report: str, kernel: str) -> dict:
 
 _SASS_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);")
 _BACKWARD_BRANCH = re.compile(r"\bBRA\b.*?(0x[0-9a-f]+)")
+#: 4-byte words a shared-memory access moves, by its width suffix (any other: 1).
+_WIDTH_WORDS = {"128": 4, "64": 2}
+
+
+def _shared_words(body: list[str], mnemonic: str) -> int:
+    """The 4-byte words that the ``mnemonic`` (``LDS`` or ``STS``)
+    instructions of a loop's ``body`` move."""
+    words = 0
+    for op in body:
+        access = re.search(rf"\b{mnemonic}\b((?:\.\w+)*)", op)
+        if access:
+            words += max((_WIDTH_WORDS.get(s, 1) for s in access.group(1).split(".")[1:]), default=1)
+    return words
 
 
 def run_loops(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list[dict]:
     """The run loops of ``functor``'s ``kernel`` in a ``cuobjdump -sass``
     listing: loops (spans closed by a backward branch) that load and store
     shared memory, copy nothing from global memory (``LDGSTS``) and hold no
-    other such loop; ``instructions``, ``LDS`` and ``STS`` counted over the
-    loop's body."""
+    other such loop; over the loop's body, its ``instructions``, the 4-byte
+    words its shared loads (``LDS``) and stores (``STS``) move (a ``.128``
+    access counts 4, a ``.64`` 2, any other 1) and its shuffles (``SHFL``)."""
     name = f"_ZN2ss{len(kernel)}{kernel}INS_{len(functor)}{functor}E"  # the functor's own instantiation
     chunk = next((c for c in sass.split("Function : ")[1:] if c.startswith(name)), "")
     code = [(int(a, 16), op) for a, op in _SASS_INSTRUCTION.findall(chunk)]
@@ -314,7 +391,8 @@ def run_loops(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list
             body = [o for a, o in code if int(branch.group(1), 16) <= a <= addr]
             count = lambda pattern: sum(1 for o in body if re.search(pattern, o))  # noqa: E731
             loops.append(dict(span=(int(branch.group(1), 16), addr), instructions=len(body),
-                              LDS=count(r"\bLDS"), STS=count(r"\bSTS"), LDGSTS=count(r"\bLDGSTS")))
+                              LDS=_shared_words(body, "LDS"), STS=_shared_words(body, "STS"),
+                              SHFL=count(r"\bSHFL"), LDGSTS=count(r"\bLDGSTS")))
     candidates = [lp for lp in loops if lp["LDS"] and lp["STS"] and not lp["LDGSTS"]]
     inner = [lp for lp in candidates
              if not any(o is not lp and lp["span"][0] <= o["span"][0] and o["span"][1] <= lp["span"][1]
@@ -473,6 +551,8 @@ def main(argv=None) -> int:
                     dev_ms = device_ms(fn, 5)
                     copy_ms = timed(lambda: run_pass(cell, tf, halo, tile, p, 0), 5)
                     lanes, window = thread_map_work(tile, hp, tf.stencil_radius, run)
+                    if cuda_lib.op_info(tf.cuda_op)["vector_map"]:
+                        lanes = vector_map_work(tile, hp, tf.stencil_radius)["lane_cells_per_cell_step"]
                     emit(dict(part="grid", op=op, size=list(cell_leaves(cell)[0].shape), cell_bytes=cell_bytes,
                               tile=list(tile), p=p, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
                               device_ms_per_iteration=dev_ms / p, copy_ms=copy_ms, smem=smem,
@@ -530,6 +610,7 @@ def main(argv=None) -> int:
             loops = [lp for lp in run_loops(sass, functor, kernel) if lp["STS"] >= run * n_variant]
             emit(dict(part=part, op=op, run_loops=loops,
                       lds_per_cell_step=[lp["LDS"] * n_variant / lp["STS"] for lp in loops],
+                      shfl_per_cell_step=[lp["SHFL"] * n_variant / lp["STS"] for lp in loops],
                       instructions_per_cell_step=[lp["instructions"] * n_variant / lp["STS"] for lp in loops]))
     return _write(args.out, lines)
 

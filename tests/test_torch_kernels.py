@@ -206,6 +206,18 @@ def test_every_functor_is_instantiated_in_every_kernel():
         assert re.search(r"^SS_FOR_EACH_OP\(SS_\w+_ENTRY\)$", (cuda_lib.CSRC / src).read_text(), re.M), src
 
 
+@pytest.mark.parametrize("vector", [True, False])
+def test_tile_pass_counts_vector_map_launches_by_the_functors_info(monkeypatch, vector):
+    """Each launch counts in ``launches``, and in ``vector_launches`` when the
+    functor's compiled info says it takes the vector map."""
+    monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": vector and op == "hotspot"})
+    monkeypatch.setattr(tp, "launches", 5)
+    monkeypatch.setattr(tp, "vector_launches", 2)
+    assert tp.count_launch("hotspot") == ("vec4" if vector else "scalar")
+    assert tp.count_launch("conway") == "scalar"
+    assert (tp.launches, tp.vector_launches) == (7, 3 if vector else 2)
+
+
 def test_bool_fields_reach_the_kernels_as_uint8_views():
     cells = torch.tensor([[True, False], [False, True]])
     view = cuda_lib.kernel_view(cells)
@@ -611,6 +623,59 @@ def test_tile_pass_geometry_on_every_functor(cuda, op, case):
         assert got.power is cell.power
     if op in PROBES:
         assert int(got.status.abs().max()) == probe.NORMAL
+
+
+#: The functors whose interior sub-steps take the vector thread map
+#: (csrc/tile_pass.cu: vector_map): one 4-byte field, at most one invariant.
+VECTOR_OPS = ["hotspot", *sorted(jacobi.VARIANTS)]
+#: TILE_CASES, and windows that fill their pitch with the planes shifted by
+#: 2 (tile width 44, halo 2: the first sub-step takes the scalar map) or by
+#: 1 and 3 (width 42, halo 3), and the law's 56x112 at p=8.
+VECTOR_CASES = TILE_CASES + [
+    ((200, 300), (16, 44), 2, 0, 0, 2),
+    ((200, 300), (16, 42), 3, 1, 0, 9),
+    ((1024, 1024), (56, 112), 8, 0, 0, 8),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", VECTOR_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-t{c[1][0]}x{c[1][1]}-p{c[2]}")
+@pytest.mark.parametrize("op", VECTOR_OPS)
+def test_vector_map_matches_plain_version_bit_for_bit(cuda, op, case):
+    """HotSpot and every Jacobi functor through the vector map's interior
+    tiles (and the scalar map's edge tiles) equal the plain version exactly,
+    and the launch counts as a vector-map launch."""
+    shape, tile, p, i_start, offset, n = case
+    cell, tf, halo, _ = _case(op, shape, 17, cuda, iteration=i_start)
+    kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+    before = (tp.launches, tp.vector_launches)
+    got = tp.tile_pass(cell, tf, halo, tile=tile, **kw)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert (tp.launches, tp.vector_launches) == (before[0] + 1, before[1] + 1)
+    assert _max_err(got, want) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["conway", "hotspot__bf16", "fdtd_coef", "probe", "convection_thermal_f32"])
+def test_other_functors_keep_the_scalar_map(cuda, op):
+    cell, tf, halo, _ = _case(op, (45, 70), 3, cuda)
+    before = (tp.launches, tp.vector_launches)
+    tp.tile_pass(cell, tf, halo, tile=(16, 32), i_start=0, offset=0, n_iterations=2, iters_per_pass=2)
+    assert (tp.launches, tp.vector_launches) == (before[0] + 1, before[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["hotspot", "jacobi5_general"])
+def test_every_launch_of_a_tiling_call_takes_the_vector_map(cuda, op):
+    """A tiling call at the law's geometry (2048^2, n=20: three passes)."""
+    cell, tf, halo, _ = _case(op, (2048, 2048), 5, cuda)
+    update = create_update(Params(transition_function=tf, n_iterations=20, halo_value=halo, blocking=True),
+                           backend="tiling")
+    before = (tp.launches, tp.vector_launches)
+    update(Grid(cell))
+    launches = tp.launches - before[0]
+    assert launches == 3 and tp.vector_launches - before[1] == launches
 
 
 @pytest.mark.gpu

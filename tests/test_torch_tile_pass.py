@@ -172,12 +172,28 @@ SASS = """
 """
 
 
+#: A run loop of the vector map: 16-byte loads and a store, a 4-byte load,
+#: shuffles, and an 8-byte load (each counted in 4-byte words).
+VECTOR_SASS = """
+        Function : _ZN2ss16tile_pass_kernelINS_16Jacobi5GeneralOpEEEvNS_12TilePassArgsIT_EES3_
+        /*0000*/                   LDS.128 R4, [R3] ;                      /* 0x0000000003047984 */
+        /*0010*/                   LDS R8, [R3+0x200] ;                    /* 0x0002000003087984 */
+        /*0020*/                   SHFL.IDX PT, R9, R7, R2, 0x1f ;         /* 0x00001f0207097589 */
+        /*0030*/                   SHFL.DOWN PT, R10, R4, 0x1, 0x1f ;      /* 0x08201f00040a7f89 */
+        /*0040*/                   LDS.64 R12, [R3+0x10] ;                 /* 0x00001000030c7984 */
+        /*0050*/                   FFMA R11, R4, R5, R6 ;                  /* 0x000000050404b223 */
+        /*0060*/                   STS.128 [R5], R4 ;                      /* 0x0000000405007388 */
+        /*0070*/              @P0 BRA 0x0 ;                                /* 0xfffffffc00000947 */
+"""
+
+
 def test_run_loops_counts_only_the_innermost_shared_memory_loop():
     from stencilstream_tpu_torch.tile_sweep import run_loops
 
-    assert run_loops(SASS, "HotspotOp") == [{"instructions": 4, "LDS": 2, "STS": 1}]
-    assert run_loops(SASS, "ConwayOp") == [{"instructions": 3, "LDS": 1, "STS": 1}]
+    assert run_loops(SASS, "HotspotOp") == [{"instructions": 4, "LDS": 2, "STS": 1, "SHFL": 0}]
+    assert run_loops(SASS, "ConwayOp") == [{"instructions": 3, "LDS": 1, "STS": 1, "SHFL": 0}]
     assert run_loops(SASS, "ProbeOp") == []
+    assert run_loops(VECTOR_SASS, "Jacobi5GeneralOp") == [{"instructions": 8, "LDS": 7, "STS": 4, "SHFL": 2}]
 
 
 @pytest.mark.parametrize(
@@ -194,6 +210,49 @@ def test_thread_map_work_counts_whole_chunks_and_runs(tile, halo, radius, run, w
     from stencilstream_tpu_torch.tile_sweep import thread_map_work
 
     assert thread_map_work(tile, halo, radius, run) == pytest.approx(want)
+
+
+#: (tile, halo, run, sh): the law's tiles at p=8 (HotSpot's 56x112 and
+#: Jacobi5's 96x112), and the kernel tests' odd geometries: tiles narrower
+#: than 128 columns (windows not a multiple of 4 or 16 wide), ragged runs,
+#: p = 1 and 8.
+VECTOR_GEOMETRY = [
+    ((56, 112), 8, 8), ((96, 112), 8, 8), ((56, 112), 8, 4), ((64, 96), 8, 8), ((32, 64), 3, 8),
+    ((20, 32), 8, 8), ((8, 32), 2, 8), ((16, 32), 1, 8), ((16, 32), 4, 8), ((32, 64), 1, 4),
+]
+
+
+@pytest.mark.parametrize("sh", [0, 1, 2, 3])
+@pytest.mark.parametrize("tile, halo, run", VECTOR_GEOMETRY, ids=lambda v: str(v))
+def test_vector_map_covers_every_narrowed_window_inside_the_planes(tile, halo, run, sh):
+    """The vector map computes every cell of every narrowed window, reads
+    and writes only inside the CTA's plane, and writes no cell that a later
+    sub-step reads other than its own. With the planes unshifted it takes
+    every sub-step; with sh = 2 it gives the first to the scalar map where
+    the window fills the pitch."""
+    from stencilstream_tpu_torch.tile_sweep import vector_map_work
+
+    work = vector_map_work(tile, halo, 1, run, sh)
+    assert work["uncovered"] == 0 and work["clobbered"] == 0
+    assert 0 <= work["read"][0] and work["read"][1] < work["plane"]
+    assert 0 <= work["written"][0] and work["written"][1] < work["plane"]
+    window = tile[1] + 2 * halo
+    assert work["scalar_steps"] == (1 if sh == 2 and window % 16 == 0 else 0)
+
+
+def test_vector_map_at_the_laws_tile_computes_as_many_lanes_as_the_scalar_map():
+    """At the law's tiles, halo 8, the window is exactly 128 columns: as
+    many lane-cells a useful cell-step as the scalar map's 32-column chunks,
+    1.35 at 56x112."""
+    from stencilstream_tpu_torch.tile_sweep import thread_map_work, vector_map_work
+
+    lanes = vector_map_work((56, 112), 8, 1, 8)["lane_cells_per_cell_step"]
+    assert lanes == pytest.approx(67584 / 50176) == pytest.approx(thread_map_work((56, 112), 8, 1, 8)[0])
+    assert round(lanes, 2) == 1.35
+    assert vector_map_work((96, 112), 8, 1, 8)["lane_cells_per_cell_step"] == pytest.approx(
+        thread_map_work((96, 112), 8, 1, 8)[0])
+    with pytest.raises(ValueError, match="radius 1"):
+        vector_map_work((56, 112), 8, 2)
 
 
 @pytest.mark.parametrize("seen,want", [(5, 0.8), (4, 0.8), (10, 1.6), (9, 1.6)])

@@ -156,8 +156,11 @@ class StencilUpdateBase:
         :mod:`..tdv`): element ``i_rel`` is step ``i_rel``'s value."""
         p = self.params
         strategy = self._tdv_strategy()
-        with tracing.span("backends.tdv", strategy=type(strategy).__name__) if tracing.on else tracing.OFF:
-            return strategy.prepare(p.transition_function, int(p.iteration_offset), int(p.n_iterations), grid.device)
+        offset, n = int(p.iteration_offset), int(p.n_iterations)
+        span = (tracing.span("backends.tdv", strategy=type(strategy).__name__, offset=offset, n=n)
+                if tracing.on else tracing.OFF)
+        with span:
+            return strategy.prepare(p.transition_function, offset, n, grid.device)
 
     def require_device_op(self) -> str:
         """Check that the transition function can run on the CUDA kernels

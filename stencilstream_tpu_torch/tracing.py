@@ -17,8 +17,9 @@ call's id:
                             ``pick_linecache_config``, ``monotile``'s
                             ``require_plan``); attribute ``geometry``
 ``backends.tdv``            the call's time-dependent value stream
-                            (``StencilUpdateBase._tdv_stream``); attribute
-                            ``strategy``
+                            (``StencilUpdateBase._tdv_stream``); attributes
+                            ``strategy``, ``offset`` (the call's
+                            ``iteration_offset``), ``n`` (its iterations)
 ``kernels.launch``          one kernel wrapper, entry to return
                             (``tile_pass``, ``line_cache_pass``,
                             ``monotile``; on the CPU their plain versions);

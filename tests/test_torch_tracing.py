@@ -7,13 +7,15 @@ on the card (``python -m pytest --noconftest -m gpu
 tests/test_torch_tracing.py``). This file imports no JAX.
 """
 
+import ast
 import statistics
+from pathlib import Path
 
 import pytest
 import torch
 
-from stencilstream_tpu_torch import Grid, Params, create_update, tracing
-from stencilstream_tpu_torch.models import hotspot
+from stencilstream_tpu_torch import Grid, Params, create_update, tdv, tracing
+from stencilstream_tpu_torch.models import fdtd, hotspot
 
 STAGES = ["entry.call", "entry.check_no_grad", "backends.plan", "backends.tdv"]
 
@@ -71,7 +73,7 @@ def test_a_tiling_call_records_its_passes(mode, kernel):
     launches = [s for s in spans if s.name == "kernels.launch"]
     assert [s.attrs for s in launches] == [{"kernel": kernel, "pass_index": i} for i in range(3)]
     assert spans[2].attrs["geometry"]["iters_per_pass"] == 2
-    assert spans[3].attrs == {"strategy": "InlineTDV"}
+    assert spans[3].attrs == {"strategy": "InlineTDV", "offset": 0, "n": 5}
     _check_nesting(spans)
 
 
@@ -157,6 +159,53 @@ def test_a_span_lands_beside_a_record_function_on_the_profilers_timeline():
     assert len(marks) == len(spans) == 20
     gaps = [abs(m - s) / 1e3 for m, s in zip(marks, spans)]
     assert statistics.median(gaps) < 50, gaps
+
+
+def _fdtd(n, offset):
+    """FDTD's cut mono-benchmark at 64^2 (source on, detect passed), on the
+    CPU, its call's ``iteration_offset`` set as the snapshot loop sets it."""
+    p = fdtd.Parameters.from_json(fdtd.mono_benchmark(64))
+    update, resolver = fdtd.build_simulation(p, backend="tiling", n_iterations=n, iters_per_pass=2)
+    update.get_params().iteration_offset = offset
+    return update, fdtd.init_grid(p, resolver, device="cpu")
+
+
+@pytest.mark.parametrize("strategy", ["inline", "precompute_on_host"])
+def test_an_fdtd_call_counts_its_tdv_stream(strategy):
+    """One call: one stream evaluated, n values; the span carries both."""
+    update, grid = _fdtd(5, 3000)
+    update.get_params().tdv_strategy = strategy
+    before = (tdv.evaluations, tdv.values)
+    _, spans = _traced(update, grid)
+    assert (tdv.evaluations - before[0], tdv.values - before[1]) == (1, 5)
+    [span] = [s for s in spans if s.name == "backends.tdv"]
+    assert span.attrs["offset"] == 3000 and span.attrs["n"] == 5
+    update(grid)  # spans off: the counters count all the same
+    assert (tdv.evaluations - before[0], tdv.values - before[1]) == (2, 10)
+
+
+def test_a_call_without_a_tdv_counts_none():
+    grid = _grid(32, 64)
+    before = (tdv.evaluations, tdv.values)
+    _, spans = _traced(_update(grid, "auto", 4), grid)
+    assert (tdv.evaluations, tdv.values) == before
+    assert [s.attrs for s in spans if s.name == "backends.tdv"] == [{"strategy": "InlineTDV", "offset": 0, "n": 4}]
+
+
+def test_no_module_counts_launches_but_the_kernels():
+    """The benchmark takes a port module's integer ``launches`` for a kernel
+    module (``ss::<module>_kernel``): the TDV counters are named otherwise,
+    and the modules that count launches stay these five."""
+    package = Path(tdv.__file__).parent
+    counting = set()
+    for path in package.rglob("*.py"):
+        for node in ast.parse(path.read_text()).body:
+            targets = node.targets if isinstance(node, ast.Assign) else [getattr(node, "target", None)]
+            if any(isinstance(t, ast.Name) and t.id == "launches" for t in targets):
+                counting.add(str(path.relative_to(package)))
+    assert counting == {"backends/tile_pass.py", "backends/line_cache.py", "backends/monotile.py",
+                        "experiments/strip.py", "experiments/linecache.py"}
+    assert isinstance(tdv.evaluations, int) and not hasattr(tdv, "launches")
 
 
 @pytest.mark.gpu

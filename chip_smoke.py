@@ -643,7 +643,7 @@ def fit_tile(tile, p, cell, tf, limits) -> tuple:
     from stencilstream_tpu_torch.backends import cuda_lib
     from stencilstream_tpu_torch.backends.tile_pass import RUN_ROWS, tile_smem_bytes
 
-    cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
+    cell_bytes = cuda_lib.tile_cell_smem_bytes(cell, tf)
     while tile_smem_bytes(*tile, tf.stencil_radius * p * tf.n_subiterations, cell_bytes) > limits.smem_per_block:
         tile, p = (tile, p // 2) if p > 1 else ((max(RUN_ROWS, tile[0] // 2), tile[1]), p)
     return tile, p
@@ -1812,19 +1812,22 @@ def main() -> int:
         n_small, tol, expect = checks[name]
         for module in counters.values():
             module.launches = 0
-        tp.vector_launches = 0
+        tp.vector_launches = tp.inplace_launches = 0
         out, update = run(grid, n, **options)
         counts = {k: m.launches for k, m in counters.items()}
         runs[name], path_counts[name] = update, counts
         launched = {k for k, c in counts.items() if c}
         log(f"  {name}, n={n}: -> {getattr(update, 'resolved_backend', 'tiling')} "
-            f"{update.resolved_config or ''}; launches {counts} (vector map {tp.vector_launches}); walltime "
+            f"{update.resolved_config or ''}; launches {counts} (vector map {tp.vector_launches}, in place "
+            f"{tp.inplace_launches}); walltime "
             f"{update.get_walltime():.6f} s, {grid.shape[0] * grid.shape[1] * n / update.get_walltime() / 1e9:.3f} "
             f"GCell/s (host clock, build excluded) [{card}]")
         assert launched == expect, (name, counts)
         # Every tile pass of a functor that takes the vector map takes it.
         op = cuda_lib.require_device_op(update.params.transition_function)
         assert tp.vector_launches == (counts["tile_pass"] if cuda_lib.op_info(op)["vector_map"] else 0), name
+        # And every tile pass of a functor that updates in place, in place.
+        assert tp.inplace_launches == (counts["tile_pass"] if cuda_lib.op_info(op)["writes"] else 0), name
         for k in counters:
             totals[k] += counts[k]
         fields = cell_leaves(out.arrays)

@@ -51,6 +51,8 @@ __all__ = [
     "pointer_array",
     "require_device_op",
     "tdv_pointer",
+    "tile_cell_smem_bytes",
+    "tile_writes",
     "variant_outputs",
     "with_variant",
 ]
@@ -299,16 +301,20 @@ def _halo_bits(value: Any, field: torch.Tensor, view: torch.Tensor) -> float:
 def op_info(op: str) -> dict:
     """The functor's shape as compiled: radius, sub-iterations, field
     counts, parameter count, element dtype, the dtype of its
-    time-dependent value (``None`` when it takes none) and ``vector_map``,
+    time-dependent value (``None`` when it takes none), ``vector_map``,
     whether the tile pass's interior sub-steps take the vector thread map
-    (``csrc/tile_pass.cu``: ``vector_map``)."""
-    info = (ctypes.c_int * 10)()
+    (``csrc/tile_pass.cu``: ``vector_map``), and ``writes``, the variant
+    fields each sub-step writes as bit masks (bit j: variant field j) when
+    the tile pass updates the cells in place (``in_place``), else ``None``."""
+    info = (ctypes.c_int * 11)()
     entry("ss_op_info_", op)(info)
     keys = ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params")
     out = dict(zip(keys, info))
     out["dtype"] = _DTYPES[(info[5], info[6])]
     out["tdv_dtype"] = _DTYPES[(info[7], info[8])] if info[7] else None
     out["vector_map"] = bool(info[9])
+    nv = info[2]
+    out["writes"] = tuple(info[10] >> (s * nv) & ((1 << nv) - 1) for s in range(info[1])) if info[10] else None
     return out
 
 
@@ -465,11 +471,35 @@ def cell_traffic_bytes(arrays: Any, tf: Any) -> tuple[int, int]:
 
 
 def cell_smem_bytes(arrays: Any, tf: Any) -> int:
-    """Shared-memory bytes one cell takes in the tile-pass and resident-grid
-    kernels: two ping-pong copies of each variant field, one staged copy of
-    each invariant field (``csrc/common.cuh:cell_smem_bytes``)."""
+    """Shared-memory bytes one cell takes in the resident-grid kernel and in
+    the tile pass of a functor that does not update in place: two ping-pong
+    copies of each variant field, one staged copy of each invariant field
+    (``csrc/common.cuh:cell_smem_bytes``)."""
     variant, invariant = cell_field_bytes(arrays, tf)
     return 2 * variant + invariant
+
+
+def tile_writes(tf: Any) -> tuple[int, ...] | None:
+    """The variant fields each sub-step of ``tf``'s device functor writes,
+    as bit masks (bit j: ``tf.cuda_variant[j]``), when the tile pass updates
+    its cells in place; else ``None``. The transition function names them
+    (``cuda_writes``: the fields of each sub-step) as its functor declares
+    them (``csrc/tile_pass.cu``: ``in_place``, :func:`op_info`'s
+    ``writes``); narrow storage's functors declare none."""
+    writes = getattr(tf, "cuda_writes", None)
+    if writes is None or getattr(tf, "cuda_storage", None) is not None:
+        return None
+    variant = tuple(tf.cuda_variant)
+    return tuple(sum(1 << variant.index(f) for f in fields) for fields in writes)
+
+
+def tile_cell_smem_bytes(arrays: Any, tf: Any) -> int:
+    """Shared-memory bytes one cell takes in the tile-pass kernel: one plane
+    per variant field where it updates the cells in place
+    (:func:`tile_writes`), else two; one per invariant field
+    (``csrc/tile_pass.cu:tile_smem_bytes``)."""
+    variant, invariant = cell_field_bytes(arrays, tf)
+    return (1 if tile_writes(tf) else 2) * variant + invariant
 
 
 def with_variant(arrays: Any, fields: KernelFields, new_variant: list[torch.Tensor]) -> Any:

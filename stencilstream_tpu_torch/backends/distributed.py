@@ -36,7 +36,7 @@ from ..core.grid import Grid
 from ..parallel import Mesh, exchange_halo, make_mesh
 from ..tdv import step_value, stream_to
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import cell_smem_bytes, device_limits
+from .cuda_lib import device_limits, tile_cell_smem_bytes, tile_writes
 from .fused import fused_window_pass, halo_width
 from .tile_pass import tile_pass
 
@@ -143,7 +143,8 @@ class StencilUpdate(StencilUpdateBase):
             from .tiling import pick_config
 
             dev0 = devices[0, 0]
-            th, tw, _ = pick_config(h, w, r, k, n, cell_smem_bytes(grid.arrays, tf), device_limits(dev0), p)
+            th, tw, _ = pick_config(h, w, r, k, n, tile_cell_smem_bytes(grid.arrays, tf), device_limits(dev0), p,
+                                    in_place=tile_writes(tf) is not None)
             self.resolved_config.update(tile_rows=th, tile_cols=tw)
         # The fields the functor only reads never change: their extended
         # blocks from the first exchange serve every pass.

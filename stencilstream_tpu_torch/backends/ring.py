@@ -37,7 +37,7 @@ from ..core.grid import Grid
 from ..parallel import Mesh, make_mesh
 from ..tdv import step_value
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import cell_smem_bytes, device_limits
+from .cuda_lib import device_limits, tile_cell_smem_bytes, tile_writes
 from .distributed import per_device
 from .fused import fused_window_pass, halo_width
 from .tile_pass import tile_pass
@@ -117,7 +117,8 @@ class StencilUpdate(StencilUpdateBase):
         if kernel:
             from .tiling import pick_config
 
-            th, tw, _ = pick_config(ch, W, r, k, n, cell_smem_bytes(grid.arrays, tf), device_limits(devs[0]), p)
+            th, tw, _ = pick_config(ch, W, r, k, n, tile_cell_smem_bytes(grid.arrays, tf), device_limits(devs[0]), p,
+                                    in_place=tile_writes(tf) is not None)
             self.resolved_config.update(tile_rows=th, tile_cols=tw)
 
         # A lap streams through one buffer per position: rows look.. hold

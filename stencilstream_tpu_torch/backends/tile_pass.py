@@ -54,7 +54,7 @@ from .fused import fused_substep, halo_width, mask_out_of_grid
 
 __all__ = [
     "check_block", "count_launch", "tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes",
-    "launches", "vector_launches",
+    "launches", "vector_launches", "inplace_launches",
 ]
 
 #: Kernel launches made by :func:`tile_pass` (CUDA tensors only).
@@ -62,6 +62,9 @@ launches = 0
 #: Those of them whose functor takes the vector thread map in its interior
 #: sub-steps (``csrc/tile_pass.cu``: ``vector_map``; :func:`.cuda_lib.op_info`).
 vector_launches = 0
+#: Those of them whose functor's sub-steps update its cells in place
+#: (``csrc/tile_pass.cu``: ``in_place``; :func:`.cuda_lib.op_info`'s ``writes``).
+inplace_launches = 0
 
 #: Elements a shared-memory row pitch is rounded up to, and each plane's pad
 #: (``csrc/common.cuh``: ``kPitchAlign``).
@@ -74,11 +77,14 @@ RUN_ROWS = 8
 #: Rows of one thread's run in the vector thread map (``csrc/tile_pass.cu``:
 #: ``kQuadRun``), whose lanes take 4 adjacent columns each.
 QUAD_RUN = 8
+#: Rows of one thread's run in the in-place sub-steps (``csrc/tile_pass.cu``:
+#: ``kInPlaceRun``), whose last run is not shifted back inside the window.
+IN_PLACE_RUN = 4
 
 
 def tile_smem_bytes(tile_h: int, tile_w: int, halo: int, cell_bytes: int) -> int:
     """Dynamic shared memory of one tile-pass CTA (``csrc/tile_pass.cu``):
-    for each of the ``cell_bytes`` (:func:`.cuda_lib.cell_smem_bytes`), one
+    for each of the ``cell_bytes`` (:func:`.cuda_lib.tile_cell_smem_bytes`), one
     plane of window rows times a pitch of window columns rounded up to
     :data:`PITCH_ALIGN`, plus :data:`PITCH_ALIGN` elements."""
     pitch = -(-(tile_w + 2 * halo) // PITCH_ALIGN) * PITCH_ALIGN
@@ -236,12 +242,17 @@ def tile_pass(
 def count_launch(op: str) -> str:
     """Count one launch of the kernel for device functor ``op`` in
     :data:`launches`, and in :data:`vector_launches` if the functor takes the
-    vector thread map; returns the map, ``"vec4"`` or ``"scalar"``."""
-    global launches, vector_launches
+    vector thread map or in :data:`inplace_launches` if its sub-steps update
+    in place; returns the map, ``"vec4"``, ``"inplace"`` or ``"scalar"``."""
+    global launches, vector_launches, inplace_launches
     launches += 1
-    if op_info(op)["vector_map"]:
+    info = op_info(op)
+    if info["vector_map"]:
         vector_launches += 1
         return "vec4"
+    if info["writes"]:
+        inplace_launches += 1
+        return "inplace"
     return "scalar"
 
 

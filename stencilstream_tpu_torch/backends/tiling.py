@@ -29,21 +29,21 @@ import torch
 from .. import tracing
 from ..core.grid import Grid
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import DeviceLimits, cell_field_bytes, cell_smem_bytes, device_limits
+from .cuda_lib import DeviceLimits, cell_field_bytes, device_limits, tile_cell_smem_bytes, tile_writes
 from .fused import halo_width
 from .line_cache import line_cache_pass, pick_linecache_config
 from .tile_pass import RUN_ROWS, WARP, tile_pass, tile_smem_bytes
 
-__all__ = ["StencilUpdate", "pick_config", "TILE_LAW"]
+__all__ = ["StencilUpdate", "pick_config", "TILE_LAW", "IN_PLACE_LAW"]
 
 #: The tile-pass geometry that ran fastest per iteration at 8192^2 on an
 #: NVIDIA H100 80GB HBM3 at 700 W (``tile_sweep.py``; PERF.md), by the
 #: shared-memory bytes of one cell (:func:`.cuda_lib.cell_smem_bytes`):
 #: ``(tile_h, tile_w), halo r*p*k, CTAs per SM the window is sized for``.
-#: HotSpot 12 B, Jacobi 8 B, Conway 2 B, the probe 40 B (five int32 fields),
-#: FDTD's coef cell 48 B at 1024^2 (16x128, p=4: 36.6 us an iteration back
-#: to back and 24.2 us of kernel, against 29.6 us of kernel at the 40 B
-#: entry's 16x128, p=2, and half the passes for the host to launch).
+#: HotSpot 12 B, Jacobi 8 B, Conway 2 B, the probe 40 B (five int32 fields);
+#: 48 B was FDTD's coef cell at 1024^2 before its sub-steps ran in place
+#: (16x128, p=4: 24.2 us of kernel an iteration, against 29.6 us at the
+#: 40 B entry's 16x128, p=2, and half the passes for the host to launch).
 #: Convection's cells at 3072x1024 (k=3, ten variant fields; k=2 thermal),
 #: by profiler device time an iteration: the lean pseudo-transient cell,
 #: 76 B in float32, 24x64 at p=2 (241.6 us, against 272.3 at the 48 B
@@ -51,10 +51,11 @@ __all__ = ["StencilUpdate", "pick_config", "TILE_LAW"]
 #: so p=1: 8x128 (287.7 us); in float64 the lean cell, 152 B, 16x32 at p=2
 #: (399.6 us), the full one, 168 B, 8x64 at p=1 (553.7 us), and the thermal
 #: cell, 96 B, one iteration a call: 24x64 (196.7 us, against 247.8 at the
-#: shrunk 8x128). The float32 thermal cell, 48 B, shares FDTD's entry.
+#: shrunk 8x128). The float32 thermal cell, 48 B, keeps FDTD's old entry.
 #: Heights are whole 8-cell runs. The one-field cells' windows (core plus
 #: twice the halo) are whole 32-lane warps wide, so the sub-steps' narrowing
-#: windows waste fewer lanes than a core of whole warps would.
+#: windows waste fewer lanes than a core of whole warps would. Cells the tile
+#: pass updates in place take :data:`IN_PLACE_LAW` instead.
 TILE_LAW = {
     2: ((64, 240), 8, 2),
     8: ((96, 112), 8, 2),
@@ -68,12 +69,33 @@ TILE_LAW = {
     168: ((8, 64), 3, 1),
 }
 
+#: The law of cells the tile pass updates in place (one shared plane per
+#: variant field: :func:`.cuda_lib.tile_writes`), by the same bytes
+#: (:func:`.cuda_lib.tile_cell_smem_bytes`), apart from :data:`TILE_LAW`, so
+#: that no other cell's geometry moves. FDTD at 2048^2 (``tile_sweep.py
+#: --ops fdtd,fdtd_lut,fdtd_render --passes 4,5,6 --size 2048``; PERF.md),
+#: profiler device time a pass of p=4: the coef cell, 32 B, 32x128 (209.3
+#: us; 16x192 220.9, 32x96 239.4, 16x128 282.3, the ping-pong 16x128 334.5;
+#: at p=5 and 6 no tile under 65.2 and 56.4 us an iteration, against 52.3).
+#: The lut cell, 20 B, and the render cell, 16 B, run two CTAs an SM at
+#: 32x96: lut 324.9 us (24x128 324.1, 32x128 360.7, the ping-pong law's
+#: 28x32 675.9), render 314.5 (32x128 322.1, 28x32 1424.4); at 1024^2 the
+#: fastest for both (lut 109.3 us, 140.3 at 32x128, 177.7 at 28x32; render
+#: 110.7, 125.7, 365.0). p stays 4 or more: a launch costs the host ~0.1-0.15
+#: ms.
+IN_PLACE_LAW = {
+    16: ((32, 96), 8, 2),
+    32: ((32, 128), 8, 1),
+}
 
-def law_entry(cell_bytes: int):
-    """The :data:`TILE_LAW` entry of the largest tabulated cell not larger
-    than ``cell_bytes`` (the smallest one for a smaller cell)."""
-    fits = [b for b in TILE_LAW if b <= cell_bytes]
-    return TILE_LAW[max(fits) if fits else min(TILE_LAW)]
+
+def law_entry(cell_bytes: int, in_place: bool = False):
+    """The entry of :data:`TILE_LAW` (:data:`IN_PLACE_LAW` for a cell
+    updated in place) of the largest tabulated cell not larger than
+    ``cell_bytes`` (the smallest one for a smaller cell)."""
+    law = IN_PLACE_LAW if in_place else TILE_LAW
+    fits = [b for b in law if b <= cell_bytes]
+    return law[max(fits) if fits else min(law)]
 
 
 def pick_config(
@@ -85,11 +107,13 @@ def pick_config(
     cell_bytes: int,
     limits: DeviceLimits,
     iters_per_pass: int | None = None,
+    in_place: bool = False,
 ) -> tuple[int, int, int]:
     """Choose ``(tile_h, tile_w, iters_per_pass)`` from the device's shared
     memory.
 
-    The tile of :data:`TILE_LAW` for ``cell_bytes`` (no larger than the grid,
+    The tile of :data:`TILE_LAW` (:data:`IN_PLACE_LAW` for a cell the tile
+    pass updates in place) for ``cell_bytes`` (no larger than the grid,
     rounded up to whole runs and warps) and, unless given, the largest ``p``
     whose halo ``r*p*k`` stays within the law's halo. While the window
     (:func:`.tile_pass.tile_smem_bytes`) exceeds the law's share of the
@@ -98,7 +122,7 @@ def pick_config(
     was not given; then halve the core down to one run by one warp. The core
     is never smaller than the halo.
     """
-    (th, tw), halo, ctas = law_entry(cell_bytes)
+    (th, tw), halo, ctas = law_entry(cell_bytes, in_place)
     auto_p = iters_per_pass is None
     th = min(th, -(-height // RUN_ROWS) * RUN_ROWS)
     tw = min(tw, -(-width // WARP) * WARP)
@@ -201,7 +225,8 @@ class StencilUpdate(StencilUpdateBase):
             else:
                 th, tw, ipp = pick_config(
                     H, W, tf.stencil_radius, tf.n_subiterations, n,
-                    cell_smem_bytes(grid.arrays, tf), limits, self.iters_per_pass,
+                    tile_cell_smem_bytes(grid.arrays, tf), limits, self.iters_per_pass,
+                    in_place=tile_writes(tf) is not None,
                 )
                 self.resolved_config = dict(
                     window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp

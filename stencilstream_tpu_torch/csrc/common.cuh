@@ -19,7 +19,11 @@
 //                             Narrow below),
 // and, if its transition function has a time-dependent value (TDV),
 //   using Tdv                 the TDV's type (float for FDTD's source
-//                             amplitude, int for the probe's iteration).
+//                             amplitude, int for the probe's iteration),
+// and, if each sub-step changes only some variant fields and reads those
+// only at the cell itself (FDTD's leapfrog),
+//   kWrites[kSubiterations]   sub-step s's changed fields, bit f for field f
+//                             (the tile pass then updates them in place).
 // Its runtime parameters travel by value as a kernel argument on every
 // launch, so changing them never rebuilds anything. No kernel evaluates a
 // TDV: each launch gets a pointer to the call's stream of n values, which

@@ -122,6 +122,11 @@ struct FdtdT {
   static constexpr int kVariant = 4;
   static constexpr int kInvariant = Material::kInvariant;
   static constexpr int kParams = kFdtdCommonParams + Material::kTableParams;
+  // The Yee leapfrog: sub-step 0 changes ex and ey, sub-step 1 hz and
+  // hz_sum, and each reads the fields it changes only at the cell itself
+  // (the tile pass then updates one plane per field in place: tile_pass.cu,
+  // in_place).
+  static constexpr unsigned kWrites[kSubiterations] = {0b0011u, 0b1100u};
 
   int cutoff_iteration, detect_iteration;
   float source_r, source_c, source_distance_bound;

@@ -43,6 +43,16 @@
 //   is one 16-byte load, the side taps come from the neighbouring lanes by
 //   shuffles and the outputs go in one 16-byte store. Every other functor,
 //   and edge tiles, keep the map above.
+// * In-place sub-steps for functors that declare which variant fields each
+//   sub-step changes (Op::kWrites: FDTD's leapfrog, which reads a changed
+//   field only at the cell itself). Such a functor's window holds one plane
+//   per variant field, not two; sub-step s updates it in place, each cell
+//   by exactly one lane (the last chunk and run are not shifted back: the
+//   lanes and rows past the window skip), a lane a run of 4 rows, and
+//   stores only the fields of kWrites[s]. Sub-step s is a compile-time
+//   constant there, so the functor's tests of it fold and the other
+//   sub-step's loads go. The same arithmetic, the same bits. The freed
+//   memory buys a taller tile (backends/tiling.py: IN_PLACE_LAW).
 // * Edge-free interior tiles. One CTA-uniform test decides whether the whole
 //   window (compound halo included) lies inside the grid; such tiles run the
 //   sub-steps with no out-of-grid test. Edge tiles write the halo value into
@@ -87,7 +97,8 @@
 //
 // Layout of dynamic shared memory, one plane = window rows x pitch + 16
 // elements, pitch = window columns rounded up to 16 elements:
-//   [ping-pong buffer 0..2)[variant field][plane], then [invariant field][plane].
+//   [ping-pong buffer 0..2)[variant field][plane], then [invariant field][plane];
+//   in place, one buffer: [variant field][plane], then [invariant field][plane].
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -101,6 +112,10 @@ namespace ss {
 constexpr int kTileWarps = 16;  // warps per CTA
 constexpr int kTileThreads = 32 * kTileWarps;
 constexpr int kMinBlocks = 2;    // CTAs per SM the register budget is cut for
+// Rows of a thread's run in the in-place sub-steps (PERF.md: of 1, 2, 4 and
+// 8 within 64 registers, 4 measured fastest for FDTD's cells at 2048^2; 8
+// spills, and more registers at one CTA an SM ran no faster).
+constexpr int kInPlaceRun = 4;
 // Cells of at least this many bytes are staged out of line
 // (common.cuh: stage_block_outlined): inlined, the block arguments cost the
 // HotSpot and Jacobi5 8192^2 passes 2-5% in their sub-steps (PERF.md).
@@ -114,6 +129,29 @@ constexpr int kQuadRun = 8;
 template <class Op>
 __host__ __device__ constexpr bool vector_map() {
   return sizeof(typename Op::T) == 4 && Op::kVariant == 1 && Op::kInvariant <= 1 && Op::kRadius == 1;
+}
+
+template <class Op, class = void>
+struct DeclaresWrites : std::false_type {};
+template <class Op>
+struct DeclaresWrites<Op, std::void_t<decltype(Op::kWrites)>> : std::true_type {};
+
+// Whether the tile pass updates a functor's cells in place: it declares the
+// variant fields each sub-step changes (Op::kWrites).
+template <class Op>
+__host__ __device__ constexpr bool in_place() {
+  return DeclaresWrites<Op>::value;
+}
+
+// Op::kWrites[s] as a scalar constant, which device code can read (an
+// element of a host array is not one there).
+template <class Op, int s>
+constexpr unsigned kWritten = Op::kWrites[s];
+
+// Shared planes per variant field: two to ping-pong between, one in place.
+template <class Op>
+__host__ __device__ constexpr int variant_planes() {
+  return in_place<Op>() ? 1 : 2;
 }
 
 // One field's window, staged (common.cuh: stage_block).
@@ -206,6 +244,94 @@ __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const G& g, c
     for (int k = 0; k < V; ++k)
 #pragma unroll
       for (int f = 0; f < NV; ++f) d0[f * g.plane + k * g.pitch] = out[k][f];
+    jx += kTileWarps;
+    while (jx >= n_chunks) jx -= n_chunks, ++jy;
+  }
+}
+
+// A run of kInPlaceRun cells down one column of sub-step kSub of an
+// in-place functor, at window row r and column c of the planes at `var`:
+// computed, then the fields of kWritten<Op, kSub> stored. kMasked: only its
+// first n rows lie in the narrowed window; the others skip. A run wholly
+// inside it takes the body without those tests, so the compiler loads each
+// tap that its cells share once.
+template <class Op, bool kEdge, int kSub, bool kMasked, class G>
+__device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G& g, const Op& op,
+                                             typename Op::T* var, const typename Op::T* inv, int r, int c,
+                                             int n, int row0, int col0, int H, int W, int iteration,
+                                             tdv_t<Op> tdv) {
+  using T = typename Op::T;
+  constexpr int NV = Op::kVariant;
+  constexpr int R = Op::kRadius;
+  constexpr int V = kInPlaceRun;
+  constexpr unsigned kStored = kWritten<Op, kSub>;
+  const int gr = row0 + r;
+  const int gc = col0 + c;
+  const bool col_in = gc >= 0 && gc < W;
+  T out[V][NV];
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (kMasked && k >= n) continue;
+    if (kEdge && (!col_in || gr + k < 0 || gr + k >= H)) {
+#pragma unroll
+      for (int f = 0; f < NV; ++f) out[k][f] = a.f.halo_var[f];
+    } else {
+      if (!kEdge) {
+        // As in substep: an interior tile's computed cells have all their
+        // neighbours in the grid.
+        __builtin_assume(gr + k >= R && gr + k < H - R && gc >= R && gc < W - R);
+      }
+      const Taps<T, tdv_t<Op>> t{var + (r + k) * g.pitch + c, inv + (r + k) * g.pitch + c,
+                                 g.plane, g.plane, g.pitch, gr + k, gc, H, W, iteration, kSub, tdv};
+      op(t, out[k]);
+    }
+  }
+  T* d0 = var + r * g.pitch + c;
+#pragma unroll
+  for (int k = 0; k < V; ++k) {
+    if (kMasked && k >= n) continue;
+#pragma unroll
+    for (int f = 0; f < NV; ++f)
+      if (kStored >> f & 1u) d0[f * g.plane + k * g.pitch] = out[k][f];
+  }
+}
+
+// Sub-step `sub` of an in-place functor over the window narrowed by m per
+// side, the planes at `var` updated in place; each sub-step is its own
+// instantiation (kSub), chosen by a branch that is uniform across the CTA.
+// The thread map is substep's with runs of kInPlaceRun rows, but each cell
+// of the narrowed window is computed by exactly one lane: neither the last
+// chunk nor the last run is shifted back inside the window (a shifted lane
+// would read a cell another lane has already updated); the lanes and rows
+// past the window skip.
+template <class Op, bool kEdge, int kSub = 0, class G>
+__device__ __forceinline__ void substep_in_place(const TilePassArgs<Op>& a, const G& g, const Op& op,
+                                                 typename Op::T* var, const typename Op::T* inv, int m,
+                                                 int row0, int col0, int H, int W, int iteration, int sub,
+                                                 tdv_t<Op> tdv) {
+  if constexpr (kSub + 1 < Op::kSubiterations) {
+    if (sub != kSub) {
+      substep_in_place<Op, kEdge, kSub + 1>(a, g, op, var, inv, m, row0, col0, H, W, iteration, sub, tdv);
+      return;
+    }
+  }
+  constexpr int V = kInPlaceRun;
+  const int WH = a.tile_h + 2 * a.halo;
+  const int WW = a.tile_w + 2 * a.halo;
+  const int n_runs = (WH - 2 * m + V - 1) / V;
+  const int n_chunks = (WW - 2 * m + 31) >> 5;
+  int jx = threadIdx.y, jy = 0;
+  while (jx >= n_chunks) jx -= n_chunks, ++jy;
+  while (jy < n_runs) {
+    const int r = m + jy * V;
+    const int c = m + (jx << 5) + threadIdx.x;
+    if (c < WW - m) {
+      if (r + V <= WH - m)
+        in_place_run<Op, kEdge, kSub, false>(a, g, op, var, inv, r, c, V, row0, col0, H, W, iteration, tdv);
+      else
+        in_place_run<Op, kEdge, kSub, true>(a, g, op, var, inv, r, c, WH - m - r, row0, col0, H, W, iteration,
+                                            tdv);
+    }
     jx += kTileWarps;
     while (jx >= n_chunks) jx -= n_chunks, ++jy;
   }
@@ -370,7 +496,7 @@ __device__ __forceinline__ void substep_quads(const TilePassArgs<Op>& a, const O
 }
 
 // The pass's sub-steps on one staged tile; returns the buffer holding the
-// result (`cur` or `other`). `sh`: the planes' shift (window column c is
+// result (`cur` or `other`; `cur` in place). `sh`: the planes' shift (window column c is
 // 16-byte aligned where (sh + c) % 4 == 0).
 //
 // Interior sub-steps of a functor with vector_map<Op>() take substep_quads,
@@ -396,7 +522,9 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
     if (iteration >= a.i_end) break;
     const int m = R * (s + 1);
     const tdv_t<Op> tdv = read_tdv<Op>(a.tdv, iteration - a.offset);
-    if constexpr (!kEdge && vector_map<Op>()) {
+    if constexpr (in_place<Op>()) {
+      substep_in_place<Op, kEdge>(a, g, op, cur, inv, m, row0, col0, H, W, iteration, s % K, tdv);
+    } else if constexpr (!kEdge && vector_map<Op>()) {
       const int WW = a.tile_w + 2 * a.halo;
       const int gl = ((sh + m) & ~3) - sh;           // first column of the first group
       const int ge = ((sh + WW - m + 3) & ~3) - sh;  // end of the last group
@@ -409,9 +537,11 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
       substep<Op, kEdge>(a, g, op, cur, other, inv, m, row0, col0, H, W, iteration, s % K, tdv);
     }
     __syncthreads();
-    typename Op::T* t = cur;
-    cur = other;
-    other = t;
+    if constexpr (!in_place<Op>()) {
+      typename Op::T* t = cur;
+      cur = other;
+      other = t;
+    }
   }
   return cur;
 }
@@ -437,9 +567,9 @@ tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
   // Shift every plane so that its rows' shared and global addresses agree
   // modulo 16 bytes.
   const int sh = bc0 & (16 / static_cast<int>(sizeof(T)) - 1);
-  T* cur = reinterpret_cast<T*>(smem_raw) + sh;  // [2][NV][plane]
-  T* other = cur + NV * a.plane;
-  T* inv = cur + 2 * NV * a.plane;                // [NI][plane]
+  T* cur = reinterpret_cast<T*>(smem_raw) + sh;  // [variant_planes][NV][plane]
+  T* other = cur + (variant_planes<Op>() - 1) * NV * a.plane;
+  T* inv = cur + variant_planes<Op>() * NV * a.plane;  // [NI][plane]
 
 #pragma unroll
   for (int f = 0; f < NV; ++f)
@@ -499,7 +629,7 @@ tile_pass_kernel(const TilePassArgs<Op> a, const Op op) {
 template <class Op>
 size_t tile_smem_bytes(const TilePassArgs<Op>& a) {
   return sizeof(typename Op::T) * static_cast<size_t>(a.plane) *
-         (2 * Op::kVariant + Op::kInvariant);
+         (variant_planes<Op>() * Op::kVariant + Op::kInvariant);
 }
 
 // Fill the geometry of a launch over an h x w core; returns false for a tile
@@ -593,7 +723,8 @@ constexpr int element_kind() {
 // Shape of a functor, for the Python wrapper's checks: {radius,
 // n_subiterations, n_variant, n_invariant, n_params, element bytes,
 // element kind, TDV bytes (0: it takes none), TDV is floating point,
-// the tile pass takes the vector map}.
+// the tile pass takes the vector map, the fields each sub-step s writes in
+// place (Op::kWrites[s] at bits s * n_variant up; 0: not in place)}.
 template <class Op>
 int op_info(int* info) {
   using D = tdv_t<Op>;
@@ -608,6 +739,10 @@ int op_info(int* info) {
   info[7] = kTdv ? static_cast<int>(sizeof(D)) : 0;
   info[8] = std::is_floating_point<D>::value ? 1 : 0;
   info[9] = vector_map<Op>() ? 1 : 0;
+  info[10] = 0;
+  if constexpr (in_place<Op>())
+    for (int s = 0; s < Op::kSubiterations; ++s)
+      info[10] |= static_cast<int>(Op::kWrites[s] << (s * Op::kVariant));
   return 0;
 }
 

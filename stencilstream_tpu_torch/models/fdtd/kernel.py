@@ -42,6 +42,10 @@ class FDTDKernel:
     #: The device functor's variant fields; the rest of the cell (the coef
     #: resolver's coefficients, the lut resolver's ring index) is invariant.
     cuda_variant = ("ex", "ey", "hz", "hz_sum")
+    #: The fields each sub-step changes (the Yee leapfrog), each read only at
+    #: the cell itself, as the functor declares them (``kWrites``): the tile
+    #: pass updates them in place.
+    cuda_writes = (("ex", "ey"), ("hz", "hz_sum"))
     #: The type of the TDV stream the functor reads: the source amplitude.
     cuda_tdv = torch.float32
     #: Float32 operations per cell and iteration on cell data, a fused

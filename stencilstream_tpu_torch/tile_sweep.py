@@ -2,7 +2,7 @@
 
     python -m stencilstream_tpu_torch.tile_sweep [--out sweep.jsonl]
         [--parts grid,sass,linecache,linecache-sass,monotile] [--ops hotspot,jacobi5,conway,probe,fdtd]
-        (also --ops convection_pt_f32,convection_pt_lean_f64,convection_thermal_f32,...)
+        (also --ops convection_pt_f32,convection_pt_lean_f64,convection_thermal_f32,...) [--size 2048]
         [--passes 2,4,8] [--strips 16,32,64] [--windows 64,128] [--waves 1,2,3]
         [--qs 1,2,4,8] [--threads 1024,512]
 
@@ -10,15 +10,18 @@ Five parts, each printing one JSON line per measurement:
 
 * ``grid``: one pass at each (tile, p) whose window fits one block's shared
   memory, for HotSpot (12 B a cell in shared memory), Jacobi5 (8 B), Conway
-  (2 B) and the probe (40 B) at 8192^2, and FDTD's coef cell (48 B) at
-  1024^2 on smaller tiles (:data:`FDTD_TILES`; also its lut and render
-  cells, ``fdtd_lut`` and ``fdtd_render``), and the convection functors
+  (2 B) and the probe (40 B) at 8192^2, and FDTD's coef cell (32 B, updated
+  in place) at 1024^2 on smaller tiles (:data:`FDTD_TILES`; also its lut and
+  render cells, ``fdtd_lut`` and ``fdtd_render``; ``--size`` sets another
+  side for all of these), and the convection functors
   (``convection_{pt,pt_lean,thermal}_{f32,f64}``, 48-168 B, k=3 and 2) at
   the JAX bench's 3072x1024 on :data:`CONVECTION_TILES`, with the CTAs per SM that
   the CUDA occupancy calculator reports, the time of a pass with no step
   active (staging and write-back alone, ``copy_ms``), and the cells the
   thread map computes per useful cell-step (:func:`thread_map_work`, or
-  :func:`vector_map_work` for a functor that takes the vector map).
+  :func:`vector_map_work` for a functor that takes the vector map; the
+  in-place map computes as many as the scalar one at its run length,
+  :func:`in_place_map_work`).
   Compare ``ms_per_iteration``; ``device_ms`` is the kernel's own device
   time (``torch.profiler``), which a pass shorter than its host call
   (FDTD's) needs, since back-to-back calls then leave the card idle.
@@ -27,7 +30,9 @@ Five parts, each printing one JSON line per measurement:
   shared memory and hold no other such loop (the run loops of the interior
   and the edge sub-steps), with their instructions, shared loads (``LDS``)
   and stores (``STS``) in 4-byte words, and shuffles (``SHFL``), and the
-  shared words loaded per cell-step (``LDS`` x variant fields / ``STS``).
+  shared words loaded per cell-step (``LDS`` x fields a cell-step stores /
+  ``STS``); and a digest of the whole instantiation's instructions
+  (``sass_sha256``), which shows whether a change to the source moved it.
 * ``linecache``: one line-cache pass at each (strip, window, p, waves) whose
   CTA fits one block's shared memory, same cases and size, the panel being
   the window less both halos and the segments those of the law
@@ -56,6 +61,7 @@ CUDA card; there is no CPU fallback.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import itertools
 import json
 import re
@@ -78,7 +84,8 @@ from .trace_cells import JACOBI5_COEFS, convection_experiment
 from . import probe
 
 __all__ = [
-    "extended_blocks", "main", "line_cache_work", "mono_work", "run_loops", "thread_map_work", "vector_map_work",
+    "extended_blocks", "in_place_map_work", "main", "line_cache_work", "mono_work", "run_loops", "thread_map_work",
+    "vector_map_work",
     "TILES", "PASSES",
 ]
 
@@ -89,10 +96,12 @@ TILES = [(32, 64), (64, 64), (64, 96), (32, 128), (64, 128), (128, 64), (96, 96)
          (32, 192), (128, 128), (64, 256), (32, 256),
          (32, 112), (40, 112), (48, 112), (56, 112), (64, 112), (80, 112), (96, 112),
          (32, 240), (48, 240), (64, 240)]
-#: Core tiles of FDTD's geometry sweep: its 48 B cells leave room for
-#: windows of ~4.8k cells; one cell a thread, so heights need not be runs.
+#: Core tiles of FDTD's geometry sweep: its 32 B cells (in place) leave room
+#: for windows of ~7.2k cells, the lut cell's 20 B and the render cell's 16 B
+#: for more; one cell a thread, so heights need not be runs.
 FDTD_TILES = [(8, 64), (8, 128), (16, 64), (16, 96), (16, 128), (16, 192), (24, 64), (24, 96),
-              (24, 128), (32, 64), (32, 96), (32, 128), (48, 64), (64, 64)]
+              (24, 128), (32, 64), (32, 96), (32, 128), (48, 64), (64, 64), (40, 128), (48, 128),
+              (24, 192), (32, 192), (16, 256), (64, 96), (96, 64)]
 #: Core tiles of the convection functors' geometry sweep: their 48-168 B
 #: cells (k=3 for the pseudo-transient ones) leave room for windows of 1.4k
 #: to 4.8k cells; one cell a thread for ten variant fields.
@@ -103,8 +112,10 @@ CONVECTION_SHAPE = (3072, 1024)
 #: Iterations per pass of the geometry sweep.
 PASSES = [2, 4, 6, 8, 12, 16]
 SIZE = 8192
-#: Grid side of the grid and line-cache sweeps where it is not SIZE: FDTD's
-#: main path runs 1024^2.
+#: Warps of a tile-pass CTA (``csrc/tile_pass.cu``: ``kTileWarps``).
+KERNEL_WARPS = 16
+#: Grid side of the grid and line-cache sweeps where it is not SIZE (unless
+#: ``--size`` sets one): FDTD's upstream mono-benchmark runs 1024^2.
 SIZES = {"fdtd": 1024}
 #: Strip heights and window widths (panel + both halos) of the line-cache
 #: sweep: whole runs, and whole warps.
@@ -115,7 +126,7 @@ WINDOWS = [64, 96, 128, 160, 192, 256]
 MONO_SIZES = {"hotspot": 1024, "jacobi5": 1024, "probe": 600, "fdtd": 512, "convection": (384, 128)}
 #: Device functor of each swept case, as ptxas names its instantiation.
 FUNCTORS = {"hotspot": "HotspotOp", "jacobi5": "Jacobi5GeneralOp", "conway": "ConwayOp", "probe": "ProbeOp",
-            "fdtd": "FdtdCoefOp"}
+            "fdtd": "FdtdCoefOp", "fdtd_lut": "FdtdLutOp", "fdtd_render": "FdtdRenderOp"}
 
 
 def fdtd_case(device, size, resolver="coef"):
@@ -216,11 +227,11 @@ def extended_blocks(core: tuple[int, int], halo: int, extra: tuple[int, int] = (
     return blocks
 
 
-def cases(device, size=SIZE, ops=("hotspot", "jacobi5", "conway", "probe")):
-    """name -> (cell, transition function, halo cell) at size^2 (FDTD's at
-    its own size, :data:`SIZES`) for each of ``ops``."""
+def cases(device, size=None, ops=("hotspot", "jacobi5", "conway", "probe")):
+    """name -> (cell, transition function, halo cell) at size^2 for each of
+    ``ops`` (by default :data:`SIZE`, FDTD's :data:`SIZES`)."""
     rng = np.random.default_rng(5)
-    shape = (size, size)
+    shape = (size or SIZE, size or SIZE)
     hs = hotspot.HotspotCell(
         temp=torch.tensor(rng.uniform(70, 90, shape).astype(np.float32), device=device),
         power=torch.tensor(rng.uniform(0, 1e-3, shape).astype(np.float32), device=device),
@@ -239,8 +250,7 @@ def cases(device, size=SIZE, ops=("hotspot", "jacobi5", "conway", "probe")):
         if op.startswith("convection"):
             work[op] = convection_sweep_case(device, op)
         if op.startswith("fdtd"):
-            work[op] = fdtd_case(device, SIZES["fdtd"] if size == SIZE else size,
-                                 "coef" if op == "fdtd" else op[len("fdtd_"):])
+            work[op] = fdtd_case(device, size or SIZES["fdtd"], "coef" if op == "fdtd" else op[len("fdtd_"):])
     return {op: work[op] for op in ops}
 
 
@@ -321,6 +331,49 @@ def vector_map_work(tile, halo: int, radius: int, run: int = tp.QUAD_RUN, sh: in
                 uncovered=uncovered, clobbered=clobbered, scalar_steps=scalar_steps)
 
 
+def in_place_map_work(tile, halo: int, radius: int, run: int = tp.IN_PLACE_RUN, in_place: bool = True) -> dict:
+    """A model of the tile pass's scalar thread map (``csrc/tile_pass.cu``:
+    ``substep``) over the sub-steps of one tile: sub-step s computes the
+    window narrowed by m = r*(s+1) per side, each warp taking (32-column
+    chunk, run of ``run`` rows) pairs dealt round-robin. In place, the last
+    chunk and the last run keep their places and the lanes and rows past the
+    window skip; otherwise (``in_place=False``, the ping-pong map, one-cell
+    runs for multi-field cells) they are shifted back inside the window.
+    Returns the lane-cells per useful cell-step (core cells x sub-steps) and,
+    over all sub-steps, the narrowed windows' cells no lane stores
+    (``uncovered``) or more than one lane stores (``stored_twice``: in
+    place, a second lane would read a cell another has updated), and the
+    stores outside them (``outside``)."""
+    th, tw = tile
+    wh, ww = th + 2 * halo, tw + 2 * halo
+    lanes = np.arange(tp.WARP)
+    lane_cells = uncovered = twice = outside = 0
+    steps = halo // radius
+    for s in range(steps):
+        m = radius * (s + 1)
+        n_runs, n_chunks = -(-(wh - 2 * m) // run), -(-(ww - 2 * m) // tp.WARP)
+        stores = np.zeros((wh, ww), int)
+        for warp in range(KERNEL_WARPS):
+            jx, jy = warp % n_chunks, warp // n_chunks
+            while jy < n_runs:
+                r = m + run * jy if in_place else min(m + run * jy, wh - m - run)
+                rows = np.arange(r, min(r + run, wh - m) if in_place else r + run)
+                c = (m + 32 * jx if in_place else min(m + 32 * jx, ww - m - 32)) + lanes
+                if in_place:
+                    c = c[c < ww - m]
+                for row in rows:
+                    np.add.at(stores[row], c, 1)
+                lane_cells += tp.WARP * run
+                jx += KERNEL_WARPS
+                jy, jx = jy + jx // n_chunks, jx % n_chunks
+        inner = stores[m : wh - m, m : ww - m]
+        uncovered += int((inner == 0).sum())
+        twice += int((inner > 1).sum())
+        outside += int(stores.sum() - inner.sum())
+    return dict(lane_cells_per_cell_step=lane_cells / (th * tw * steps), uncovered=uncovered, stored_twice=twice,
+                outside=outside)
+
+
 def line_cache_work(panel: int, halo: int, radius: int, strip: int, segment: int, warmup: int) -> float:
     """Lane-cells the line-cache kernel's thread map computes per useful
     cell-step (core cells x halo/radius levels) on a segment that is not
@@ -374,6 +427,14 @@ def _shared_words(body: list[str], mnemonic: str) -> int:
     return words
 
 
+def kernel_code(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list[tuple[int, str]]:
+    """``(address, instruction)`` of ``functor``'s own instantiation of
+    ``kernel`` in a ``cuobjdump -sass`` listing."""
+    name = f"_ZN2ss{len(kernel)}{kernel}INS_{len(functor)}{functor}E"
+    chunk = next((c for c in sass.split("Function : ")[1:] if c.startswith(name)), "")
+    return [(int(a, 16), op) for a, op in _SASS_INSTRUCTION.findall(chunk)]
+
+
 def run_loops(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list[dict]:
     """The run loops of ``functor``'s ``kernel`` in a ``cuobjdump -sass``
     listing: loops (spans closed by a backward branch) that load and store
@@ -381,9 +442,7 @@ def run_loops(sass: str, functor: str, kernel: str = "tile_pass_kernel") -> list
     other such loop; over the loop's body, its ``instructions``, the 4-byte
     words its shared loads (``LDS``) and stores (``STS``) move (a ``.128``
     access counts 4, a ``.64`` 2, any other 1) and its shuffles (``SHFL``)."""
-    name = f"_ZN2ss{len(kernel)}{kernel}INS_{len(functor)}{functor}E"  # the functor's own instantiation
-    chunk = next((c for c in sass.split("Function : ")[1:] if c.startswith(name)), "")
-    code = [(int(a, 16), op) for a, op in _SASS_INSTRUCTION.findall(chunk)]
+    code = kernel_code(sass, functor, kernel)
     loops = []
     for addr, op in code:
         branch = _BACKWARD_BRANCH.search(op)
@@ -468,6 +527,8 @@ def main(argv=None) -> int:
     parser.add_argument("--qs", default="1,2,4,8", help="sub-steps per exchange of the monotile part")
     parser.add_argument("--threads", default="1024,512", help="threads per CTA of the monotile part")
     parser.add_argument("--mono-n", type=int, default=1000, help="iterations of one monotile call")
+    parser.add_argument("--size", type=int, help=f"grid side of the grid and line-cache sweeps (default {SIZE}, "
+                                                  f"FDTD's {SIZES['fdtd']})")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("tile_sweep: no CUDA device is available", file=sys.stderr)
@@ -520,7 +581,7 @@ def main(argv=None) -> int:
             del cell, want
         if parts == {"monotile"}:
             return _write(args.out, lines)
-    work = cases(device, ops=tuple(args.ops.split(",")))
+    work = cases(device, args.size, ops=tuple(args.ops.split(",")))
     plain_cache = {}
 
     def plain(op, p):
@@ -535,8 +596,9 @@ def main(argv=None) -> int:
         emit(dict(part="build", ptxas=kernel_report(cuda_lib.build()[2], "tile_pass_kernel")))
         for op in args.ops.split(","):
             cell, tf, halo = work[op]
-            cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
-            run = tp.RUN_ROWS if cuda_lib.op_info(tf.cuda_op)["n_variant"] == 1 else 1
+            cell_bytes = cuda_lib.tile_cell_smem_bytes(cell, tf)
+            info = cuda_lib.op_info(tf.cuda_op)
+            run = tp.RUN_ROWS if info["n_variant"] == 1 else tp.IN_PLACE_RUN if info["writes"] else 1
             for p in map(int, args.passes.split(",")):
                 stream = tdv_stream(tf, 0, p, device)
                 tiles = FDTD_TILES if op.startswith("fdtd") else CONVECTION_TILES if op.startswith("convection") else TILES
@@ -551,7 +613,7 @@ def main(argv=None) -> int:
                     dev_ms = device_ms(fn, 5)
                     copy_ms = timed(lambda: run_pass(cell, tf, halo, tile, p, 0), 5)
                     lanes, window = thread_map_work(tile, hp, tf.stencil_radius, run)
-                    if cuda_lib.op_info(tf.cuda_op)["vector_map"]:
+                    if info["vector_map"]:
                         lanes = vector_map_work(tile, hp, tf.stencil_radius)["lane_cells_per_cell_step"]
                     emit(dict(part="grid", op=op, size=list(cell_leaves(cell)[0].shape), cell_bytes=cell_bytes,
                               tile=list(tile), p=p, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
@@ -603,15 +665,23 @@ def main(argv=None) -> int:
         for op, functor in FUNCTORS.items():
             if op not in work:
                 continue
-            n_variant = cuda_lib.op_info(work[op][1].cuda_op)["n_variant"]
-            # A run loop stores a whole run; the line cache's carry copies
-            # (one word loaded and stored a trip) are not run loops.
-            run = tp.RUN_ROWS if n_variant == 1 else 1
-            loops = [lp for lp in run_loops(sass, functor, kernel) if lp["STS"] >= run * n_variant]
+            info = cuda_lib.op_info(work[op][1].cuda_op)
+            # Fields a cell-step stores: every variant one, or in the tile
+            # pass those its sub-step writes in place (as many in each).
+            stored = info["n_variant"]
+            if info["writes"] and kernel == "tile_pass_kernel":
+                stored = bin(info["writes"][0]).count("1")
+            # A run loop stores a whole run (in place, a run of masked rows:
+            # each row's stores); the line cache's carry copies (one word
+            # loaded and stored a trip) are not run loops.
+            run = tp.RUN_ROWS if info["n_variant"] == 1 else 1
+            loops = [lp for lp in run_loops(sass, functor, kernel) if lp["STS"] >= run * stored]
+            code = "\n".join(ins for _, ins in kernel_code(sass, functor, kernel))
             emit(dict(part=part, op=op, run_loops=loops,
-                      lds_per_cell_step=[lp["LDS"] * n_variant / lp["STS"] for lp in loops],
-                      shfl_per_cell_step=[lp["SHFL"] * n_variant / lp["STS"] for lp in loops],
-                      instructions_per_cell_step=[lp["instructions"] * n_variant / lp["STS"] for lp in loops]))
+                      lds_per_cell_step=[lp["LDS"] * stored / lp["STS"] for lp in loops],
+                      shfl_per_cell_step=[lp["SHFL"] * stored / lp["STS"] for lp in loops],
+                      instructions_per_cell_step=[lp["instructions"] * stored / lp["STS"] for lp in loops],
+                      sass_sha256=hashlib.sha256(code.encode()).hexdigest()))
     return _write(args.out, lines)
 
 

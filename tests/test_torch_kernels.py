@@ -210,12 +210,25 @@ def test_every_functor_is_instantiated_in_every_kernel():
 def test_tile_pass_counts_vector_map_launches_by_the_functors_info(monkeypatch, vector):
     """Each launch counts in ``launches``, and in ``vector_launches`` when the
     functor's compiled info says it takes the vector map."""
-    monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": vector and op == "hotspot"})
+    monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": vector and op == "hotspot", "writes": None})
     monkeypatch.setattr(tp, "launches", 5)
     monkeypatch.setattr(tp, "vector_launches", 2)
     assert tp.count_launch("hotspot") == ("vec4" if vector else "scalar")
     assert tp.count_launch("conway") == "scalar"
     assert (tp.launches, tp.vector_launches) == (7, 3 if vector else 2)
+
+
+def test_tile_pass_counts_in_place_launches_by_the_functors_info(monkeypatch):
+    """A launch whose functor updates in place counts in ``inplace_launches``
+    and names the map ``inplace``; the others do not count there."""
+    monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": op == "hotspot",
+                                                   "writes": (3, 12) if op == "fdtd_coef" else None})
+    monkeypatch.setattr(tp, "launches", 0)
+    monkeypatch.setattr(tp, "vector_launches", 0)
+    monkeypatch.setattr(tp, "inplace_launches", 0)
+    assert [tp.count_launch(op) for op in ("fdtd_coef", "hotspot", "conway", "fdtd_coef")] == [
+        "inplace", "vec4", "scalar", "inplace"]
+    assert (tp.launches, tp.vector_launches, tp.inplace_launches) == (4, 1, 2)
 
 
 def test_bool_fields_reach_the_kernels_as_uint8_views():
@@ -308,6 +321,80 @@ def test_auto_sends_fdtd_1024_to_tiling_and_512_to_monotile(side, expect):
     tf = fdtd.make_kernel(p, res)
     assert cuda_lib.cell_smem_bytes(grid.arrays, tf) == 48
     assert choose_backend(grid, tf) == expect
+
+
+#: The tile pass's geometry at tile_sweep.py's sizes (200 iterations a call)
+#: for every functor that does not update in place, as it was before the
+#: in-place law: (op, shape) -> (tile_h, tile_w, p).
+PING_PONG_GEOMETRY = {
+    **{(op, (8192, 8192)): (96, 112, 8) for op in sorted(jacobi.VARIANTS)},
+    ("hotspot", (8192, 8192)): (56, 112, 8), ("conway", (8192, 8192)): (64, 240, 8),
+    ("probe", (8192, 8192)): (32, 128, 2), ("probe_tdv", (8192, 8192)): (32, 128, 2),
+    ("probe_radius2", (8192, 8192)): (32, 128, 1),
+    ("hotspot__bf16", (8192, 8192)): (32, 240, 8), ("jacobi5_general__bf16", (8192, 8192)): (64, 240, 8),
+    ("jacobi5_general__e4m3", (8192, 8192)): (64, 240, 8),
+    ("fdtd_coef__bf16", (1024, 1024)): (28, 32, 4), ("fdtd_coef__bf16", (2048, 2048)): (28, 32, 4),
+    ("convection_pt_f32", (3072, 1024)): (8, 128, 1), ("convection_pt_f64", (3072, 1024)): (8, 64, 1),
+    ("convection_pt_lean_f32", (3072, 1024)): (24, 64, 2), ("convection_pt_lean_f64", (3072, 1024)): (16, 32, 2),
+    ("convection_thermal_f32", (3072, 1024)): (16, 128, 4), ("convection_thermal_f64", (3072, 1024)): (24, 64, 1),
+    ("convection_folded_pt_f32", (3072, 1024)): (12, 64, 1), ("convection_folded_pt_f64", (3072, 1024)): (8, 32, 1),
+    ("convection_folded_pt_lean_f32", (3072, 1024)): (12, 64, 1),
+    ("convection_folded_pt_lean_f64", (3072, 1024)): (8, 32, 1),
+}
+#: FDTD's cells, which the tile pass updates in place: their law's geometry.
+IN_PLACE_GEOMETRY = {
+    (op, (side, side)): (32, 128 if op == "fdtd_coef" else 96, 4)
+    for op in ("fdtd_coef", "fdtd_lut", "fdtd_render") for side in (1024, 2048)
+}
+
+
+def _tiling_geometry(op, shape):
+    """The tile pass's (tile_h, tile_w, p) for functor ``op`` on ``shape`` at
+    200 iterations a call, as the tiling backend picks it on an H100."""
+    from stencilstream_tpu_torch.backends.tiling import pick_config
+
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    return pick_config(*shape, tf.stencil_radius, tf.n_subiterations, 200, cuda_lib.tile_cell_smem_bytes(cell, tf),
+                       cuda_lib.H100_SXM, in_place=cuda_lib.tile_writes(tf) is not None)
+
+
+def test_every_functor_has_a_tiling_geometry_here():
+    """The two tables name every functor at the sizes tile_sweep.py uses."""
+    named = {op for op, _ in PING_PONG_GEOMETRY} | {op for op, _ in IN_PLACE_GEOMETRY}
+    assert named == set(ALL_OPS + CONVECTION_OPS)
+
+
+@pytest.mark.parametrize("op,shape", list(PING_PONG_GEOMETRY), ids=lambda v: str(v))
+def test_functors_without_a_write_mask_keep_their_tile_geometry(op, shape):
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    assert cuda_lib.tile_writes(tf) is None
+    assert cuda_lib.tile_cell_smem_bytes(cell, tf) == cuda_lib.cell_smem_bytes(cell, tf)
+    assert _tiling_geometry(op, shape) == PING_PONG_GEOMETRY[op, shape]
+
+
+@pytest.mark.parametrize("op,shape", list(IN_PLACE_GEOMETRY), ids=lambda v: str(v))
+def test_in_place_cells_take_their_own_law(op, shape):
+    from stencilstream_tpu_torch.backends.tiling import law_entry
+
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    (th, tw), halo, _ = law_entry(cuda_lib.tile_cell_smem_bytes(cell, tf), in_place=True)
+    assert _tiling_geometry(op, shape) == IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo // 2)
+
+
+@pytest.mark.parametrize("resolver,tile_bytes", [("coef", 32), ("lut", 20), ("render", 16)])
+def test_fdtd_tile_pass_holds_one_plane_per_field(resolver, tile_bytes):
+    """FDTD's sub-steps write ex and ey, then hz and hz_sum, in place: the
+    tile pass holds one plane per variant field and per invariant field
+    (4 + NI planes of 4 B), the resident grid still two per variant field;
+    narrow storage's functor declares no writes."""
+    cell, tf, _, _ = _case(f"fdtd_{resolver}", (2, 2), 0, "cpu")
+    assert cuda_lib.tile_writes(tf) == (0b0011, 0b1100)
+    assert cuda_lib.tile_cell_smem_bytes(cell, tf) == tile_bytes
+    assert cuda_lib.cell_smem_bytes(cell, tf) == tile_bytes + 16
+    assert tp.tile_smem_bytes(32, 128, 8, tile_bytes) == tile_bytes * (48 * 144 + 16)
+    if resolver == "coef":
+        cell, tf, _, _ = _case("fdtd_coef__bf16", (2, 2), 0, "cpu")
+        assert cuda_lib.tile_writes(tf) is None and cuda_lib.tile_cell_smem_bytes(cell, tf) == 24
 
 
 def test_cell_smem_bytes_counts_variant_fields_twice():
@@ -676,6 +763,91 @@ def test_every_launch_of_a_tiling_call_takes_the_vector_map(cuda, op):
     update(Grid(cell))
     launches = tp.launches - before[0]
     assert launches == 3 and tp.vector_launches - before[1] == launches
+
+
+#: The functors whose sub-steps the tile pass runs in place (csrc/tile_pass.cu:
+#: in_place): FDTD's, for each material resolver.
+IN_PLACE_OPS = ["fdtd_coef", "fdtd_lut", "fdtd_render"]
+#: (shape, tile, p, i_start, offset, n) of the in-place map: the law's tile
+#: on interior and edge tiles (its narrowed windows, 142 down to 128 columns,
+#: are mostly not whole warps, so the ping-pong map shifts a chunk back);
+#: a core 100 wide at p=6; 2048x2000, whose last column of tiles is 80 wide;
+#: a partial pass (the call ends after 2 of the pass's 4 iterations, at an
+#: odd offset); p=1 on a small grid.
+IN_PLACE_CASES = [
+    ((300, 212), (32, 128), 4, 0, 0, 4),
+    ((300, 212), (16, 100), 6, 1, 1, 6),
+    ((2048, 2000), (32, 128), 4, 0, 0, 4),
+    ((300, 212), (32, 128), 4, 5, 3, 4),
+    ((45, 70), (16, 32), 1, 4, 4, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IN_PLACE_CASES, ids=lambda c: "x".join(map(str, c[0])) + f"-t{c[1][0]}x{c[1][1]}-p{c[2]}")
+@pytest.mark.parametrize("op", IN_PLACE_OPS)
+def test_in_place_tile_pass_matches_plain_version_bit_for_bit(cuda, op, case):
+    """FDTD's cells through the in-place sub-steps equal the plain version
+    exactly, and the launch counts as an in-place one."""
+    shape, tile, p, i_start, offset, n = case
+    cell, tf, halo, _ = _case(op, shape, 19, cuda, iteration=i_start)
+    kw = dict(i_start=i_start, offset=offset, n_iterations=n, iters_per_pass=p)
+    before = (tp.launches, tp.inplace_launches, tp.vector_launches)
+    got = tp.tile_pass(cell, tf, halo, tile=tile, **kw)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert (tp.launches, tp.inplace_launches, tp.vector_launches) == (before[0] + 1, before[1] + 1, before[2])
+    assert _max_err(got, want) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shard", [(0, 0), (1, 1)])
+@pytest.mark.parametrize("op", IN_PLACE_OPS)
+def test_in_place_extended_pass_on_a_shard_of_a_2x2_mesh(cuda, op, shard):
+    """Extended mode in place: one shard of a (2, 2) mesh over 300x212 with
+    the pass's halo stored, at the law's tile and p=4, exactly."""
+    (H, W), p = (300, 212), 4
+    hp = 2 * p
+    core = (H // 2, W // 2)
+    origin = (shard[0] * core[0] - hp, shard[1] * core[1] - hp)
+    cell, tf, halo, _ = _case(op, (core[0] + 2 * hp, core[1] + 2 * hp), 21, cuda, iteration=3)
+    kw = dict(i_start=3, offset=3, n_iterations=2 * p, iters_per_pass=p, origin=origin, grid_range=(H, W),
+              stored_halo=(hp, hp))
+    got = tp.tile_pass(cell, tf, halo, tile=(32, 128), **kw)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    torch.cuda.synchronize()
+    assert cell_leaves(got)[0].shape == core
+    assert _max_err(got, want) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ALL_OPS + CONVECTION_OPS)
+def test_in_place_launches_count_fdtd_only(cuda, op):
+    """A functor's compiled write masks (``op_info``'s ``writes``) are its
+    transition function's (``tile_writes``); only FDTD's float32 functors
+    have them, and only their launches count in ``inplace_launches``."""
+    cell, tf, halo, _ = _case(op, (45, 70), 3, cuda)
+    info = cuda_lib.op_info(cuda_lib.require_device_op(tf))
+    assert info["writes"] == cuda_lib.tile_writes(tf)
+    assert (info["writes"] is not None) == (op in IN_PLACE_OPS)
+    tile, p = _fitted((16, 32), 1, cell, tf, cuda_lib.device_limits(cuda))
+    before = tp.inplace_launches
+    tp.tile_pass(cell, tf, halo, tile=tile, i_start=0, offset=0, n_iterations=1, iters_per_pass=p)
+    assert tp.inplace_launches - before == (op in IN_PLACE_OPS)
+
+
+@pytest.mark.gpu
+def test_every_launch_of_an_fdtd_tiling_call_is_in_place(cuda):
+    """A tiling call at FDTD coef's law geometry (2048^2, n=10: three passes
+    of p=4, the last partial)."""
+    cell, tf, halo, _ = _case("fdtd_coef", (2048, 2048), 5, cuda)
+    update = create_update(Params(transition_function=tf, n_iterations=10, halo_value=halo, blocking=True),
+                           backend="tiling")
+    before = (tp.launches, tp.inplace_launches)
+    update(Grid(cell))
+    assert (update.resolved_config["tile_rows"], update.resolved_config["tile_cols"],
+            update.resolved_config["iters_per_pass"]) == IN_PLACE_GEOMETRY["fdtd_coef", (2048, 2048)]
+    assert (tp.launches - before[0], tp.inplace_launches - before[1]) == (3, 3)
 
 
 @pytest.mark.gpu

@@ -19,7 +19,7 @@ from stencilstream_tpu.models import hotspot as jhs
 
 from stencilstream_tpu_torch import Params, create_update, interop, probe
 from stencilstream_tpu_torch.backends.cuda_lib import H100_SXM, DeviceLimits, cell_smem_bytes
-from stencilstream_tpu_torch.backends.tile_pass import RUN_ROWS, WARP, tile_pass, tile_smem_bytes
+from stencilstream_tpu_torch.backends.tile_pass import IN_PLACE_RUN, RUN_ROWS, WARP, tile_pass, tile_smem_bytes
 from stencilstream_tpu_torch.backends.tiling import TILE_LAW, pick_config
 from stencilstream_tpu_torch.models import conway, jacobi
 from stencilstream_tpu_torch.tdv import step_value, tdv_stream
@@ -253,6 +253,42 @@ def test_vector_map_at_the_laws_tile_computes_as_many_lanes_as_the_scalar_map():
         thread_map_work((96, 112), 8, 1, 8)[0])
     with pytest.raises(ValueError, match="radius 1"):
         vector_map_work((56, 112), 8, 2)
+
+
+#: (tile, halo) of the in-place map: FDTD's law tile at p=4 (halo 8) and
+#: the ping-pong law's 16x128, and cores whose narrowed windows are not
+#: whole warps (widths 100, 212, 2000) at p=4 and p=6 (k=2: halos 8, 12).
+IN_PLACE_GEOMETRY = [((32, 128), 8), ((16, 128), 8),
+                     *[((16, w), h) for w in (100, 212, 2000) for h in (8, 12)]]
+
+
+@pytest.mark.parametrize("tile, halo", IN_PLACE_GEOMETRY, ids=lambda v: str(v))
+def test_in_place_map_stores_every_narrowed_window_cell_once(tile, halo):
+    """In place, every cell of each sub-step's narrowed window is stored by
+    exactly one lane, and no lane stores outside it, whatever the windows'
+    heights leave of the last run of 4 rows; the ping-pong map's
+    shifted-back last chunk stores some cells twice wherever a narrowed
+    window is not whole warps wide (harmless there, a race in place)."""
+    from stencilstream_tpu_torch.tile_sweep import in_place_map_work, thread_map_work
+
+    work = in_place_map_work(tile, halo, 1)
+    assert (work["uncovered"], work["stored_twice"], work["outside"]) == (0, 0, 0)
+    assert work["lane_cells_per_cell_step"] == pytest.approx(thread_map_work(tile, halo, 1, IN_PLACE_RUN)[0])
+    ping_pong = in_place_map_work(tile, halo, 1, 1, in_place=False)
+    assert (ping_pong["uncovered"], ping_pong["outside"]) == (0, 0)
+    assert (ping_pong["stored_twice"] > 0) == any((tile[1] + 2 * (halo - s)) % 32 for s in range(1, halo + 1))
+
+
+def test_in_place_map_at_fdtds_law_tile():
+    """FDTD's in-place law tile, 32x128 at p=4 in runs of 4 rows, computes
+    1.53 lane-cells a useful cell-step (1.49 in one-cell runs), against
+    1.77 at the ping-pong law's 16x128."""
+    from stencilstream_tpu_torch.tile_sweep import in_place_map_work
+
+    assert in_place_map_work((32, 128), 8, 1)["lane_cells_per_cell_step"] == pytest.approx(50176 / 32768)
+    assert in_place_map_work((32, 128), 8, 1, 1)["lane_cells_per_cell_step"] == pytest.approx(48896 / 32768)
+    assert in_place_map_work((16, 128), 8, 1, 1, in_place=False)["lane_cells_per_cell_step"] == pytest.approx(
+        28928 / 16384)
 
 
 @pytest.mark.parametrize("seen,want", [(5, 0.8), (4, 0.8), (10, 1.6), (9, 1.6)])

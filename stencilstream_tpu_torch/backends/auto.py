@@ -10,9 +10,11 @@ per grid,
   from the device's SM count and shared memory per block) -> ``monotile``;
 * otherwise -> ``tiling``.
 
-Visible devices are ``torch.cuda.device_count()`` for a CUDA grid and one
-for a CPU grid. A CPU grid is judged by an H100 SXM's limits, so it
-resolves as it would on that card. Construction kwargs are forwarded to
+The monotile plan the choice was made by goes to the ``monotile`` delegate,
+which plans no second time. Visible devices are
+``torch.cuda.device_count()`` for a CUDA grid and one for a CPU grid. A CPU
+grid is judged by an H100 SXM's limits, so it resolves as it would on that
+card. Construction kwargs are forwarded to
 whichever backend is chosen, filtered to the parameters its constructor
 accepts.
 """
@@ -35,6 +37,12 @@ __all__ = ["StencilUpdate", "choose_backend"]
 
 def choose_backend(grid: Grid, tf: Any, n_devices: int | None = None) -> str:
     """Resolve the backend name for a grid (see module docstring)."""
+    return _choose(grid, tf, n_devices)[0]
+
+
+def _choose(grid: Grid, tf: Any, n_devices: int | None = None) -> tuple[str, monotile.MonotilePlan | None]:
+    """The backend name for a grid and the monotile plan it was chosen by
+    (``None`` where the grid does not fit)."""
     if n_devices is None:
         n_devices = torch.cuda.device_count() if grid.device.type == "cuda" else 1
     H, W = grid.shape
@@ -42,8 +50,8 @@ def choose_backend(grid: Grid, tf: Any, n_devices: int | None = None) -> str:
         H, W, tf.stencil_radius, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device)
     )
     if n_devices > 1 and (H / n_devices >= 64 or plan is None):
-        return "distributed"
-    return "monotile" if plan is not None else "tiling"
+        return "distributed", plan
+    return ("monotile" if plan is not None else "tiling"), plan
 
 
 class StencilUpdate(StencilUpdateBase):
@@ -78,8 +86,10 @@ class StencilUpdate(StencilUpdateBase):
             grid = Grid(grid)
         with tracing.call(self, grid) if tracing.on else tracing.OFF:
             with tracing.span("backends.choose") if tracing.on else tracing.OFF as choice:
-                name = choose_backend(grid, self.params.transition_function)
+                name, plan = _choose(grid, self.params.transition_function)
                 delegate = self._delegate_for(name)
+                if name == "monotile":
+                    delegate._given_plan = plan  # the delegate's call plans no second time
                 if choice is not None:
                     choice.attrs["backend"] = name
             self.resolved_backend = name
@@ -88,6 +98,3 @@ class StencilUpdate(StencilUpdateBase):
         self._walltime = sum(d.get_walltime() for d in self._delegates.values())
         self._n_processed_cells = sum(d.get_n_processed_cells() for d in self._delegates.values())
         return out
-
-    def _update(self, grid: Grid) -> Grid:  # pragma: no cover - routed above
-        return self._delegate_for(choose_backend(grid, self.params.transition_function))._update(grid)

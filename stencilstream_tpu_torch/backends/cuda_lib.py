@@ -11,8 +11,10 @@ the build raises; nothing falls back.
 Each kernel entry point takes raw device pointers, ints and doubles, launches
 on the stream it is given, allocates nothing, and returns the CUDA error code
 of the launch (0 on success); :func:`check` turns a non-zero code into an
-exception. A functor with a time-dependent value takes the call's TDV stream
-as one more device pointer (:func:`tdv_pointer`). A transition function on
+exception. A call's cell is bound to its functor once (:class:`Binding`): every
+launch of the call shares the :class:`Binding`'s checks, C arrays and stream,
+and its TDV stream, one more device pointer for a functor with a
+time-dependent value (:meth:`Binding.stream_tdv`). A transition function on
 narrow storage (``backends/storage_cast.py``: ``cuda_storage``) runs the
 entry points ``<prefix><functor>__<storage>`` of the pairs in
 :data:`NARROW_OPS`.
@@ -35,26 +37,23 @@ from typing import Any
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves, cell_unflatten
 
 __all__ = [
     "CSRC",
     "BUILD_DIR",
-    "KernelFields",
+    "Binding",
     "NARROW_OPS",
     "build",
     "check",
     "check_field_dtypes",
-    "kernel_fields",
     "library",
     "op_info",
     "pointer_array",
     "require_device_op",
-    "tdv_pointer",
     "tile_cell_smem_bytes",
     "tile_writes",
-    "variant_outputs",
-    "with_variant",
 ]
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
@@ -318,20 +317,6 @@ def op_info(op: str) -> dict:
     return out
 
 
-@dataclasses.dataclass
-class KernelFields:
-    """A grid cell and its transition function, checked and split the way a
-    device functor takes them."""
-
-    op: str
-    variant: list[torch.Tensor]
-    invariant: list[torch.Tensor]
-    params: ctypes.Array
-    halo: ctypes.Array
-    #: position of each variant field among the cell's fields
-    variant_index: list[int]
-
-
 def require_device_op(tf: Any, offset: int = 0) -> str:
     """The name of ``tf``'s device functor: ``<cuda_op>__<storage>`` for one
     on narrow storage (``cuda_storage``). Raises ``NotImplementedError``,
@@ -363,65 +348,132 @@ def require_device_op(tf: Any, offset: int = 0) -> str:
     return f"{op}__{STORAGE_SUFFIX[storage]}"
 
 
-def kernel_fields(arrays: Any, tf: Any, halo_cell: Any, offset: int) -> KernelFields:
-    """Check that ``tf`` and the CUDA grid cell ``arrays`` fit a compiled
-    functor and split the cell into variant and invariant fields.
+class Binding:
+    """A call's cell bound to its transition function's compiled functor,
+    once a call: the checks, the variant/invariant split, the invariant
+    fields' pointers (a bool field beside floating ones widened once:
+    :func:`widened`), the parameters and halo values as C arrays and the
+    stream, which every launch of the call shares (:meth:`launch`), and the
+    call's TDV stream (:meth:`stream_tdv`).
 
     Raises ``NotImplementedError`` for a transition function without a
     device functor, or with a time-dependent value that its functor does
     not take, and ``TypeError``/``ValueError`` for fields the functor does
-    not take.
+    not take. A CPU cell is not checked and ``op`` is ``None``: the binding
+    holds the call's inputs for the kernels' plain versions.
     """
-    op = require_device_op(tf, offset)
-    info = op_info(op)
-    leaves = cell_leaves(arrays)
-    names = cell_field_names(arrays)
-    variant_names = tuple(getattr(tf, "cuda_variant", ()))
-    if names:
-        unknown = set(variant_names) - set(names)
-        if unknown:
-            raise ValueError(f"cuda_variant names fields the cell lacks: {sorted(unknown)}")
-        variant_index = [names.index(n) for n in variant_names]
-    else:
-        variant_index = [0]
-    invariant_index = [j for j in range(len(leaves)) if j not in variant_index]
-    params = [float(v) for v in tf.cuda_params()]
-    expect = (tf.stencil_radius, tf.n_subiterations, len(variant_index), len(invariant_index), len(params))
-    got = tuple(info[k] for k in ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params"))
-    if expect != got:
-        raise ValueError(
-            f"{type(tf).__name__} (radius, sub-iterations, variant fields, invariant "
-            f"fields, params) = {expect}, but functor {op!r} is compiled for {got}"
-        )
-    if getattr(tf, "cuda_tdv", None) != info["tdv_dtype"]:
-        raise NotImplementedError(
-            f"{type(tf).__name__} declares a time-dependent value of type "
-            f"{getattr(tf, 'cuda_tdv', None)}, but functor {op!r} takes {info['tdv_dtype']}"
-        )
-    stored = leaves
-    leaves = [
-        widened(t, info["dtype"]) if j in invariant_index else kernel_view(t)
-        for j, t in enumerate(stored)
-    ]
-    shape = tuple(leaves[0].shape)
-    device = leaves[0].device
-    check_field_dtypes(op, info["dtype"], names, stored, leaves)
-    for t in leaves:
-        if t.device != device or t.device.type != "cuda":
-            raise ValueError(f"every field must lie on one CUDA device (got {t.device})")
-        if tuple(t.shape) != shape or t.dim() != 2:
-            raise ValueError(f"fields must be 2D of one shape (got {tuple(t.shape)} vs {shape})")
-        if not t.is_contiguous():
-            raise ValueError("fields must be contiguous")
-    halo = [_halo_bits(h, s, v) for h, s, v in zip(cell_leaves(halo_cell), stored, leaves)]
-    return KernelFields(
-        op=op,
-        variant=[leaves[j] for j in variant_index],
-        invariant=[leaves[j] for j in invariant_index],
-        params=double_array(params),
-        halo=double_array([halo[j] for j in variant_index + invariant_index]),
-        variant_index=variant_index,
-    )
+
+    def __init__(self, arrays: Any, tf: Any, halo_cell: Any, offset: int, n_iterations: int):
+        self.tf, self.halo_cell, self.offset, self.n_iterations = tf, halo_cell, offset, n_iterations
+        leaves = cell_leaves(arrays)
+        self.device = leaves[0].device
+        self.op = self.tdv = self.tdv_pointer = None
+        if self.device.type == "cpu":
+            return
+        op = require_device_op(tf, offset)
+        info = op_info(op)
+        names = cell_field_names(arrays)
+        variant_names = tuple(getattr(tf, "cuda_variant", ()))
+        if names:
+            unknown = set(variant_names) - set(names)
+            if unknown:
+                raise ValueError(f"cuda_variant names fields the cell lacks: {sorted(unknown)}")
+            variant_index = [names.index(n) for n in variant_names]
+        else:
+            variant_index = [0]
+        invariant_index = [j for j in range(len(leaves)) if j not in variant_index]
+        params = [float(v) for v in tf.cuda_params()]
+        expect = (tf.stencil_radius, tf.n_subiterations, len(variant_index), len(invariant_index), len(params))
+        got = tuple(info[k] for k in ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params"))
+        if expect != got:
+            raise ValueError(
+                f"{type(tf).__name__} (radius, sub-iterations, variant fields, invariant "
+                f"fields, params) = {expect}, but functor {op!r} is compiled for {got}"
+            )
+        if getattr(tf, "cuda_tdv", None) != info["tdv_dtype"]:
+            raise NotImplementedError(
+                f"{type(tf).__name__} declares a time-dependent value of type "
+                f"{getattr(tf, 'cuda_tdv', None)}, but functor {op!r} takes {info['tdv_dtype']}"
+            )
+        views = [
+            widened(t, info["dtype"]) if j in invariant_index else kernel_view(t)
+            for j, t in enumerate(leaves)
+        ]
+        shape = tuple(views[0].shape)
+        check_field_dtypes(op, info["dtype"], names, leaves, views)
+        for t in views:
+            if t.device != self.device or t.device.type != "cuda":
+                raise ValueError(f"every field must lie on one CUDA device (got {t.device})")
+            if tuple(t.shape) != shape or t.dim() != 2:
+                raise ValueError(f"fields must be 2D of one shape (got {tuple(t.shape)} vs {shape})")
+            if not t.is_contiguous():
+                raise ValueError("fields must be contiguous")
+        halo = [_halo_bits(h, s, v) for h, s, v in zip(cell_leaves(halo_cell), leaves, views)]
+        self.op, self.variant_index = op, variant_index
+        self.invariant = [views[j] for j in invariant_index]  # held while their pointers are
+        self.invariant_pointers = pointer_array(self.invariant)
+        self.params = double_array(params)
+        self.halo = double_array([halo[j] for j in variant_index + invariant_index])
+        self.stream = torch.cuda.current_stream(self.device).cuda_stream
+
+    def stream_tdv(self, stream: Any) -> None:
+        """Take the call's TDV stream. A kernel reads it through
+        ``tdv_pointer``: NULL (``None``) for a functor without a
+        time-dependent value or a call of no iterations (no step reads it);
+        else the stream's, which must be one contiguous tensor of at least
+        ``n_iterations`` values of the functor's type on the grid's device,
+        or it cannot reach a kernel: ``ValueError``."""
+        self.tdv = stream
+        dtype, n, device = getattr(self.tf, "cuda_tdv", None), self.n_iterations, self.device
+        if self.op is None or dtype is None or n == 0:
+            return
+        if not (
+            isinstance(stream, torch.Tensor) and stream.dtype == dtype and stream.device == device
+            and stream.dim() == 1 and stream.shape[0] >= n and stream.is_contiguous()
+        ):
+            got = (
+                f"{stream.dtype} {tuple(stream.shape)} on {stream.device}" if isinstance(stream, torch.Tensor)
+                else type(stream).__name__
+            )
+            raise ValueError(
+                f"the time-dependent value of {type(self.tf).__name__} cannot be streamed to a kernel: it "
+                f"takes one contiguous {dtype} tensor of {n} values on {device}, got {got}"
+            )
+        self.tdv_pointer = stream.data_ptr()
+
+    def launch(self, prefix: str, arrays: Any, out: Any, *geometry: int, shape=None, extra=(), what: str) -> Any:
+        """Enqueue ``<prefix><functor>`` from the variant fields of ``arrays``
+        (the bound cell or an earlier launch's result) into new tensors of
+        ``shape`` (the fields' by default) or those of ``out`` (a cell
+        written in place, checked against the fields), the kernel's
+        ``geometry`` integers before the parameters and ``extra`` arguments
+        after the TDV pointer; raise on a CUDA error, naming ``what``. Returns
+        ``arrays`` with its variant fields replaced by the outputs (viewed
+        back as bool where the field is bool)."""
+        leaves = cell_leaves(arrays)
+        src = [kernel_view(leaves[j]) for j in self.variant_index]
+        shape = tuple(src[0].shape) if shape is None else tuple(shape)
+        if out is None:
+            dst = [torch.empty(shape, dtype=t.dtype, device=t.device) for t in src]
+        else:
+            dst = [kernel_view(cell_leaves(out)[j]) for j in self.variant_index]
+            for d, s in zip(dst, src):
+                if tuple(d.shape) != shape or d.dtype != s.dtype or d.device != s.device:
+                    raise ValueError("out must match the grid's fields")
+                if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
+                    raise ValueError("out must be contiguous and must not be the input")
+        fn = entry(prefix, self.op)
+        with torch.cuda.device(self.device):
+            args = (
+                pointer_array(src), pointer_array(dst), self.invariant_pointers, *geometry,
+                self.params, self.halo, self.tdv_pointer, *extra, self.stream,
+            )
+            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
+                code = fn(*args)
+        check(code, what)
+        for j, t in zip(self.variant_index, dst):
+            leaves[j] = t.view(torch.bool) if leaves[j].dtype == torch.bool else t
+        return cell_unflatten(arrays, leaves)
 
 
 def check_field_dtypes(op: str, dtype: torch.dtype, names, stored, views) -> None:
@@ -500,59 +552,6 @@ def tile_cell_smem_bytes(arrays: Any, tf: Any) -> int:
     (``csrc/tile_pass.cu:tile_smem_bytes``)."""
     variant, invariant = cell_field_bytes(arrays, tf)
     return (1 if tile_writes(tf) else 2) * variant + invariant
-
-
-def with_variant(arrays: Any, fields: KernelFields, new_variant: list[torch.Tensor]) -> Any:
-    """``arrays`` with its variant fields replaced by kernel outputs (viewed
-    back as bool where the field is bool); invariant fields are the very
-    tensors of ``arrays``."""
-    leaves = cell_leaves(arrays)
-    for j, t in zip(fields.variant_index, new_variant):
-        leaves[j] = t.view(torch.bool) if leaves[j].dtype == torch.bool else t
-    return cell_unflatten(arrays, leaves)
-
-
-def variant_outputs(arrays: Any, fields: KernelFields, out: Any, shape=None) -> list[torch.Tensor]:
-    """Output tensors for a kernel's variant fields, of ``shape`` (the input
-    fields' by default): new ones, or those of ``out`` (a cell written in
-    place: from an earlier pass of the same chain, or rows of a larger
-    buffer), checked against the input fields."""
-    shape = tuple(fields.variant[0].shape) if shape is None else tuple(shape)
-    if out is None:
-        return [torch.empty(shape, dtype=t.dtype, device=t.device) for t in fields.variant]
-    out_leaves = cell_leaves(out)
-    dst = [kernel_view(out_leaves[j]) for j in fields.variant_index]
-    for d, s in zip(dst, fields.variant):
-        if tuple(d.shape) != shape or d.dtype != s.dtype or d.device != s.device:
-            raise ValueError("out must match the grid's fields")
-        if not d.is_contiguous() or d.data_ptr() == s.data_ptr():
-            raise ValueError("out must be contiguous and must not be the input")
-    return dst
-
-
-def tdv_pointer(tf: Any, stream: Any, n_iterations: int, device) -> int | None:
-    """The device pointer a kernel takes for the call's TDV stream: NULL
-    (``None``) for a functor without a time-dependent value or a call of no
-    iterations (no step reads it); else the stream's, which must be one
-    contiguous tensor of at least ``n_iterations`` values of the functor's
-    type on ``device``. A stream that is none of this cannot reach a
-    kernel: ``ValueError``."""
-    dtype = getattr(tf, "cuda_tdv", None)
-    if dtype is None or n_iterations == 0:
-        return None
-    if not (
-        isinstance(stream, torch.Tensor) and stream.dtype == dtype and stream.device == device
-        and stream.dim() == 1 and stream.shape[0] >= n_iterations and stream.is_contiguous()
-    ):
-        got = (
-            f"{stream.dtype} {tuple(stream.shape)} on {stream.device}" if isinstance(stream, torch.Tensor)
-            else type(stream).__name__
-        )
-        raise ValueError(
-            f"the time-dependent value of {type(tf).__name__} cannot be streamed to a kernel: it "
-            f"takes one contiguous {dtype} tensor of {n_iterations} values on {device}, got {got}"
-        )
-    return stream.data_ptr()
 
 
 def check(code: int, what: str) -> None:

@@ -33,22 +33,12 @@ import torch
 from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves
 from ..tdv import tdv_stream
-from .cuda_lib import (
-    DeviceLimits,
-    check,
-    entry,
-    fit_shared_memory,
-    kernel_fields,
-    pointer_array,
-    require_device_op,
-    tdv_pointer,
-    variant_outputs,
-    with_variant,
-)
+from .cuda_lib import Binding, DeviceLimits, check, entry, fit_shared_memory, require_device_op
 from .tile_pass import tile_pass_plain
 
 __all__ = [
     "LineCacheConfig",
+    "bound_line_cache_pass",
     "line_cache_pass",
     "line_cache_pass_plain",
     "line_cache_residency",
@@ -58,7 +48,8 @@ __all__ = [
     "launches",
 ]
 
-#: Kernel launches made by :func:`line_cache_pass` (CUDA tensors only).
+#: Kernel launches made by :func:`bound_line_cache_pass`, so by
+#: :func:`line_cache_pass` (CUDA tensors only).
 launches = 0
 
 
@@ -302,7 +293,9 @@ def line_cache_pass(
     tdv: Any = None,
 ) -> Any:
     """One pass; returns the new grid cell. ``tdv`` is the call's TDV
-    stream (the inline strategy's when ``None``).
+    stream (the inline strategy's when ``None``). Binds the cell to its
+    functor (:class:`.cuda_lib.Binding`) and makes the pass
+    (:func:`bound_line_cache_pass`).
 
     The geometry (``strip_rows``, ``panel_cols``, ``segment_rows``) is the
     caller's, as :func:`pick_linecache_config` gives it to ``tiling``; it
@@ -316,34 +309,32 @@ def line_cache_pass(
     ARE the tensors of ``arrays``, so no caller may later write in place
     into a returned cell's fields without cloning them first.
     """
+    call = Binding(arrays, tf, halo_cell, offset, n_iterations)
+    call.stream_tdv(tdv_stream(tf, offset, n_iterations, call.device) if tdv is None else tdv)
+    return bound_line_cache_pass(call, arrays, i_start=i_start, iters_per_pass=iters_per_pass, strip_rows=strip_rows,
+                                 panel_cols=panel_cols, segment_rows=segment_rows, out=out)
+
+
+def bound_line_cache_pass(call: Binding, arrays: Any, *, i_start: int, iters_per_pass: int, strip_rows: int,
+                          panel_cols: int, segment_rows: int, out: Any = None) -> Any:
+    """:func:`line_cache_pass` on a call already bound (``call``: the pass
+    loop of ``tiling`` binds once a call); ``arrays`` is the bound cell or
+    an earlier pass's result. A ``kernels.launch`` span."""
     global launches
-    with (tracing.span("kernels.launch", kernel="line_cache", pass_index=(i_start - offset) // iters_per_pass)
+    with (tracing.span("kernels.launch", kernel="line_cache", pass_index=(i_start - call.offset) // iters_per_pass)
           if tracing.on else tracing.OFF):
+        tf = call.tf
         check_geometry(strip_rows, panel_cols, tf.stencil_radius, run_rows(arrays, tf))
-        device = cell_leaves(arrays)[0].device
-        if device.type == "cpu":
+        if call.op is None:
             return line_cache_pass_plain(
-                arrays, tf, halo_cell, i_start=i_start, offset=offset,
-                n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv,
+                arrays, tf, call.halo_cell, i_start=i_start, offset=call.offset,
+                n_iterations=call.n_iterations, iters_per_pass=iters_per_pass, tdv=call.tdv,
             )
-        fields = kernel_fields(arrays, tf, halo_cell, offset)
-        if tdv is None:
-            tdv = tdv_stream(tf, offset, n_iterations, device)
-        H, W = fields.variant[0].shape
-        dst = variant_outputs(arrays, fields, out)
-        fn = entry("ss_line_cache_", fields.op)
-        with torch.cuda.device(device):
-            args = (
-                pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-                H, W, strip_rows, panel_cols, segment_rows, iters_per_pass, i_start, offset,
-                n_iterations, fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
-                torch.cuda.current_stream(device).cuda_stream,
-            )
-            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
-                code = fn(*args)
-        check(code, "line-cache kernel")
+        H, W = cell_leaves(arrays)[0].shape
+        new = call.launch("ss_line_cache_", arrays, out, H, W, strip_rows, panel_cols, segment_rows, iters_per_pass,
+                          i_start, call.offset, call.n_iterations, what="line-cache kernel")
         launches += 1
-        return with_variant(arrays, fields, dst)
+        return new
 
 
 def line_cache_residency(tf: Any, strip_rows: int, panel_cols: int, iters_per_pass: int, device) -> int:

@@ -40,18 +40,7 @@ from ..core.cell import cell_leaves
 from ..core.grid import Grid
 from ..tdv import tdv_stream
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import (
-    DeviceLimits,
-    cell_smem_bytes,
-    check,
-    device_limits,
-    entry,
-    kernel_fields,
-    pointer_array,
-    require_device_op,
-    tdv_pointer,
-    with_variant,
-)
+from .cuda_lib import Binding, DeviceLimits, cell_smem_bytes, check, device_limits, entry, require_device_op
 from .reference import run_iterations
 
 __all__ = [
@@ -216,38 +205,25 @@ def monotile(
     """
     global launches
     with tracing.span("kernels.launch", kernel="monotile", pass_index=0) if tracing.on else tracing.OFF:
-        device = cell_leaves(arrays)[0].device
-        if device.type == "cpu":
-            return monotile_plain(
-                arrays, tf, halo_cell, offset=offset, n_iterations=n_iterations, tdv=tdv
-            )
-        fields = kernel_fields(arrays, tf, halo_cell, offset)
-        if tdv is None:
-            tdv = tdv_stream(tf, offset, n_iterations, device)
-        H, W = fields.variant[0].shape
+        call = Binding(arrays, tf, halo_cell, offset, n_iterations)
+        if call.op is None:
+            return monotile_plain(arrays, tf, halo_cell, offset=offset, n_iterations=n_iterations, tdv=tdv)
+        variant = cell_leaves(arrays)[call.variant_index[0]]
+        H, W = variant.shape
         if plan is None:
-            plan = require_plan(H, W, tf, cell_smem_bytes(arrays, tf), device_limits(device))
+            plan = require_plan(H, W, tf, cell_smem_bytes(arrays, tf), device_limits(call.device))
+        call.stream_tdv(tdv_stream(tf, offset, n_iterations, call.device) if tdv is None else tdv)
         r = tf.stencil_radius
-        dst = [torch.empty_like(t) for t in fields.variant]
-        stream = torch.cuda.current_stream(device).cuda_stream
-        side_bytes = len(dst) * plan.q * r * (W + 2 * r) * dst[0].element_size()
-        ex = _exchange(device, stream, 2 * plan.n_ctas * 2 * side_bytes, plan.n_ctas)
-        fn = entry("ss_monotile_", fields.op)
-        with torch.cuda.device(device):
-            args = (
-                pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-                H, W, plan.band, plan.n_ctas, plan.q, plan.threads, offset, n_iterations,
-                fields.params, fields.halo, tdv_pointer(tf, tdv, n_iterations, device),
-                ex.buffer.data_ptr(), ex.flags.data_ptr(),
-                ex.epoch & 0xFFFFFFFF, stream,
-            )
-            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
-                code = fn(*args)
-        check(code, "resident-grid kernel")
+        side_bytes = len(call.variant_index) * plan.q * r * (W + 2 * r) * variant.element_size()
+        ex = _exchange(call.device, call.stream, 2 * plan.n_ctas * 2 * side_bytes, plan.n_ctas)
+        new = call.launch(
+            "ss_monotile_", arrays, None, H, W, plan.band, plan.n_ctas, plan.q, plan.threads, offset, n_iterations,
+            extra=(ex.buffer.data_ptr(), ex.flags.data_ptr(), ex.epoch & 0xFFFFFFFF), what="resident-grid kernel",
+        )
         steps = n_iterations * tf.n_subiterations
         ex.epoch += max(0, -(-steps // plan.q) - 1)  # the exchanges this launch made
         launches += 1
-        return with_variant(arrays, fields, dst)
+        return new
 
 
 def monotile_residency(tf: Any, plan: MonotilePlan, width: int, device) -> int:
@@ -280,6 +256,10 @@ def require_plan(height: int, width: int, tf: Any, cell_bytes: int, limits: Devi
 class StencilUpdate(StencilUpdateBase):
     """Monotile (shared-memory-resident) stencil updater."""
 
+    #: The plan of the next call when its caller made it from the same grid
+    #: (``auto``, which routes by it); that call takes it, others plan.
+    _given_plan: MonotilePlan | None = None
+
     @torch.no_grad()
     def _update(self, grid: Grid) -> Grid:
         p = self.params
@@ -287,7 +267,9 @@ class StencilUpdate(StencilUpdateBase):
         n = int(p.n_iterations)
         H, W = grid.shape
         with tracing.span("backends.plan") if tracing.on else tracing.OFF as span:
-            plan = require_plan(H, W, tf, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device))
+            plan, self._given_plan = self._given_plan, None
+            if plan is None:
+                plan = require_plan(H, W, tf, cell_smem_bytes(grid.arrays, tf), device_limits(grid.device))
             halo_cell = resolve_halo(p.halo_value, grid)
             if span is not None:
                 span.attrs["geometry"] = plan._asdict()

@@ -39,25 +39,16 @@ import torch
 from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves, cell_map, cell_unflatten
 from ..tdv import step_value, tdv_stream
-from .cuda_lib import (
-    check,
-    entry,
-    kernel_fields,
-    op_info,
-    pointer_array,
-    require_device_op,
-    tdv_pointer,
-    variant_outputs,
-    with_variant,
-)
+from .cuda_lib import Binding, check, entry, op_info, require_device_op
 from .fused import fused_substep, halo_width, mask_out_of_grid
 
 __all__ = [
-    "check_block", "count_launch", "tile_pass", "tile_pass_plain", "tile_pass_residency", "tile_smem_bytes",
-    "launches", "vector_launches", "inplace_launches",
+    "bound_tile_pass", "check_block", "count_launch", "tile_pass", "tile_pass_plain", "tile_pass_residency",
+    "tile_smem_bytes", "launches", "vector_launches", "inplace_launches",
 ]
 
-#: Kernel launches made by :func:`tile_pass` (CUDA tensors only).
+#: Kernel launches made by :func:`bound_tile_pass`, so by :func:`tile_pass` (CUDA
+#: tensors only).
 launches = 0
 #: Those of them whose functor takes the vector thread map in its interior
 #: sub-steps (``csrc/tile_pass.cu``: ``vector_map``; :func:`.cuda_lib.op_info`).
@@ -186,7 +177,8 @@ def tile_pass(
     law's); returns the new cell: the grid's (clamped mode), or the core of
     a block (extended mode, ``origin``/``grid_range``/``stored_halo``, see
     the module docstring). ``tdv`` is the call's TDV stream (the inline
-    strategy's when ``None``).
+    strategy's when ``None``). Binds the cell to its functor
+    (:class:`.cuda_lib.Binding`) and makes the pass (:func:`bound_tile_pass`).
 
     On the card the variant fields of the result are new tensors, or those
     of ``out`` (a cell of the core's shape written in place: from an earlier
@@ -198,45 +190,46 @@ def tile_pass(
     narrower than a warp or shorter than a run, and for a block whose
     stored halo is too narrow (:func:`check_block`).
     """
-    with (tracing.span("kernels.launch", kernel="tile_pass", pass_index=(i_start - offset) // iters_per_pass)
+    call = Binding(arrays, tf, halo_cell, offset, n_iterations)
+    call.stream_tdv(tdv_stream(tf, offset, n_iterations, call.device) if tdv is None else tdv)
+    return bound_tile_pass(call, arrays, i_start=i_start, iters_per_pass=iters_per_pass, tile=tile, out=out,
+                           origin=origin, grid_range=grid_range, stored_halo=stored_halo)
+
+
+def bound_tile_pass(call: Binding, arrays: Any, *, i_start: int, iters_per_pass: int, tile: tuple[int, int],
+                    out: Any = None, origin=(0, 0), grid_range=None, stored_halo=(0, 0)) -> Any:
+    """:func:`tile_pass` on a call already bound (``call``: the pass loop
+    of ``tiling`` binds once a call); ``arrays`` is the bound cell or an
+    earlier pass's result. A ``kernels.launch`` span."""
+    with (tracing.span("kernels.launch", kernel="tile_pass", pass_index=(i_start - call.offset) // iters_per_pass)
           if tracing.on else tracing.OFF) as span:
-        device = cell_leaves(arrays)[0].device
-        block = dict(origin=tuple(origin), grid_range=grid_range, stored_halo=tuple(stored_halo))
-        if device.type == "cpu":
+        tf = call.tf
+        if call.op is None:
             return tile_pass_plain(
-                arrays, tf, halo_cell, i_start=i_start, offset=offset,
-                n_iterations=n_iterations, iters_per_pass=iters_per_pass, tdv=tdv, **block,
+                arrays, tf, call.halo_cell, i_start=i_start, offset=call.offset, n_iterations=call.n_iterations,
+                iters_per_pass=iters_per_pass, tdv=call.tdv, origin=tuple(origin), grid_range=grid_range,
+                stored_halo=tuple(stored_halo),
             )
-        fields = kernel_fields(arrays, tf, halo_cell, offset)
-        if tdv is None:
-            tdv = tdv_stream(tf, offset, n_iterations, device)
-        Hs, Ws = fields.variant[0].shape
+        Hs, Ws = cell_leaves(arrays)[0].shape
         H, W = (Hs, Ws) if grid_range is None else grid_range
         hs, cs = stored_halo
         check_block((Hs, Ws), origin, (H, W), (hs, cs), halo_width(tf.stencil_radius, iters_per_pass,
                                                                    tf.n_subiterations))
         h, w = Hs - 2 * hs, Ws - 2 * cs
-        dst = variant_outputs(arrays, fields, out, (h, w))
         tile_h, tile_w = tile
         if tile_w < WARP or tile_h < RUN_ROWS:
             raise ValueError(f"the tile-pass kernel takes tiles of at least {RUN_ROWS}x{WARP} (got {tile})")
-        fn = entry("ss_tile_pass_", fields.op)
-        with torch.cuda.device(device):
-            args = (
-                pointer_array(fields.variant), pointer_array(dst), pointer_array(fields.invariant),
-                Hs, Ws, origin[0], origin[1], H, W, hs, cs, h, w, tile_h, tile_w, iters_per_pass,
-                i_start, offset, n_iterations, fields.params, fields.halo,
-                tdv_pointer(tf, tdv, n_iterations, device), torch.cuda.current_stream(device).cuda_stream,
-            )
-            with tracing.span("kernels.enqueue") if tracing.on else tracing.OFF:
-                code = fn(*args)
-        check(code, f"tile-pass kernel (tile {tile})")
-        thread_map = count_launch(fields.op)
+        new = call.launch(
+            "ss_tile_pass_", arrays, out, Hs, Ws, origin[0], origin[1], H, W, hs, cs, h, w, tile_h, tile_w,
+            iters_per_pass, i_start, call.offset, call.n_iterations, shape=(h, w),
+            what=f"tile-pass kernel (tile {tile})",
+        )
+        thread_map = count_launch(call.op)
         if span is not None:
             span.attrs["map"] = thread_map
-        if hs or cs:
-            arrays = cell_map(lambda a: a[hs : Hs - hs, cs : Ws - cs], arrays)
-        return with_variant(arrays, fields, dst)
+        if hs or cs:  # the invariant fields' cores beside the new (core) variant fields
+            new = cell_map(lambda a: a if tuple(a.shape) == (h, w) else a[hs : Hs - hs, cs : Ws - cs], new)
+        return new
 
 
 def count_launch(op: str) -> str:

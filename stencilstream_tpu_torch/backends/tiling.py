@@ -1,7 +1,8 @@
 """Tiling backend: temporal blocking over 2D tiles, any grid size.
 
 Counterpart of ``stencilstream_tpu/backends/tiling.py`` in its clamped and
-line-cache window modes. The host loops ``ceil(n / p)`` passes of ``p``
+line-cache window modes. The host binds the call's cell to its functor
+once (:class:`.cuda_lib.Binding`), then loops ``ceil(n / p)`` passes of ``p``
 fused iterations and ping-pongs two global buffers; the last pass is partial
 when ``p`` does not divide ``n``. One pass is one kernel launch:
 
@@ -29,10 +30,10 @@ import torch
 from .. import tracing
 from ..core.grid import Grid
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import DeviceLimits, cell_field_bytes, device_limits, tile_cell_smem_bytes, tile_writes
+from .cuda_lib import Binding, DeviceLimits, cell_field_bytes, device_limits, tile_cell_smem_bytes, tile_writes
 from .fused import halo_width
-from .line_cache import line_cache_pass, pick_linecache_config
-from .tile_pass import RUN_ROWS, WARP, tile_pass, tile_smem_bytes
+from .line_cache import bound_line_cache_pass, pick_linecache_config
+from .tile_pass import RUN_ROWS, WARP, bound_tile_pass, tile_smem_bytes
 
 __all__ = ["StencilUpdate", "pick_config", "TILE_LAW", "IN_PLACE_LAW"]
 
@@ -221,7 +222,7 @@ class StencilUpdate(StencilUpdateBase):
                 geometry = dict(
                     strip_rows=cfg.strip_rows, panel_cols=cfg.panel_cols, segment_rows=cfg.segment_rows
                 )
-                run_pass = line_cache_pass
+                run_pass = bound_line_cache_pass
             else:
                 th, tw, ipp = pick_config(
                     H, W, tf.stencil_radius, tf.n_subiterations, n,
@@ -232,18 +233,21 @@ class StencilUpdate(StencilUpdateBase):
                     window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp
                 )
                 geometry = dict(tile=(th, tw))
-                run_pass = tile_pass
+                run_pass = bound_tile_pass
             if span is not None:
                 span.attrs["geometry"] = self.resolved_config
+            # One binding for every pass of the call; a call of no passes has none.
+            call = Binding(grid.arrays, tf, halo_cell, offset, n) if n else None
         tdv = self._tdv_stream(grid)
         arrays = grid.arrays
+        if call is None:
+            return Grid(arrays)
+        call.stream_tdv(tdv)
         # Pass i writes into pass i-2's result: two buffers, never the input.
         earlier = [None, None]
-        for i_pass in range(-(-n // ipp) if n else 0):
+        for i_pass in range(-(-n // ipp)):
             arrays = run_pass(
-                arrays, tf, halo_cell,
-                i_start=offset + i_pass * ipp, offset=offset, n_iterations=n,
-                iters_per_pass=ipp, out=earlier[i_pass % 2], tdv=tdv, **geometry,
+                call, arrays, i_start=offset + i_pass * ipp, iters_per_pass=ipp, out=earlier[i_pass % 2], **geometry
             )
             earlier[i_pass % 2] = arrays
         return Grid(arrays)

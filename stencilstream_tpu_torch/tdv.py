@@ -23,8 +23,8 @@ alike, so on the card they see the same bits; no kernel evaluates a TDV.
   evaluated in one batched call instead.
 
 The CUDA kernels take a stream whose values are one tensor of the type their
-device functor declares (``cuda_tdv``); :func:`~.backends.cuda_lib.tdv_pointer`
-refuses any other.
+device functor declares (``cuda_tdv``);
+:meth:`~.backends.cuda_lib.Binding.stream_tdv` refuses any other.
 
 Two counters, since the process started: :data:`evaluations`, the streams
 evaluated (one a call of a transition function with a TDV, whatever the

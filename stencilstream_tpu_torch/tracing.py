@@ -14,15 +14,19 @@ call's id:
                             attribute ``backend``, the one chosen
 ``backends.plan``           the halo, the device's limits and the geometry
                             (``tiling``'s ``pick_config`` or
-                            ``pick_linecache_config``, ``monotile``'s
-                            ``require_plan``); attribute ``geometry``
+                            ``pick_linecache_config`` and its binding of the
+                            call's cell to the functor, ``cuda_lib.Binding``;
+                            ``monotile``'s ``require_plan``, or the plan
+                            ``auto`` made); attribute ``geometry``
 ``backends.tdv``            the call's time-dependent value stream
                             (``StencilUpdateBase._tdv_stream``); attributes
                             ``strategy``, ``offset`` (the call's
                             ``iteration_offset``), ``n`` (its iterations)
-``kernels.launch``          one kernel wrapper, entry to return
-                            (``tile_pass``, ``line_cache_pass``,
-                            ``monotile``; on the CPU their plain versions);
+``kernels.launch``          one pass of a kernel, entry to return
+                            (``bound_tile_pass``, ``bound_line_cache_pass``:
+                            the geometry, the launch from the call's binding
+                            and the counter; ``monotile``, its binding
+                            included; on the CPU their plain versions);
                             attributes ``kernel``, ``pass_index``
 ``kernels.enqueue``         inside ``kernels.launch``, the ``ctypes`` call of
                             the C launcher alone (CUDA tensors only)

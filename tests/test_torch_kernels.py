@@ -267,17 +267,51 @@ def test_int32_invariant_fields_reach_float_functors_as_bit_views():
 def test_tdv_pointer_takes_only_a_stream_of_the_functors_type():
     """A functor without a time-dependent value gets NULL; one with a value
     gets the stream's pointer, which must be one contiguous tensor of at
-    least n values of its type on the grid's device."""
-    assert cuda_lib.tdv_pointer(hs.HotspotKernel(), None, 5, torch.device("cpu")) is None
+    least n values of its type on the grid's device (the call's binding,
+    :meth:`cuda_lib.Binding.stream_tdv`: one of a CPU cell, given the
+    functor's name that a CUDA cell's binding finds)."""
+
+    def tdv_pointer(tf, stream, n):
+        call = cuda_lib.Binding(torch.zeros(2, 2), tf, 0.0, 0, n)
+        call.op = cuda_lib.require_device_op(tf)
+        call.stream_tdv(stream)
+        return call.tdv_pointer
+
+    assert tdv_pointer(hs.HotspotKernel(), None, 5) is None
     tf = probe.ProbeTransFunc()
-    cpu = torch.device("cpu")
     stream = torch.arange(5, dtype=torch.int32)
-    assert cuda_lib.tdv_pointer(tf, stream, 5, cpu) == stream.data_ptr()
-    assert cuda_lib.tdv_pointer(tf, None, 0, cpu) is None  # no step reads a call of 0
+    assert tdv_pointer(tf, stream, 5) == stream.data_ptr()
+    assert tdv_pointer(tf, None, 0) is None  # no step reads a call of 0
     for bad in (None, stream.float(), stream[:4], torch.arange(10, dtype=torch.int32)[::2],
                 stream.view(1, 5), (stream,)):
         with pytest.raises(ValueError, match="cannot be streamed"):
-            cuda_lib.tdv_pointer(tf, bad, 5, cpu)
+            tdv_pointer(tf, bad, 5)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("mode, kernel", [("clamped", tp), ("linecache", lc)])
+def test_a_tiling_call_binds_once(monkeypatch, device, mode, kernel):
+    """n = 2p + 1: three passes from one binding, each a launch of the
+    mode's kernel on the card (the plain version on the CPU), and the
+    reference's result."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    binds = []
+    init = cuda_lib.Binding.__init__
+
+    def counting_init(self, *args, **kwargs):
+        binds.append(args)
+        init(self, *args, **kwargs)
+
+    monkeypatch.setattr(cuda_lib.Binding, "__init__", counting_init)
+    grid = Grid(_cell((32, 64), 0, device))
+    params = Params(hs.HotspotKernel(**STRONG), n_iterations=5)
+    before = kernel.launches
+    got = create_update(params, backend="tiling", iters_per_pass=2, window_mode=mode)(grid)
+    assert len(binds) == 1
+    assert kernel.launches - before == (3 if device == "cuda" else 0)
+    want = create_update(params, backend="reference")(grid)
+    assert _max_err(got.arrays, want.arrays) <= ATOL
 
 
 def test_transition_functions_name_a_tdv_type_for_their_functor():

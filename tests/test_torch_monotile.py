@@ -72,6 +72,24 @@ def test_monotile_zero_iterations_returns_the_grid():
     np.testing.assert_array_equal(out.to_numpy().temp, grid.to_numpy().temp)
 
 
+def test_auto_plans_a_monotile_call_once(monkeypatch):
+    """``auto`` hands the plan it routed by to ``monotile``, which plans no
+    second time; ``monotile`` on its own plans for itself."""
+    plans = []
+    plan = mt.monotile_plan
+    monkeypatch.setattr(mt, "monotile_plan", lambda *args: plans.append(args) or plan(*args))
+    grid = interop.hotspot_grid(_np_cell((32, 64)), device="cpu")
+    params = Params(hs.HotspotKernel(**STRONG), n_iterations=3)
+    update = create_update(params, backend="auto")
+    got = update(grid)
+    assert update.resolved_backend == "monotile" and len(plans) == 1
+    update(grid)
+    assert len(plans) == 2
+    want = create_update(params, backend="monotile")(grid)
+    assert len(plans) == 3
+    np.testing.assert_array_equal(got.to_numpy().temp, want.to_numpy().temp)
+
+
 def test_capacity_law():
     """One CTA per SM, a band of ceil(H / SMs) rows plus r halo rows above
     and below, (W + 2r) columns, 12 B per HotSpot cell (two temp planes,

@@ -67,9 +67,13 @@ Phases, each of which ends the run with a non-zero exit code when it fails:
    1024^2 through ``auto`` (the tile pass, inline TDV), coef 512^2 through
    ``auto`` (the resident grid, host-precomputed TDV), render 1024^2
    through ``tiling(window_mode="linecache")`` (the line cache,
-   device-precomputed TDV), lut 1024^2 through ``auto`` (the tile pass).
-   Then hold each path against the plain ``reference`` backend at a
-   reduced n (FDTD's also from an offset across the detect iteration).
+   device-precomputed TDV), lut 1024^2 through ``auto`` (the tile pass),
+   coef 2048^2 through ``auto`` (the tile pass at the reach law's geometry,
+   the ``fdtd-2048`` cell's). Then hold each path against the plain
+   ``reference`` backend at a reduced n (FDTD's also from an offset across
+   the detect iteration); FDTD coef 2048^2 also at n=20, two full passes
+   of the law's p=8 and a partial one, against as many whole-block plain
+   passes (``tile_pass_plain``), its counters set to 0 just before.
    Last, FDTD coef 1024^2 through ``fdtd.run`` as a user calls it: three
    snapshots, paused and resumed through ``iteration_offset``, each writing
    an ``hz`` frame, which must equal one call of as many iterations.
@@ -641,10 +645,12 @@ def fit_tile(tile, p, cell, tf, limits) -> tuple:
     """``tile`` and ``p``, p halved and then the core's height halved until
     the tile pass's window fits one block."""
     from stencilstream_tpu_torch.backends import cuda_lib
-    from stencilstream_tpu_torch.backends.tile_pass import RUN_ROWS, tile_smem_bytes
+    from stencilstream_tpu_torch.backends.tile_pass import RUN_ROWS, pass_halo, tile_smem_bytes
 
     cell_bytes = cuda_lib.tile_cell_smem_bytes(cell, tf)
-    while tile_smem_bytes(*tile, tf.stencil_radius * p * tf.n_subiterations, cell_bytes) > limits.smem_per_block:
+    reach = cuda_lib.tile_reach(tf)
+    while tile_smem_bytes(*tile, pass_halo(tf.stencil_radius, p, tf.n_subiterations, reach), cell_bytes) > \
+            limits.smem_per_block:
         tile, p = (tile, p // 2) if p > 1 else ((max(RUN_ROWS, tile[0] // 2), tile[1]), p)
     return tile, p
 
@@ -945,6 +951,48 @@ def fdtd_user_run(path, counters, card, side: int = 1024) -> tuple[dict, float]:
     one_shot, _ = run(grid, n_run, **options)
     e = max_err(out.arrays, one_shot.arrays)
     log(f"  fdtd.run with snapshots against one call of {n_run}: max_abs_err={e:.3g} (tol {FDTD_ATOL})")
+    assert e <= FDTD_ATOL, e
+    return counts, e
+
+
+def fdtd_law_passes(path, counters, card, n: int = 20) -> tuple[dict, float]:
+    """Phase 4, FDTD coef 2048^2 (the ``fdtd-2048`` cell's grid) through
+    ``auto`` at n = 20 from the path's first state: the tile pass only, at
+    the reach law's tile and p (``tiling.law_entry``; 40x112, p=8), so two
+    full passes and a partial one, each in place and with the halo of the
+    functor's reach, counted from 0 just before the call. The cells must
+    equal as many whole-block plain passes (``tile_pass_plain``) from the
+    same state. Returns the launch counts and that difference."""
+    from stencilstream_tpu_torch.backends import cuda_lib, tiling
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.tdv import tdv_stream
+
+    grid, run, _, options = path
+    for module in counters.values():
+        module.launches = 0
+    tp.vector_launches = tp.inplace_launches = tp.reach_launches = 0
+    out, update = run(grid, n, **options)
+    counts = {k: m.launches for k, m in counters.items()}
+    cfg, tf = update.resolved_config, update.params.transition_function
+    reach = cuda_lib.tile_reach(tf)
+    (th, tw), halo, _ = tiling.law_entry(cuda_lib.tile_cell_smem_bytes(grid.arrays, tf), True, reach is not None)
+    p = halo // tp.pass_halo(tf.stencil_radius, 1, tf.n_subiterations, reach)
+    n_passes = -(-n // p)
+    log(f"  fdtd coef 2048^2 auto, n={n}: -> {update.resolved_config}; launches {counts} (in place "
+        f"{tp.inplace_launches}, reach {tp.reach_launches}; halo "
+        f"{tp.pass_halo(tf.stencil_radius, p, tf.n_subiterations, reach)}) [{card}]")
+    assert (cfg["tile_rows"], cfg["tile_cols"], cfg["iters_per_pass"]) == (th, tw, p), cfg
+    assert n // p == 2 and n % p, (n, p)  # two full passes and a partial one
+    assert counts["tile_pass"] == tp.inplace_launches == tp.reach_launches == n_passes, counts
+    assert {k for k, c in counts.items() if c} == {"tile_pass"}, counts
+    halo_cell, stream = tf.resolver.halo_cell(), tdv_stream(tf, 0, n, grid.arrays.hz.device)
+    want = grid.arrays
+    for i_start in range(0, n, p):
+        want = tp.tile_pass_plain(want, tf, halo_cell, i_start=i_start, offset=0, n_iterations=n,
+                                  iters_per_pass=p, tdv=stream)
+    e = max_err(out.arrays, want)
+    log(f"  fdtd coef 2048^2 auto, n={n} at {th}x{tw}, p={p}: against {n_passes} whole-block plain passes "
+        f"max_abs_err={e:.3g} (tol {FDTD_ATOL})")
     assert e <= FDTD_ATOL, e
     return counts, e
 
@@ -1495,11 +1543,11 @@ def narrow_kernel_rows(runs, path_counts, device, card, limits, n_mono: int) -> 
 def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) -> dict:
     """Phase 5, FDTD's kernels on the main paths' state after their runs and
     at their geometry (no single PyTorch call computes FDTD): one pass of
-    the coef and of the lut 1024^2 path on the tile pass, one pass of the
-    render 1024^2 path on the line cache, coef 512^2 at n=``n_mono`` on the
-    resident grid, each beside its plain version. Bound: 32 B read and 16 B
-    written a coef cell (lut 20 and 16, render 16 and 16), or n_operations
-    a cell-iteration. Returns one row a kernel and workload."""
+    the coef 1024^2 and 2048^2 and of the lut 1024^2 path on the tile pass,
+    one pass of the render 1024^2 path on the line cache, coef 512^2 at
+    n=``n_mono`` on the resident grid, each beside its plain version. Bound:
+    32 B read and 16 B written a coef cell (lut 20 and 16, render 16 and
+    16), or n_operations a cell-iteration. Returns one row a kernel and workload."""
     from stencilstream_tpu_torch.backends import cuda_lib
     from stencilstream_tpu_torch.backends import line_cache as lc
     from stencilstream_tpu_torch.backends import monotile as mt
@@ -1524,6 +1572,7 @@ def fdtd_kernel_rows(runs, path_counts, fdtd_outs, device, card, n_mono: int) ->
     fdtd_kernels = {}
     for key, kernel, name in (("tile_pass", "tile_pass", "fdtd coef 1024^2 auto"),
                               ("tile_pass lut", "tile_pass", "fdtd lut 1024^2 auto"),
+                              ("tile_pass 2048", "tile_pass", "fdtd coef 2048^2 auto"),
                               ("line_cache", "line_cache", "fdtd render 1024^2 tiling linecache")):
         cfg, tf = runs[name].resolved_config, runs[name].params.transition_function
         cell = fdtd_outs[name].arrays
@@ -1798,6 +1847,7 @@ def main() -> int:
         "fdtd coef 512^2 auto": (12, FDTD_ATOL, {"monotile"}),
         "fdtd render 1024^2 tiling linecache": (12, FDTD_ATOL, {"line_cache"}),
         "fdtd lut 1024^2 auto": (12, FDTD_ATOL, {"tile_pass"}),
+        "fdtd coef 2048^2 auto": (20, FDTD_ATOL, {"tile_pass"}),
         **{name: (12, NARROW_ATOL, {kernel}) for name, kernel in NARROW_PATHS.items()},
         "hotspot 2048^2 auto": (12, ATOL, {"tile_pass"}),
     }
@@ -1812,14 +1862,14 @@ def main() -> int:
         n_small, tol, expect = checks[name]
         for module in counters.values():
             module.launches = 0
-        tp.vector_launches = tp.inplace_launches = 0
+        tp.vector_launches = tp.inplace_launches = tp.reach_launches = 0
         out, update = run(grid, n, **options)
         counts = {k: m.launches for k, m in counters.items()}
         runs[name], path_counts[name] = update, counts
         launched = {k for k, c in counts.items() if c}
         log(f"  {name}, n={n}: -> {getattr(update, 'resolved_backend', 'tiling')} "
             f"{update.resolved_config or ''}; launches {counts} (vector map {tp.vector_launches}, in place "
-            f"{tp.inplace_launches}); walltime "
+            f"{tp.inplace_launches}, reach {tp.reach_launches}); walltime "
             f"{update.get_walltime():.6f} s, {grid.shape[0] * grid.shape[1] * n / update.get_walltime() / 1e9:.3f} "
             f"GCell/s (host clock, build excluded) [{card}]")
         assert launched == expect, (name, counts)
@@ -1828,6 +1878,8 @@ def main() -> int:
         assert tp.vector_launches == (counts["tile_pass"] if cuda_lib.op_info(op)["vector_map"] else 0), name
         # And every tile pass of a functor that updates in place, in place.
         assert tp.inplace_launches == (counts["tile_pass"] if cuda_lib.op_info(op)["writes"] else 0), name
+        # And every tile pass of a functor that declares its reach, with the halo that reach gives.
+        assert tp.reach_launches == (counts["tile_pass"] if cuda_lib.op_info(op)["reach"] else 0), name
         for k in counters:
             totals[k] += counts[k]
         fields = cell_leaves(out.arrays)
@@ -1855,6 +1907,10 @@ def main() -> int:
             assert e <= tol, (name, e)
         del out, got, want
     counts, e = fdtd_user_run(paths["fdtd coef 1024^2 auto"], counters, card)
+    for k in counters:
+        totals[k] += counts[k]
+    path_errs["tile_pass"] = max(path_errs["tile_pass"], e)
+    counts, e = fdtd_law_passes(paths["fdtd coef 2048^2 auto"], counters, card)
     for k in counters:
         totals[k] += counts[k]
     path_errs["tile_pass"] = max(path_errs["tile_pass"], e)

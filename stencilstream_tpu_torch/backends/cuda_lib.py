@@ -53,6 +53,7 @@ __all__ = [
     "pointer_array",
     "require_device_op",
     "tile_cell_smem_bytes",
+    "tile_reach",
     "tile_writes",
 ]
 
@@ -304,8 +305,11 @@ def op_info(op: str) -> dict:
     whether the tile pass's interior sub-steps take the vector thread map
     (``csrc/tile_pass.cu``: ``vector_map``), and ``writes``, the variant
     fields each sub-step writes as bit masks (bit j: variant field j) when
-    the tile pass updates the cells in place (``in_place``), else ``None``."""
-    info = (ctypes.c_int * 11)()
+    the tile pass updates the cells in place (``in_place``), else ``None``,
+    and ``reach``, the rows and columns each sub-step reads below and above
+    a cell, ``(lo, hi)`` per sub-step, when the functor declares them
+    (``declares_reach``), else ``None``."""
+    info = (ctypes.c_int * 13)()
     entry("ss_op_info_", op)(info)
     keys = ("radius", "n_subiterations", "n_variant", "n_invariant", "n_params")
     out = dict(zip(keys, info))
@@ -314,6 +318,8 @@ def op_info(op: str) -> dict:
     out["vector_map"] = bool(info[9])
     nv = info[2]
     out["writes"] = tuple(info[10] >> (s * nv) & ((1 << nv) - 1) for s in range(info[1])) if info[10] else None
+    reach = tuple((info[12] >> 8 * s & 15, info[12] >> 8 * s + 4 & 15) for s in range(info[1]))
+    out["reach"] = reach if info[11] else None
     return out
 
 
@@ -543,6 +549,19 @@ def tile_writes(tf: Any) -> tuple[int, ...] | None:
         return None
     variant = tuple(tf.cuda_variant)
     return tuple(sum(1 << variant.index(f) for f in fields) for fields in writes)
+
+
+def tile_reach(tf: Any) -> tuple[tuple[int, int], ...] | None:
+    """The rows and columns each sub-step of ``tf``'s device functor reads
+    below and above a cell, ``(lo, hi)`` per sub-step, when the functor
+    declares them; else ``None``. The transition function names them
+    (``cuda_reach``) as its functor declares them (``csrc/tile_pass.cu``:
+    ``reach``, :func:`op_info`'s ``reach``); narrow storage's functors
+    declare none."""
+    reach = getattr(tf, "cuda_reach", None)
+    if reach is None or getattr(tf, "cuda_storage", None) is not None:
+        return None
+    return tuple((int(lo), int(hi)) for lo, hi in reach)
 
 
 def tile_cell_smem_bytes(arrays: Any, tf: Any) -> int:

@@ -4,8 +4,11 @@ Wrapper of the tile-pass CUDA kernel (``csrc/tile_pass.cu``), which replaces
 the TPU strip-pass kernel (``stencilstream_tpu/backends/strip_pass.py``,
 ``StripPass.run``), and its plain PyTorch version.
 
-* On CPU tensors :func:`tile_pass` runs :func:`tile_pass_plain`: the same
-  function, one whole-grid sub-step at a time, built on :mod:`.fused`.
+* On CPU tensors :func:`tile_pass` runs :func:`tile_pass_plain` in the
+  kernel's geometry: each tile from its own window, each sub-step over the
+  window narrowed as the kernel narrows it (:func:`pass_narrowing`), built on
+  :mod:`.fused`. Without a tile, :func:`tile_pass_plain` is the plain
+  reference the kernel is held to: one whole-block sub-step at a time.
 * On CUDA tensors it launches the kernel, or raises: for a transition
   function without a device functor, for a time-dependent value that its
   functor does not take or that cannot be streamed to it, and for fields
@@ -25,13 +28,22 @@ grid of ``grid_range`` cells, and it stores ``stored_halo = (rows, cols)``
 cells on each side of its *core*, the part the pass returns. Cells outside
 the grid present the halo value from the first sub-step on, whatever the
 block holds there; the transition function sees global coordinates. A side
-stores at least the pass's halo ``r * p * k``, or the grid ends at or
+stores at least the pass's halo (:func:`pass_halo`), or the grid ends at or
 inside that side of the block (:func:`check_block`).
+
+The pass's halo. Each tile's window is its core and a compound halo per
+side, ``r * p * k`` (:func:`.fused.halo_width`), or, for a functor that
+declares each sub-step's reach (``cuda_reach``: the rows and columns it
+reads below and above a cell, :func:`.cuda_lib.tile_reach`), the larger of
+the low and the high reaches summed over the pass's sub-steps: ``p`` for
+FDTD, whose sub-steps read one-sided. Sub-step s then computes the window
+narrowed by the reaches of sub-steps 0..s on each side (:func:`pass_narrowing`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Any
 
 import torch
@@ -39,12 +51,13 @@ import torch
 from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves, cell_map, cell_unflatten
 from ..tdv import step_value, tdv_stream
-from .cuda_lib import Binding, check, entry, op_info, require_device_op
-from .fused import fused_substep, halo_width, mask_out_of_grid
+from .cuda_lib import Binding, check, entry, op_info, require_device_op, tile_reach
+from .fused import fused_substep, mask_out_of_grid
 
 __all__ = [
     "bound_tile_pass", "check_block", "count_launch", "tile_pass", "tile_pass_plain", "tile_pass_residency",
-    "tile_smem_bytes", "launches", "vector_launches", "inplace_launches",
+    "tile_smem_bytes", "pass_halo", "pass_narrowing", "launches", "vector_launches", "inplace_launches",
+    "reach_launches",
 ]
 
 #: Kernel launches made by :func:`bound_tile_pass`, so by :func:`tile_pass` (CUDA
@@ -56,6 +69,10 @@ vector_launches = 0
 #: Those of them whose functor's sub-steps update its cells in place
 #: (``csrc/tile_pass.cu``: ``in_place``; :func:`.cuda_lib.op_info`'s ``writes``).
 inplace_launches = 0
+#: Those of them whose functor declares its sub-steps' reach, so that the
+#: pass's halo is that reach summed (``csrc/tile_pass.cu``: ``pass_halo``;
+#: :func:`.cuda_lib.op_info`'s ``reach``).
+reach_launches = 0
 
 #: Elements a shared-memory row pitch is rounded up to, and each plane's pad
 #: (``csrc/common.cuh``: ``kPitchAlign``).
@@ -71,6 +88,30 @@ QUAD_RUN = 8
 #: Rows of one thread's run in the in-place sub-steps (``csrc/tile_pass.cu``:
 #: ``kInPlaceRun``), whose last run is not shifted back inside the window.
 IN_PLACE_RUN = 4
+
+
+def pass_narrowing(radius: int, iters_per_pass: int, n_subiterations: int,
+                   reach: tuple[tuple[int, int], ...] | None = None) -> list[tuple[int, int]]:
+    """How far each of a pass's ``p * k`` sub-steps narrows the tile pass's
+    window, ``(lo, hi)`` cells on its low and its high side
+    (``csrc/tile_pass.cu``: ``substep_in_place``): the low and the high
+    reaches of sub-steps 0..s summed, each sub-step's ``reach`` given as
+    ``(lo, hi)`` (:func:`.cuda_lib.tile_reach`), ``(r, r)`` where the
+    functor declares none, so ``r * (s + 1)`` a side."""
+    reach = reach or ((radius, radius),) * n_subiterations
+    return list(itertools.accumulate(reach * iters_per_pass, lambda a, b: (a[0] + b[0], a[1] + b[1])))
+
+
+def pass_halo(radius: int, iters_per_pass: int, n_subiterations: int,
+              reach: tuple[tuple[int, int], ...] | None = None) -> int:
+    """The tile pass's halo per side for a pass of ``iters_per_pass``
+    iterations (``csrc/tile_pass.cu``: ``pass_halo``): the larger side of
+    the pass's last narrowing (:func:`pass_narrowing`), so the compound-halo
+    law ``r * p * k`` (:func:`.fused.halo_width`), or, given each sub-step's
+    ``reach``, the larger of the low and the high reaches summed over the
+    pass."""
+    narrowing = pass_narrowing(radius, iters_per_pass, n_subiterations, reach)
+    return max(narrowing[-1]) if narrowing else 0
 
 
 def tile_smem_bytes(tile_h: int, tile_w: int, halo: int, cell_bytes: int) -> int:
@@ -121,39 +162,107 @@ def tile_pass_plain(
     origin: tuple[int, int] = (0, 0),
     grid_range: tuple[int, int] | None = None,
     stored_halo: tuple[int, int] = (0, 0),
+    tile: tuple[int, int] | None = None,
 ) -> Any:
     """The plain PyTorch version of one pass: whole-block sub-steps with
     the halo value framing the block (:func:`.fused.fused_substep`), then
-    the core. As in the kernel (and the TPU kernel), the fields a device
-    functor only reads (those ``tf.cuda_variant`` does not name) come back
-    as the input's core, bytes outside the grid included."""
+    the core; the reference the kernel is held to. Given the kernel's
+    ``tile``, in the kernel's geometry instead (:func:`_windowed`): the CPU
+    branch of :func:`tile_pass`. As in the kernel (and the TPU kernel), the
+    fields a device functor only reads (those ``tf.cuda_variant`` does not
+    name) come back as the input's core, bytes outside the grid included."""
     block = arrays
     Hs, Ws = cell_leaves(arrays)[0].shape
     grid_range = (Hs, Ws) if grid_range is None else tuple(grid_range)
     hs, cs = stored_halo
-    check_block((Hs, Ws), origin, grid_range, stored_halo, halo_width(tf.stencil_radius, iters_per_pass,
-                                                                      tf.n_subiterations))
-    if origin[0] < 0 or origin[1] < 0 or origin[0] + Hs > grid_range[0] or origin[1] + Ws > grid_range[1]:
-        arrays = mask_out_of_grid(arrays, halo_cell, origin, grid_range)
+    halo = pass_halo(tf.stencil_radius, iters_per_pass, tf.n_subiterations, tile_reach(tf))
+    check_block((Hs, Ws), origin, grid_range, stored_halo, halo)
     stream = tdv if tdv is not None else tdv_stream(tf, offset, n_iterations, cell_leaves(arrays)[0].device)
-    for step in range(iters_per_pass):
-        i_abs = i_start + step
-        if i_abs >= offset + n_iterations:
-            break  # pass-through for the rest of the pass
-        arrays = fused_substep(
-            arrays, tf, halo_cell, origin[0], origin[1], grid_range, i_abs, step_value(stream, i_abs - offset),
-            True, radius=tf.stencil_radius, n_subiterations=tf.n_subiterations,
-        )
+    # Steps past the call's last iteration pass the cells through.
+    steps = [(i_abs, step_value(stream, i_abs - offset))
+             for i_abs in range(i_start, min(i_start + iters_per_pass, offset + n_iterations))]
     core = (lambda a: a[hs : Hs - hs, cs : Ws - cs]) if hs or cs else (lambda a: a)
+    if tile is not None:
+        arrays = _windowed(arrays, tf, halo_cell, tile, halo, steps, origin, grid_range, stored_halo)
+    else:
+        if origin[0] < 0 or origin[1] < 0 or origin[0] + Hs > grid_range[0] or origin[1] + Ws > grid_range[1]:
+            arrays = mask_out_of_grid(arrays, halo_cell, origin, grid_range)
+        for i_abs, value in steps:
+            arrays = fused_substep(
+                arrays, tf, halo_cell, origin[0], origin[1], grid_range, i_abs, value,
+                True, radius=tf.stencil_radius, n_subiterations=tf.n_subiterations,
+            )
+        arrays = cell_map(core, arrays)
     names, variant = cell_field_names(block), getattr(tf, "cuda_variant", None)
     if names and variant is not None:
         arrays = cell_unflatten(block, [
-            core(a) if name in variant else core(b)
+            a if name in variant else core(b)
             for name, a, b in zip(names, cell_leaves(arrays), cell_leaves(block))
         ])
-    elif hs or cs:
-        arrays = cell_map(core, arrays)
     return arrays
+
+
+def _windowed(
+    block: Any,
+    tf: Any,
+    halo_cell: Any,
+    tile: tuple[int, int],
+    halo: int,
+    steps: list,
+    origin: tuple[int, int],
+    grid_range: tuple[int, int],
+    stored_halo: tuple[int, int],
+) -> Any:
+    """One pass in the kernel's geometry, in plain PyTorch: each
+    ``tile``-sized core tile of the block is computed from its own window,
+    the tile and ``halo`` cells a side, which holds the halo value wherever
+    it lies outside the grid or the block, and sub-step s updates only the
+    window narrowed as the kernel narrows it (:func:`pass_narrowing`); the
+    cells past it keep their values, as in the kernel's in-place sub-steps.
+    ``steps``: ``(iteration, time-dependent value)`` of each active step.
+    Returns the core, every field's. With a halo short of the reach, the
+    core's edge takes those kept values."""
+    from .reference import single_subiteration
+
+    r, k = tf.stencil_radius, tf.n_subiterations
+    (Hs, Ws), (hs, cs), (th, tw), (H, W) = cell_leaves(block)[0].shape, stored_halo, tile, grid_range
+    h, w = Hs - 2 * hs, Ws - 2 * cs
+    wh, ww = th + 2 * halo, tw + 2 * halo
+
+    def framed(a, hv):  # the block with room for every window around it
+        out = torch.full((Hs + 2 * halo + th, Ws + 2 * halo + tw), hv, dtype=a.dtype, device=a.device)
+        out[halo : halo + Hs, halo : halo + Ws] = a
+        return out
+
+    def narrowed(lo, hi):
+        def update(old, new):
+            old = old.clone()
+            old[lo : wh - hi, lo : ww - hi] = new[lo : wh - hi, lo : ww - hi]
+            return old
+        return update
+
+    room = cell_map(framed, block, halo_cell)
+    out = cell_map(lambda a: torch.empty((h, w), dtype=a.dtype, device=a.device), block)
+    for r0 in range(0, h, th):
+        for c0 in range(0, w, tw):
+            # The window's first cell: block (hs + r0 - halo, cs + c0 - halo).
+            win = cell_map(lambda a: a[hs + r0 : hs + r0 + wh, cs + c0 : cs + c0 + ww], room)
+            g0 = (origin[0] + hs + r0 - halo, origin[1] + cs + c0 - halo)
+            inside = g0[0] >= 0 and g0[1] >= 0 and g0[0] + wh <= H and g0[1] + ww <= W
+            if not inside:
+                win = mask_out_of_grid(win, halo_cell, g0, (H, W))
+            narrowing = iter(pass_narrowing(r, len(steps), k, tile_reach(tf)))
+            for i_abs, value in steps:
+                for sub in range(k):
+                    new = single_subiteration(win, tf, halo_cell, i_abs, sub, value, radius=r, grid_range=(H, W),
+                                              origin=g0)
+                    if not inside:
+                        new = mask_out_of_grid(new, halo_cell, g0, (H, W))
+                    win = cell_map(narrowed(*next(narrowing)), win, new)
+            nr, nc = min(th, h - r0), min(tw, w - c0)
+            cell_map(lambda o, a: o[r0 : r0 + nr, c0 : c0 + nc].copy_(a[halo : halo + nr, halo : halo + nc]),
+                     out, win)
+    return out
 
 
 @torch.no_grad()
@@ -200,21 +309,26 @@ def bound_tile_pass(call: Binding, arrays: Any, *, i_start: int, iters_per_pass:
                     out: Any = None, origin=(0, 0), grid_range=None, stored_halo=(0, 0)) -> Any:
     """:func:`tile_pass` on a call already bound (``call``: the pass loop
     of ``tiling`` binds once a call); ``arrays`` is the bound cell or an
-    earlier pass's result. A ``kernels.launch`` span."""
+    earlier pass's result. A ``kernels.launch`` span, whose ``halo`` is the
+    pass's (:func:`pass_halo`). On the CPU, in the kernel's geometry
+    (:func:`tile_pass_plain` given the ``tile``)."""
     with (tracing.span("kernels.launch", kernel="tile_pass", pass_index=(i_start - call.offset) // iters_per_pass)
           if tracing.on else tracing.OFF) as span:
         tf = call.tf
+        reach = tile_reach(tf)
+        halo = pass_halo(tf.stencil_radius, iters_per_pass, tf.n_subiterations, reach)
+        if span is not None:
+            span.attrs["halo"] = halo
         if call.op is None:
             return tile_pass_plain(
                 arrays, tf, call.halo_cell, i_start=i_start, offset=call.offset, n_iterations=call.n_iterations,
                 iters_per_pass=iters_per_pass, tdv=call.tdv, origin=tuple(origin), grid_range=grid_range,
-                stored_halo=tuple(stored_halo),
+                stored_halo=tuple(stored_halo), tile=tuple(tile),
             )
         Hs, Ws = cell_leaves(arrays)[0].shape
         H, W = (Hs, Ws) if grid_range is None else grid_range
         hs, cs = stored_halo
-        check_block((Hs, Ws), origin, (H, W), (hs, cs), halo_width(tf.stencil_radius, iters_per_pass,
-                                                                   tf.n_subiterations))
+        check_block((Hs, Ws), origin, (H, W), (hs, cs), halo)
         h, w = Hs - 2 * hs, Ws - 2 * cs
         tile_h, tile_w = tile
         if tile_w < WARP or tile_h < RUN_ROWS:
@@ -234,12 +348,15 @@ def bound_tile_pass(call: Binding, arrays: Any, *, i_start: int, iters_per_pass:
 
 def count_launch(op: str) -> str:
     """Count one launch of the kernel for device functor ``op`` in
-    :data:`launches`, and in :data:`vector_launches` if the functor takes the
-    vector thread map or in :data:`inplace_launches` if its sub-steps update
-    in place; returns the map, ``"vec4"``, ``"inplace"`` or ``"scalar"``."""
-    global launches, vector_launches, inplace_launches
+    :data:`launches`, in :data:`reach_launches` if the functor declares its
+    sub-steps' reach, and in :data:`vector_launches` if it takes the vector
+    thread map or in :data:`inplace_launches` if its sub-steps update in
+    place; returns the map, ``"vec4"``, ``"inplace"`` or ``"scalar"``."""
+    global launches, vector_launches, inplace_launches, reach_launches
     launches += 1
     info = op_info(op)
+    if info["reach"]:
+        reach_launches += 1
     if info["vector_map"]:
         vector_launches += 1
         return "vec4"

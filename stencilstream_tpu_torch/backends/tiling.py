@@ -8,8 +8,9 @@ when ``p`` does not divide ``n``. One pass is one kernel launch:
 
 * ``window_mode="clamped"`` (default): the grid is cut into
   ``tile_h x tile_w`` core tiles; each pass stages every tile with its
-  compound halo ``r * p * k`` into one CTA's shared memory and runs ``p``
-  fused iterations there (:mod:`.tile_pass`).
+  compound halo (``r * p * k``, or the functor's declared reach summed over
+  the pass: :func:`.tile_pass.pass_halo`) into one CTA's shared memory and
+  runs ``p`` fused iterations there (:mod:`.tile_pass`).
 * ``window_mode="linecache"``: each CTA walks a column panel's row segment
   strip by strip and carries the rows the next strip needs on chip, so rows
   are neither re-read nor recomputed within a walk (:mod:`.line_cache`).
@@ -30,12 +31,13 @@ import torch
 from .. import tracing
 from ..core.grid import Grid
 from .base import StencilUpdateBase, resolve_halo
-from .cuda_lib import Binding, DeviceLimits, cell_field_bytes, device_limits, tile_cell_smem_bytes, tile_writes
-from .fused import halo_width
+from .cuda_lib import (
+    Binding, DeviceLimits, cell_field_bytes, device_limits, tile_cell_smem_bytes, tile_reach, tile_writes,
+)
 from .line_cache import bound_line_cache_pass, pick_linecache_config
-from .tile_pass import RUN_ROWS, WARP, bound_tile_pass, tile_smem_bytes
+from .tile_pass import RUN_ROWS, WARP, bound_tile_pass, pass_halo, tile_smem_bytes
 
-__all__ = ["StencilUpdate", "pick_config", "TILE_LAW", "IN_PLACE_LAW"]
+__all__ = ["StencilUpdate", "pick_config", "TILE_LAW", "IN_PLACE_LAW", "REACH_LAW"]
 
 #: The tile-pass geometry that ran fastest per iteration at 8192^2 on an
 #: NVIDIA H100 80GB HBM3 at 700 W (``tile_sweep.py``; PERF.md), by the
@@ -73,28 +75,52 @@ TILE_LAW = {
 #: The law of cells the tile pass updates in place (one shared plane per
 #: variant field: :func:`.cuda_lib.tile_writes`), by the same bytes
 #: (:func:`.cuda_lib.tile_cell_smem_bytes`), apart from :data:`TILE_LAW`, so
-#: that no other cell's geometry moves. FDTD at 2048^2 (``tile_sweep.py
-#: --ops fdtd,fdtd_lut,fdtd_render --passes 4,5,6 --size 2048``; PERF.md),
-#: profiler device time a pass of p=4: the coef cell, 32 B, 32x128 (209.3
-#: us; 16x192 220.9, 32x96 239.4, 16x128 282.3, the ping-pong 16x128 334.5;
-#: at p=5 and 6 no tile under 65.2 and 56.4 us an iteration, against 52.3).
-#: The lut cell, 20 B, and the render cell, 16 B, run two CTAs an SM at
-#: 32x96: lut 324.9 us (24x128 324.1, 32x128 360.7, the ping-pong law's
-#: 28x32 675.9), render 314.5 (32x128 322.1, 28x32 1424.4); at 1024^2 the
-#: fastest for both (lut 109.3 us, 140.3 at 32x128, 177.7 at 28x32; render
-#: 110.7, 125.7, 365.0). p stays 4 or more: a launch costs the host ~0.1-0.15
-#: ms.
+#: that no other cell's geometry moves. Since FDTD's functors declare their
+#: reach (:data:`REACH_LAW`) only ``distributed`` and ``ring`` take it, with
+#: their stored halo r*p*k. FDTD at 2048^2 (``tile_sweep.py --ops
+#: fdtd,fdtd_lut,fdtd_render --passes 4,5,6 --size 2048``; PERF.md),
+#: profiler device time a pass of p=4 with the halo r*p*k = 8: the coef
+#: cell, 32 B, 32x128 (209.3 us; 16x192 220.9, 32x96 239.4, 16x128 282.3,
+#: the ping-pong 16x128 334.5; at p=5 and 6 no tile under 65.2 and 56.4 us
+#: an iteration, against 52.3). The lut cell, 20 B, and the render cell,
+#: 16 B, run two CTAs an SM at 32x96: lut 324.9 us (24x128 324.1, 32x128
+#: 360.7, the ping-pong law's 28x32 675.9), render 314.5 (32x128 322.1,
+#: 28x32 1424.4); at 1024^2 the fastest for both (lut 109.3 us, 140.3 at
+#: 32x128, 177.7 at 28x32; render 110.7, 125.7, 365.0). p stays 4 or more:
+#: a launch costs the host ~0.1-0.15 ms.
 IN_PLACE_LAW = {
     16: ((32, 96), 8, 2),
     32: ((32, 128), 8, 1),
 }
 
+#: The law of in-place cells whose functor declares its sub-steps' reach
+#: (:func:`.cuda_lib.tile_reach`), by the same bytes; its halo is the reach
+#: summed over a pass (:func:`.tile_pass.pass_halo`: p for FDTD, whose
+#: sub-steps read one-sided), so an entry's halo 8 is p=8. The ``tiling``
+#: backend's alone: ``distributed`` and ``ring`` keep :data:`IN_PLACE_LAW`.
+#: FDTD at 2048^2 (``tile_sweep.py --ops fdtd,fdtd_lut,fdtd_render --size
+#: 2048 --passes 4,5,6,7,8``, 35 tiles, then the best again at p=4 and 8;
+#: PERF.md), profiler device time an iteration: the coef cell, 32 B,
+#: 40x112 at p=8, one CTA an SM (41.07, 40.96, 40.96 us; 56x80 41.83-42.09,
+#: 32x128 42.37-42.47; 40x112 at p=4-7 49.7, 52.6, 49.2, 47.0; the best
+#: two-CTA windows 24x104 and 24x88 at p=4, 44.4-44.7 and 46.1; against
+#: 52.3 us at the symmetric law's 32x128, p=4). The lut cell, 20 B, 32x88 at
+#: p=4, two CTAs (67.54, 66.86 us; 24x112 67.6-68.2; 32x192 at p=8 read
+#: 63.06 once and 81.57 again), the render cell, 16 B, 56x80 at p=8, two
+#: CTAs (65.49, 63.37 us; 40x112 65.1-65.8). p stays 4 or more.
+REACH_LAW = {
+    16: ((56, 80), 8, 2),
+    20: ((32, 88), 4, 2),
+    32: ((40, 112), 8, 1),
+}
 
-def law_entry(cell_bytes: int, in_place: bool = False):
+
+def law_entry(cell_bytes: int, in_place: bool = False, reach: bool = False):
     """The entry of :data:`TILE_LAW` (:data:`IN_PLACE_LAW` for a cell
-    updated in place) of the largest tabulated cell not larger than
+    updated in place, :data:`REACH_LAW` for one whose functor also declares
+    its sub-steps' reach) of the largest tabulated cell not larger than
     ``cell_bytes`` (the smallest one for a smaller cell)."""
-    law = IN_PLACE_LAW if in_place else TILE_LAW
+    law = (REACH_LAW if reach else IN_PLACE_LAW) if in_place else TILE_LAW
     fits = [b for b in law if b <= cell_bytes]
     return law[max(fits) if fits else min(law)]
 
@@ -109,36 +135,43 @@ def pick_config(
     limits: DeviceLimits,
     iters_per_pass: int | None = None,
     in_place: bool = False,
+    reach: tuple[tuple[int, int], ...] | None = None,
 ) -> tuple[int, int, int]:
     """Choose ``(tile_h, tile_w, iters_per_pass)`` from the device's shared
     memory.
 
     The tile of :data:`TILE_LAW` (:data:`IN_PLACE_LAW` for a cell the tile
-    pass updates in place) for ``cell_bytes`` (no larger than the grid,
-    rounded up to whole runs and warps) and, unless given, the largest ``p``
-    whose halo ``r*p*k`` stays within the law's halo. While the window
-    (:func:`.tile_pass.tile_smem_bytes`) exceeds the law's share of the
-    shared memory a block may use, halve the core's height, then its width,
-    as long as it stays at least twice the halo; then lower ``p`` when it
-    was not given; then halve the core down to one run by one warp. The core
-    is never smaller than the halo.
+    pass updates in place, :data:`REACH_LAW` for one whose sub-steps'
+    ``reach`` is given: :func:`.cuda_lib.tile_reach`) for ``cell_bytes`` (no
+    larger than the grid, rounded up to whole runs and warps) and, unless
+    given, the largest ``p`` whose halo (:func:`.tile_pass.pass_halo`: ``r*p*k``,
+    or the reach summed over the pass) stays within the law's halo. While
+    the window (:func:`.tile_pass.tile_smem_bytes`) exceeds the law's share
+    of the shared memory a block may use, halve the core's height, then its
+    width, as long as it stays at least twice the halo; then lower ``p``
+    when it was not given; then halve the core down to one run by one warp.
+    The core is never smaller than the halo.
     """
-    (th, tw), halo, ctas = law_entry(cell_bytes, in_place)
+    (th, tw), halo, ctas = law_entry(cell_bytes, in_place, reach is not None)
     auto_p = iters_per_pass is None
     th = min(th, -(-height // RUN_ROWS) * RUN_ROWS)
     tw = min(tw, -(-width // WARP) * WARP)
-    p = max(1, halo // (radius * n_subiterations)) if auto_p else iters_per_pass
+
+    def pass_halo_of(p):
+        return pass_halo(radius, p, n_subiterations, reach)
+
+    p = max(1, halo // pass_halo_of(1)) if auto_p else iters_per_pass
     if n_iterations:
         p = min(p, n_iterations)
 
     def window_bytes(th, tw, p):
-        return tile_smem_bytes(th, tw, halo_width(radius, p, n_subiterations), cell_bytes)
+        return tile_smem_bytes(th, tw, pass_halo_of(p), cell_bytes)
 
     def narrower(tw):
         return max(WARP, tw // 2 // WARP * WARP)
 
     def shrink(th, tw, p):
-        hp = halo_width(radius, p, n_subiterations)
+        hp = pass_halo_of(p)
         if th // 2 >= max(RUN_ROWS, 2 * hp):
             return th // 2, tw, p
         if narrower(tw) < tw and narrower(tw) >= 2 * hp:
@@ -156,10 +189,9 @@ def pick_config(
             f"a {th}x{tw} tile at iters_per_pass={p} needs {window_bytes(th, tw, p)} B of shared "
             f"memory; the device allows {limits.smem_per_block} B per block"
         )
-    if halo_width(radius, p, n_subiterations) > min(th, tw):
+    if pass_halo_of(p) > min(th, tw):
         raise ValueError(
-            f"iters_per_pass={p} gives a halo of {halo_width(radius, p, n_subiterations)} "
-            f"cells, more than the {th}x{tw} core tile"
+            f"iters_per_pass={p} gives a halo of {pass_halo_of(p)} cells, more than the {th}x{tw} core tile"
         )
     return th, tw, p
 
@@ -227,7 +259,7 @@ class StencilUpdate(StencilUpdateBase):
                 th, tw, ipp = pick_config(
                     H, W, tf.stencil_radius, tf.n_subiterations, n,
                     tile_cell_smem_bytes(grid.arrays, tf), limits, self.iters_per_pass,
-                    in_place=tile_writes(tf) is not None,
+                    in_place=tile_writes(tf) is not None, reach=tile_reach(tf),
                 )
                 self.resolved_config = dict(
                     window_mode="clamped", tile_rows=th, tile_cols=tw, iters_per_pass=ipp

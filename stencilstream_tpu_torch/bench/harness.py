@@ -45,7 +45,7 @@ def model_inputs(tf, grid, backend, n_iterations, wall, flops_per_cell, updater,
     keeps none, so its plan is computed again as the backend computes it.
     """
     from ..backends import monotile
-    from ..backends.cuda_lib import cell_field_bytes, cell_smem_bytes, device_limits
+    from ..backends.cuda_lib import cell_field_bytes, cell_smem_bytes, device_limits, tile_reach
     from ..backends.line_cache import run_rows
     from ..core.cell import cell_leaves
     from .profile import kernel_stats
@@ -65,7 +65,7 @@ def model_inputs(tf, grid, backend, n_iterations, wall, flops_per_cell, updater,
         (H, W), variant, invariant,
         radius=tf.stencil_radius, n_subiterations=tf.n_subiterations, n_iterations=n_iterations,
         config=config, run=run_rows(grid.arrays, tf), measured_walltime=wall,
-        flops_per_cell=flops_per_cell, spec=spec, dtype=dtype,
+        flops_per_cell=flops_per_cell, spec=spec, dtype=dtype, reach=tile_reach(tf),
     )
     stats["backend"] = backend
     cells = H * W

@@ -131,16 +131,17 @@ def _lanes(h: int, w: int, run: int) -> int:
     return -(-h // run) * run * -(-w // WARP) * WARP
 
 
-def _tile_launch(core, tile, halo, radius, steps, run, rows_in, cols_in) -> dict:
+def _tile_launch(core, tile, halo, narrowing, run, rows_in, cols_in) -> dict:
     """One tile-pass launch (``csrc/tile_pass.cu``) over a core of ``core``
     cells in ``tile`` tiles: each window, the tile and ``halo`` cells a
     side, is staged from the cells in ``rows_in x cols_in`` (core
     coordinates of the cells stored and inside the grid; the rest are
     staged as the halo value, not read), sub-step ``s`` computes it narrowed
-    by ``radius * (s + 1)`` a side, and the core is written."""
+    by ``narrowing[s]`` cells on its two sides together
+    (``backends.tile_pass.pass_narrowing``), and the core is written."""
     (h, w), (th, tw) = core, tile
     n_tiles = -(-h // th) * -(-w // tw)
-    sizes = [(th + 2 * (halo - radius * (s + 1)), tw + 2 * (halo - radius * (s + 1))) for s in range(steps)]
+    sizes = [(th + 2 * halo - m, tw + 2 * halo - m) for m in narrowing]
     return {
         "read_cells": _covered(h, th, halo, *rows_in) * _covered(w, tw, halo, *cols_in),
         "written_cells": h * w,
@@ -227,6 +228,7 @@ def kernel_stats(
     flops_per_cell: float = 0.0,
     spec=None,
     dtype: str = "float32",
+    reach=None,
 ) -> dict:
     """What one pass of the kernel a configuration runs reads, writes and
     computes, and a run's totals.
@@ -235,8 +237,10 @@ def kernel_stats(
     kernels hold them (``backends.cuda_lib.cell_field_bytes``: the kernels
     stage every invariant field, read or not); ``run`` is the rows of one
     thread's run (``backends.line_cache.run_rows``: 8 with one variant
-    field, 1 with more). ``config`` is the ``resolved_config`` of the
-    backend that ran:
+    field, 1 with more). ``reach``: each sub-step's ``(lo, hi)`` where the
+    functor declares it (``backends.cuda_lib.tile_reach``), which sets the
+    tile pass's halo (``backends.tile_pass.pass_halo``) and narrowing.
+    ``config`` is the ``resolved_config`` of the backend that ran:
 
     * ``tiling`` with ``window_mode="clamped"`` (``tile_rows``,
       ``tile_cols``, ``iters_per_pass``): one tile-pass launch a pass;
@@ -260,6 +264,7 @@ def kernel_stats(
     spec's HBM rate, the useful operations' share of the peak of ``dtype``,
     and the memory time at the derated rate over the walltime.
     """
+    from ..backends.tile_pass import pass_halo, pass_narrowing
     from .model import GpuSpec
 
     H, W = grid_shape
@@ -273,6 +278,8 @@ def kernel_stats(
         p = config["iters_per_pass"]
         steps = p * k
         halo = r * steps
+        window = pass_halo(r, p, k, reach)  # the tile pass's own halo
+        narrowing = [lo + hi for lo, hi in pass_narrowing(r, p, k, reach)]
         n_passes = -(-n_iterations // p) if n_iterations else 0
         if config.get("window_mode") == "linecache":
             kernel = "line_cache"
@@ -285,7 +292,7 @@ def kernel_stats(
             if "mesh" in config:
                 (ny, nx), (h, w), (hr, hc) = config["mesh"], config["shard"], config["stored_halo"]
                 c = _add([
-                    _tile_launch((h, w), tile, halo, r, steps, run,
+                    _tile_launch((h, w), tile, window, narrowing, run,
                                  (max(-hr, -iy * h), min(h + hr, H - iy * h)),
                                  (max(-hc, -ix * w), min(w + hc, W - ix * w)))
                     for iy in range(ny) for ix in range(nx)
@@ -293,14 +300,14 @@ def kernel_stats(
             elif "ring" in config:
                 ch, look = config["chunk_rows"], halo
                 c = _add([
-                    _tile_launch((ch, W), tile, halo, r, steps, run,
+                    _tile_launch((ch, W), tile, window, narrowing, run,
                                  (max(-look, -j * ch), min(ch + look, H - j * ch)), (0, W))
                     for j in range(config["n_chunks"])
                 ])
                 laps = -(-n_iterations // (config["ring"] * p)) if n_iterations else 0
                 n_passes = laps * config["ring"]
             else:
-                c = _tile_launch((H, W), tile, halo, r, steps, run, (0, H), (0, W))
+                c = _tile_launch((H, W), tile, window, narrowing, run, (0, H), (0, W))
             read = c["read_cells"] * (variant_bytes + invariant_bytes)
             write = c["written_cells"] * variant_bytes
     useful = H * W * steps

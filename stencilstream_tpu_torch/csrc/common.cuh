@@ -218,6 +218,13 @@ Fields<Op> make_fields(void* const* var_in, void* const* var_out, void* const* i
   return f;
 }
 
+// The rows and columns a sub-step reads below (lo) and above (hi) a cell, on
+// both axes: what a functor declares as Op::kReach[s] where its sub-steps
+// read one-sided (the tile pass: tile_pass.cu, reach).
+struct Reach {
+  int lo, hi;
+};
+
 // Bytes of one window cell in shared memory: two ping-pong planes per
 // variant field, one staged plane per invariant field.
 template <class Op>

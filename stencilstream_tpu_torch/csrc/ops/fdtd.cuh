@@ -127,6 +127,12 @@ struct FdtdT {
   // (the tile pass then updates one plane per field in place: tile_pass.cu,
   // in_place).
   static constexpr unsigned kWrites[kSubiterations] = {0b0011u, 0b1100u};
+  // Each sub-step's reach: sub-step 0 reads hz at (0, -1) and (-1, 0), below
+  // the cell, sub-step 1 ex at (0, 1) and ey at (1, 0), above it; the
+  // coefficients only at the cell. An iteration widens the dependency cone
+  // by 1 a side, so the tile pass stages a halo of p, not r*p*k = 2p
+  // (tile_pass.cu: pass_halo).
+  static constexpr Reach kReach[kSubiterations] = {{1, 0}, {0, 1}};
 
   int cutoff_iteration, detect_iteration;
   float source_r, source_c, source_distance_bound;

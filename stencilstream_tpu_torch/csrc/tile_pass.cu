@@ -9,7 +9,11 @@
 // is staged into shared memory once per pass; the p*k sub-steps ping-pong
 // between two shared planes per variant field, sub-step s computing only the
 // window narrowed by r*(s+1) per side (the cells the next one needs); the
-// core is written back. A partial pass stops at the call's last iteration.
+// core is written back. A functor that declares each sub-step's reach
+// (Op::kReach: FDTD's, whose sub-steps read one-sided) gets the larger of its
+// low and high reaches summed over the pass as its halo, and sub-step s's
+// window narrowed by the low and high reaches of sub-steps 0..s (pass_halo).
+// A partial pass stops at the call's last iteration.
 // Each step reads its iteration's time-dependent value, if the functor takes
 // one, from the call's stream (common.cuh: read_tdv); the steps of a partial
 // pass past the call's last iteration read nothing.
@@ -148,6 +152,55 @@ __host__ __device__ constexpr bool in_place() {
 template <class Op, int s>
 constexpr unsigned kWritten = Op::kWrites[s];
 
+template <class Op, class = void>
+struct DeclaresReach : std::false_type {};
+template <class Op>
+struct DeclaresReach<Op, std::void_t<decltype(Op::kReach)>> : std::true_type {};
+
+// Whether a functor declares each sub-step's reach (Op::kReach).
+template <class Op>
+__host__ __device__ constexpr bool declares_reach() {
+  return DeclaresReach<Op>::value;
+}
+
+// Sub-step s's reach: Op::kReach[s], or r on both sides.
+template <class Op>
+constexpr Reach reach(int s) {
+  if constexpr (declares_reach<Op>())
+    return Op::kReach[s];
+  else
+    return Reach{Op::kRadius, Op::kRadius};
+}
+
+// The low (high) reaches of sub-steps 0..s, summed: how far the window of
+// sub-step s of a pass's first iteration is narrowed on the low (high) side.
+template <class Op>
+constexpr int reach_sum(int s, bool high) {
+  int n = 0;
+  for (int t = 0; t <= s; ++t) n += high ? reach<Op>(t).hi : reach<Op>(t).lo;
+  return n;
+}
+
+// Those, and sub-step s's own reach, as scalar constants, which device code
+// can read.
+template <class Op, int s>
+constexpr int kLoSum = reach_sum<Op>(s, false);
+template <class Op, int s>
+constexpr int kHiSum = reach_sum<Op>(s, true);
+template <class Op, int s>
+constexpr int kReachLo = reach<Op>(s).lo;
+template <class Op, int s>
+constexpr int kReachHi = reach<Op>(s).hi;
+
+// The compound halo of a pass of p iterations, per side: the larger of the
+// low and the high reaches summed over its p*k sub-steps; r*p*k for a
+// functor that declares no reach.
+template <class Op>
+constexpr int pass_halo(int iters_per_pass) {
+  constexpr int lo = kLoSum<Op, Op::kSubiterations - 1>, hi = kHiSum<Op, Op::kSubiterations - 1>;
+  return iters_per_pass * (lo > hi ? lo : hi);
+}
+
 // Shared planes per variant field: two to ping-pong between, one in place.
 template <class Op>
 __host__ __device__ constexpr int variant_planes() {
@@ -184,7 +237,7 @@ struct TilePassArgs {
   int r_lo, r_hi;      // block rows that are stored and inside the grid
   int c_lo, c_hi;      // block columns that are stored and inside the grid
   int tile_h, tile_w;  // core tile
-  int halo;            // r * p * k
+  int halo;            // pass_halo: r * p * k, or the declared reach's
   int steps;           // p * k sub-steps
   int i_start;         // absolute iteration of the pass's first step
   int offset;          // absolute iteration of the call's first step
@@ -262,9 +315,10 @@ __device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G&
                                              tdv_t<Op> tdv) {
   using T = typename Op::T;
   constexpr int NV = Op::kVariant;
-  constexpr int R = Op::kRadius;
   constexpr int V = kInPlaceRun;
   constexpr unsigned kStored = kWritten<Op, kSub>;
+  // The sub-step's own reach below and above the cell.
+  constexpr int kLo = kReachLo<Op, kSub>, kHi = kReachHi<Op, kSub>;
   const int gr = row0 + r;
   const int gc = col0 + c;
   const bool col_in = gc >= 0 && gc < W;
@@ -277,9 +331,9 @@ __device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G&
       for (int f = 0; f < NV; ++f) out[k][f] = a.f.halo_var[f];
     } else {
       if (!kEdge) {
-        // As in substep: an interior tile's computed cells have all their
-        // neighbours in the grid.
-        __builtin_assume(gr + k >= R && gr + k < H - R && gc >= R && gc < W - R);
+        // As in substep: an interior tile's computed cells have all the
+        // neighbours they read in the grid.
+        __builtin_assume(gr + k >= kLo && gr + k < H - kHi && gc >= kLo && gc < W - kHi);
       }
       const Taps<T, tdv_t<Op>> t{var + (r + k) * g.pitch + c, inv + (r + k) * g.pitch + c,
                                  g.plane, g.plane, g.pitch, gr + k, gc, H, W, iteration, kSub, tdv};
@@ -296,40 +350,45 @@ __device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G&
   }
 }
 
-// Sub-step `sub` of an in-place functor over the window narrowed by m per
-// side, the planes at `var` updated in place; each sub-step is its own
-// instantiation (kSub), chosen by a branch that is uniform across the CTA.
-// The thread map is substep's with runs of kInPlaceRun rows, but each cell
-// of the narrowed window is computed by exactly one lane: neither the last
-// chunk nor the last run is shifted back inside the window (a shifted lane
-// would read a cell another lane has already updated); the lanes and rows
-// past the window skip.
+// Sub-step `sub` of iteration j of the pass, for an in-place functor, the
+// planes at `var` updated in place over the window narrowed by the reaches
+// of the pass's sub-steps so far, this one included: lo on the low side and
+// hi on the high side of both axes (r*(s+1) each for a functor that declares
+// no reach). Each sub-step is its own instantiation (kSub), chosen by a
+// branch that is uniform across the CTA. The thread map is substep's with
+// runs of kInPlaceRun rows, but each cell of the narrowed window is computed
+// by exactly one lane: neither the last chunk nor the last run is shifted
+// back inside the window (a shifted lane would read a cell another lane has
+// already updated); the lanes and rows past the window skip.
 template <class Op, bool kEdge, int kSub = 0, class G>
 __device__ __forceinline__ void substep_in_place(const TilePassArgs<Op>& a, const G& g, const Op& op,
-                                                 typename Op::T* var, const typename Op::T* inv, int m,
+                                                 typename Op::T* var, const typename Op::T* inv, int j,
                                                  int row0, int col0, int H, int W, int iteration, int sub,
                                                  tdv_t<Op> tdv) {
-  if constexpr (kSub + 1 < Op::kSubiterations) {
+  constexpr int K = Op::kSubiterations;
+  if constexpr (kSub + 1 < K) {
     if (sub != kSub) {
-      substep_in_place<Op, kEdge, kSub + 1>(a, g, op, var, inv, m, row0, col0, H, W, iteration, sub, tdv);
+      substep_in_place<Op, kEdge, kSub + 1>(a, g, op, var, inv, j, row0, col0, H, W, iteration, sub, tdv);
       return;
     }
   }
   constexpr int V = kInPlaceRun;
+  const int lo = j * kLoSum<Op, K - 1> + kLoSum<Op, kSub>;
+  const int hi = j * kHiSum<Op, K - 1> + kHiSum<Op, kSub>;
   const int WH = a.tile_h + 2 * a.halo;
   const int WW = a.tile_w + 2 * a.halo;
-  const int n_runs = (WH - 2 * m + V - 1) / V;
-  const int n_chunks = (WW - 2 * m + 31) >> 5;
+  const int n_runs = (WH - lo - hi + V - 1) / V;
+  const int n_chunks = (WW - lo - hi + 31) >> 5;
   int jx = threadIdx.y, jy = 0;
   while (jx >= n_chunks) jx -= n_chunks, ++jy;
   while (jy < n_runs) {
-    const int r = m + jy * V;
-    const int c = m + (jx << 5) + threadIdx.x;
-    if (c < WW - m) {
-      if (r + V <= WH - m)
+    const int r = lo + jy * V;
+    const int c = lo + (jx << 5) + threadIdx.x;
+    if (c < WW - hi) {
+      if (r + V <= WH - hi)
         in_place_run<Op, kEdge, kSub, false>(a, g, op, var, inv, r, c, V, row0, col0, H, W, iteration, tdv);
       else
-        in_place_run<Op, kEdge, kSub, true>(a, g, op, var, inv, r, c, WH - m - r, row0, col0, H, W, iteration,
+        in_place_run<Op, kEdge, kSub, true>(a, g, op, var, inv, r, c, WH - hi - r, row0, col0, H, W, iteration,
                                             tdv);
     }
     jx += kTileWarps;
@@ -515,6 +574,7 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
                                                      int col0, int H, int W, int sh, int tid, int pitch) {
   constexpr int R = Op::kRadius;
   constexpr int K = Op::kSubiterations;
+  static_assert(!declares_reach<Op>() || in_place<Op>(), "only the in-place sub-steps narrow by a declared reach");
   for (int s = 0; s < a.steps; ++s) {
     const int iteration = a.i_start + s / K;
     // Past the call's last iteration every cell passes through unchanged,
@@ -523,7 +583,7 @@ __device__ __forceinline__ typename Op::T* run_steps(const TilePassArgs<Op>& a, 
     const int m = R * (s + 1);
     const tdv_t<Op> tdv = read_tdv<Op>(a.tdv, iteration - a.offset);
     if constexpr (in_place<Op>()) {
-      substep_in_place<Op, kEdge>(a, g, op, cur, inv, m, row0, col0, H, W, iteration, s % K, tdv);
+      substep_in_place<Op, kEdge>(a, g, op, cur, inv, s / K, row0, col0, H, W, iteration, s % K, tdv);
     } else if constexpr (!kEdge && vector_map<Op>()) {
       const int WW = a.tile_w + 2 * a.halo;
       const int gl = ((sh + m) & ~3) - sh;           // first column of the first group
@@ -641,7 +701,7 @@ bool tile_args(TilePassArgs<Op>& a, int h, int w, int tile_h, int tile_w, int it
   a.w = w;
   a.tile_h = tile_h;
   a.tile_w = tile_w;
-  a.halo = Op::kRadius * iters_per_pass * Op::kSubiterations;
+  a.halo = pass_halo<Op>(iters_per_pass);
   a.steps = iters_per_pass * Op::kSubiterations;
   a.tiles_x = (w + tile_w - 1) / tile_w;
   a.pitch = (tile_w + 2 * a.halo + kPitchAlign - 1) / kPitchAlign * kPitchAlign;
@@ -724,7 +784,9 @@ constexpr int element_kind() {
 // n_subiterations, n_variant, n_invariant, n_params, element bytes,
 // element kind, TDV bytes (0: it takes none), TDV is floating point,
 // the tile pass takes the vector map, the fields each sub-step s writes in
-// place (Op::kWrites[s] at bits s * n_variant up; 0: not in place)}.
+// place (Op::kWrites[s] at bits s * n_variant up; 0: not in place), whether
+// it declares its sub-steps' reach, and that reach (sub-step s's low reach
+// at bits 8 * s up, its high reach at bits 8 * s + 4 up)}.
 template <class Op>
 int op_info(int* info) {
   using D = tdv_t<Op>;
@@ -743,6 +805,9 @@ int op_info(int* info) {
   if constexpr (in_place<Op>())
     for (int s = 0; s < Op::kSubiterations; ++s)
       info[10] |= static_cast<int>(Op::kWrites[s] << (s * Op::kVariant));
+  info[11] = declares_reach<Op>() ? 1 : 0;
+  info[12] = 0;
+  for (int s = 0; s < Op::kSubiterations; ++s) info[12] |= (reach<Op>(s).lo | reach<Op>(s).hi << 4) << (8 * s);
   return 0;
 }
 

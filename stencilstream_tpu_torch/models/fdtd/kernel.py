@@ -46,6 +46,11 @@ class FDTDKernel:
     #: the cell itself, as the functor declares them (``kWrites``): the tile
     #: pass updates them in place.
     cuda_writes = (("ex", "ey"), ("hz", "hz_sum"))
+    #: The rows and columns each sub-step reads below and above a cell,
+    #: ``(lo, hi)``, as the functor declares them (``kReach``): sub-step 0
+    #: reads hz below, sub-step 1 ex and ey above; the tile pass's halo is
+    #: then p, not r*p*k (``backends/tile_pass.py``: ``pass_halo``).
+    cuda_reach = ((1, 0), (0, 1))
     #: The type of the TDV stream the functor reads: the source amplitude.
     cuda_tdv = torch.float32
     #: Float32 operations per cell and iteration on cell data, a fused

@@ -98,10 +98,14 @@ TILES = [(32, 64), (64, 64), (64, 96), (32, 128), (64, 128), (128, 64), (96, 96)
          (32, 240), (48, 240), (64, 240)]
 #: Core tiles of FDTD's geometry sweep: its 32 B cells (in place) leave room
 #: for windows of ~7.2k cells, the lut cell's 20 B and the render cell's 16 B
-#: for more; one cell a thread, so heights need not be runs.
+#: for more; runs of 4 rows, so heights need not be 8-row runs. With the
+#: halo of its one-sided reach (p, not 2p), windows of one CTA an SM up to
+#: 56x80 or 40x112 at p=8, and of two (~113 KB) such as 24x88 or 16x120.
 FDTD_TILES = [(8, 64), (8, 128), (16, 64), (16, 96), (16, 128), (16, 192), (24, 64), (24, 96),
               (24, 128), (32, 64), (32, 96), (32, 128), (48, 64), (64, 64), (40, 128), (48, 128),
-              (24, 192), (32, 192), (16, 256), (64, 96), (96, 64)]
+              (24, 192), (32, 192), (16, 256), (64, 96), (96, 64),
+              (16, 120), (24, 88), (24, 104), (32, 88), (32, 112), (40, 96), (40, 112), (48, 80), (48, 96),
+              (56, 80), (56, 96), (64, 80), (24, 112), (16, 112)]
 #: Core tiles of the convection functors' geometry sweep: their 48-168 B
 #: cells (k=3 for the pseudo-transient ones) leave room for windows of 1.4k
 #: to 4.8k cells; one cell a thread for ten variant fields.
@@ -331,47 +335,51 @@ def vector_map_work(tile, halo: int, radius: int, run: int = tp.QUAD_RUN, sh: in
                 uncovered=uncovered, clobbered=clobbered, scalar_steps=scalar_steps)
 
 
-def in_place_map_work(tile, halo: int, radius: int, run: int = tp.IN_PLACE_RUN, in_place: bool = True) -> dict:
+def in_place_map_work(tile, halo: int, radius: int, run: int = tp.IN_PLACE_RUN, in_place: bool = True,
+                      reach=None) -> dict:
     """A model of the tile pass's scalar thread map (``csrc/tile_pass.cu``:
-    ``substep``) over the sub-steps of one tile: sub-step s computes the
-    window narrowed by m = r*(s+1) per side, each warp taking (32-column
-    chunk, run of ``run`` rows) pairs dealt round-robin. In place, the last
-    chunk and the last run keep their places and the lanes and rows past the
-    window skip; otherwise (``in_place=False``, the ping-pong map, one-cell
-    runs for multi-field cells) they are shifted back inside the window.
-    Returns the lane-cells per useful cell-step (core cells x sub-steps) and,
-    over all sub-steps, the narrowed windows' cells no lane stores
-    (``uncovered``) or more than one lane stores (``stored_twice``: in
-    place, a second lane would read a cell another has updated), and the
-    stores outside them (``outside``)."""
+    ``substep``, ``substep_in_place``) over the sub-steps of one tile:
+    sub-step s computes the window narrowed as the kernel narrows it
+    (:func:`.backends.tile_pass.pass_narrowing`: r*(s+1) per side, or, given
+    the ``reach`` ``(lo, hi)`` of each sub-step of an iteration, the low and
+    the high reaches of sub-steps 0..s), over the iterations the halo
+    holds; each warp takes (32-column chunk, run of ``run`` rows) pairs dealt
+    round-robin. In place, the last chunk and the last run keep their places
+    and the lanes and rows past the window skip; otherwise
+    (``in_place=False``, the ping-pong map, one-cell runs for multi-field
+    cells) they are shifted back inside the window. Returns the lane-cells
+    per useful cell-step (core cells x sub-steps) and, over all sub-steps,
+    the narrowed windows' cells no lane stores (``uncovered``) or more than
+    one lane stores (``stored_twice``: in place, a second lane would read a
+    cell another has updated), and the stores outside them (``outside``)."""
     th, tw = tile
     wh, ww = th + 2 * halo, tw + 2 * halo
     lanes = np.arange(tp.WARP)
     lane_cells = uncovered = twice = outside = 0
-    steps = halo // radius
-    for s in range(steps):
-        m = radius * (s + 1)
-        n_runs, n_chunks = -(-(wh - 2 * m) // run), -(-(ww - 2 * m) // tp.WARP)
+    k = len(reach) if reach else 1
+    narrowing = tp.pass_narrowing(radius, halo // tp.pass_halo(radius, 1, k, reach), k, reach)
+    for lo, hi in narrowing:
+        n_runs, n_chunks = -(-(wh - lo - hi) // run), -(-(ww - lo - hi) // tp.WARP)
         stores = np.zeros((wh, ww), int)
         for warp in range(KERNEL_WARPS):
             jx, jy = warp % n_chunks, warp // n_chunks
             while jy < n_runs:
-                r = m + run * jy if in_place else min(m + run * jy, wh - m - run)
-                rows = np.arange(r, min(r + run, wh - m) if in_place else r + run)
-                c = (m + 32 * jx if in_place else min(m + 32 * jx, ww - m - 32)) + lanes
+                r = lo + run * jy if in_place else min(lo + run * jy, wh - hi - run)
+                rows = np.arange(r, min(r + run, wh - hi) if in_place else r + run)
+                c = (lo + 32 * jx if in_place else min(lo + 32 * jx, ww - hi - 32)) + lanes
                 if in_place:
-                    c = c[c < ww - m]
+                    c = c[c < ww - hi]
                 for row in rows:
                     np.add.at(stores[row], c, 1)
                 lane_cells += tp.WARP * run
                 jx += KERNEL_WARPS
                 jy, jx = jy + jx // n_chunks, jx % n_chunks
-        inner = stores[m : wh - m, m : ww - m]
+        inner = stores[lo : wh - hi, lo : ww - hi]
         uncovered += int((inner == 0).sum())
         twice += int((inner > 1).sum())
         outside += int(stores.sum() - inner.sum())
-    return dict(lane_cells_per_cell_step=lane_cells / (th * tw * steps), uncovered=uncovered, stored_twice=twice,
-                outside=outside)
+    return dict(lane_cells_per_cell_step=lane_cells / (th * tw * len(narrowing)), uncovered=uncovered,
+                stored_twice=twice, outside=outside)
 
 
 def line_cache_work(panel: int, halo: int, radius: int, strip: int, segment: int, warmup: int) -> float:
@@ -603,7 +611,7 @@ def main(argv=None) -> int:
                 stream = tdv_stream(tf, 0, p, device)
                 tiles = FDTD_TILES if op.startswith("fdtd") else CONVECTION_TILES if op.startswith("convection") else TILES
                 for tile in tiles:
-                    hp = tf.stencil_radius * p * tf.n_subiterations
+                    hp = tp.pass_halo(tf.stencil_radius, p, tf.n_subiterations, info["reach"])
                     smem = tp.tile_smem_bytes(*tile, hp, cell_bytes)
                     if smem > limits.smem_per_block or hp > min(tile):
                         continue
@@ -615,8 +623,11 @@ def main(argv=None) -> int:
                     lanes, window = thread_map_work(tile, hp, tf.stencil_radius, run)
                     if info["vector_map"]:
                         lanes = vector_map_work(tile, hp, tf.stencil_radius)["lane_cells_per_cell_step"]
+                    elif info["reach"]:
+                        lanes = in_place_map_work(tile, hp, tf.stencil_radius, run,
+                                                  reach=info["reach"])["lane_cells_per_cell_step"]
                     emit(dict(part="grid", op=op, size=list(cell_leaves(cell)[0].shape), cell_bytes=cell_bytes,
-                              tile=list(tile), p=p, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
+                              tile=list(tile), p=p, halo=hp, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
                               device_ms_per_iteration=dev_ms / p, copy_ms=copy_ms, smem=smem,
                               ctas_per_sm=tp.tile_pass_residency(tf, tile, p, device),
                               lane_cells_per_cell_step=lanes, window_cells_per_cell_step=window,

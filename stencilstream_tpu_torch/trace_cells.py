@@ -100,6 +100,7 @@ def main_paths(device) -> dict:
         "fdtd render 1024^2 tiling linecache": fdtd_run(
             "render", 1024, "precompute_on_device", device, backend="tiling", window_mode="linecache"),
         "fdtd lut 1024^2 auto": fdtd_run("lut", 1024, "inline", device, **auto),
+        "fdtd coef 2048^2 auto": fdtd_run("coef", 2048, "inline", device, **auto),
         "convection f32 3072x1024 auto": convection_run(1024, np.float32, device, **auto),
         "convection f64 3072x1024 auto": convection_run(1024, np.float64, device, **auto),
         "convection f64 384x128 auto": convection_run(128, np.float64, device, **auto),

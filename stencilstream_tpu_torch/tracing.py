@@ -27,7 +27,10 @@ call's id:
                             the geometry, the launch from the call's binding
                             and the counter; ``monotile``, its binding
                             included; on the CPU their plain versions);
-                            attributes ``kernel``, ``pass_index``
+                            attributes ``kernel``, ``pass_index``; a tile
+                            pass's also ``halo``, its window's halo a side
+                            (``tile_pass.pass_halo``), and on the card
+                            ``map``
 ``kernels.enqueue``         inside ``kernels.launch``, the ``ctypes`` call of
                             the C launcher alone (CUDA tensors only)
 ``entry.sync``              the final synchronize of a blocking call

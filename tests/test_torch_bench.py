@@ -290,6 +290,25 @@ def test_kernel_stats_tile_pass_matches_thread_map_work():
     assert (s["kernel"], s["n_passes"], s["launches"]) == ("tile_pass", 25, 25)
 
 
+def test_kernel_stats_tile_pass_follows_a_declared_reach():
+    """FDTD coef 2048^2 at 32x128, p=4, whose functor declares its one-sided
+    reach: each window is the tile and a halo of 4 a side (not 8), staged
+    at 32 B a cell where it lies in the grid, and the 8 sub-steps narrow it
+    by 1, 2, ..., 8 cells, both sides together (``tile_sweep.in_place_map_work``'s
+    windows), where the symmetric law narrows by 2, 4, ..., 16."""
+    config = dict(window_mode="clamped", tile_rows=32, tile_cols=128, iters_per_pass=4)
+    kw = dict(radius=1, n_subiterations=2, n_iterations=2736, config=config)
+    s = profile.kernel_stats((2048, 2048), 16, 16, reach=((1, 0), (0, 1)), **kw)
+    # Rows: 64 windows of 40, less 4 above the grid and 4 below it;
+    # columns: 16 of 136, less 4 left and 4 right.
+    assert s["per_pass"]["hbm_read_bytes"] == (64 * 40 - 8) * (16 * 136 - 8) * 32
+    assert s["per_pass"]["computed_cell_substeps"] == 64 * 16 * sum((40 - m) * (136 - m) for m in range(1, 9))
+    symmetric = profile.kernel_stats((2048, 2048), 16, 16, **kw)
+    assert symmetric["per_pass"]["hbm_read_bytes"] == (64 * 48 - 16) * (16 * 144 - 16) * 32
+    assert (s["launches"], s["per_pass"]["hbm_write_bytes"]) == (symmetric["launches"], 2048 * 2048 * 16) == (
+        684, 2048 * 2048 * 16)
+
+
 def test_kernel_stats_line_cache_matches_line_cache_work():
     """Jacobi5 8192^2 at the law's geometry: the lanes are
     ``tile_sweep.line_cache_work``'s for each segment (warm-up ``hp`` rows

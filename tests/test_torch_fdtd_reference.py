@@ -93,6 +93,58 @@ def test_port_matches_reference(backend, grid, which):
                                                   coefficients=coefficients)["hz"][sr, sc])) > 1e-3
 
 
+def _tiled_inputs(grid, n):
+    """A case of :func:`test_port_matches_reference` whose call straddles the
+    cutoff: (fields, coefficients, offset, traffic) for ``n`` iterations."""
+    cfg = cut_config()
+    if grid == "ring48":
+        H, W = 48, 48
+        fields, coefficients = app.make_inputs(H, W, 2**33 + 7, "cpu"), None
+    else:
+        H, W = 48, 40
+        fields = random_cells(H, W, 13)
+        coefficients = {k: fields[k] for k in ref.COEFFICIENTS}
+    offset = ref.constants(cfg, H, W)["cutoff"] - n // 2 + 1
+    fields["iteration"].fill_(offset)
+    return cfg, fields, coefficients, {"height": H, "width": W, "n_iterations": n, "backend": "tiling"}
+
+
+@pytest.mark.parametrize("p", [None, 4, 5, 6, 7, 8], ids=lambda p: f"p{p or 'law'}")
+@pytest.mark.parametrize("grid", ["ring48", "random48x40"])
+def test_tiling_in_the_kernels_geometry_matches_reference(grid, p):
+    """Through ``tiling`` the CPU runs the kernel's geometry for FDTD, whose
+    functor declares its one-sided reach: each tile from its own window, its
+    core and a halo of p a side, each sub-step narrowed by its reach
+    (``tile_pass.tile_pass_plain`` given the tile). At the law's p and at p = 4-8, over 19
+    iterations (the last pass partial), the cells match the float64
+    reference as in :func:`test_port_matches_reference`."""
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+
+    n = 19
+    cfg, fields, coefficients, traffic = _tiled_inputs(grid, n)
+    options = {} if p is None else {"iters_per_pass": p}
+    launches = tp.launches
+    out = app.from_grid(app.make_update(cfg, {**traffic, "options": options})(app.to_grid(fields)))
+    want = ref.run(fields, n, cfg, coefficients=coefficients)
+    assert 0 < rel_err(out, want) < n * 4 * 2.0**-23
+    assert tp.launches == launches  # the plain version, no kernel
+
+
+def test_a_halo_one_short_of_the_reach_fails_the_reference(monkeypatch):
+    """The same call with the tile pass's halo one short of the reach summed
+    over the pass (p - 1): the tiles' edge cells keep values from before the
+    pass's last sub-steps, and the comparison fails by far."""
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+
+    n = 19
+    cfg, fields, coefficients, traffic = _tiled_inputs("random48x40", n)
+    want = ref.run(fields, n, cfg, coefficients=coefficients)
+    real = tp.pass_halo
+    monkeypatch.setattr(tp, "pass_halo", lambda *a: real(*a) - 1)
+    out = app.from_grid(app.make_update(cfg, {**traffic, "options": {"iters_per_pass": 4}})(app.to_grid(fields)))
+    assert rel_err(out, want) > 1e3 * max(LIMITS.values())
+
+
 def test_cutoff_and_detect_switch_where_the_configuration_says():
     """Beside the rest of the update, the source adds to one cell only up to
     the cutoff, and hz_sum grows only after the detect iteration."""

@@ -210,7 +210,8 @@ def test_every_functor_is_instantiated_in_every_kernel():
 def test_tile_pass_counts_vector_map_launches_by_the_functors_info(monkeypatch, vector):
     """Each launch counts in ``launches``, and in ``vector_launches`` when the
     functor's compiled info says it takes the vector map."""
-    monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": vector and op == "hotspot", "writes": None})
+    monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": vector and op == "hotspot", "writes": None,
+                                                   "reach": None})
     monkeypatch.setattr(tp, "launches", 5)
     monkeypatch.setattr(tp, "vector_launches", 2)
     assert tp.count_launch("hotspot") == ("vec4" if vector else "scalar")
@@ -222,13 +223,79 @@ def test_tile_pass_counts_in_place_launches_by_the_functors_info(monkeypatch):
     """A launch whose functor updates in place counts in ``inplace_launches``
     and names the map ``inplace``; the others do not count there."""
     monkeypatch.setattr(tp, "op_info", lambda op: {"vector_map": op == "hotspot",
-                                                   "writes": (3, 12) if op == "fdtd_coef" else None})
+                                                   "writes": (3, 12) if op == "fdtd_coef" else None,
+                                                   "reach": None})
     monkeypatch.setattr(tp, "launches", 0)
     monkeypatch.setattr(tp, "vector_launches", 0)
     monkeypatch.setattr(tp, "inplace_launches", 0)
     assert [tp.count_launch(op) for op in ("fdtd_coef", "hotspot", "conway", "fdtd_coef")] == [
         "inplace", "vec4", "scalar", "inplace"]
     assert (tp.launches, tp.vector_launches, tp.inplace_launches) == (4, 1, 2)
+
+
+def test_tile_pass_counts_reach_launches_by_the_functors_info(monkeypatch):
+    """A launch whose functor declares its sub-steps' reach counts in
+    ``reach_launches`` beside its map's counter; one that declares writes
+    but no reach, or neither, does not."""
+    info = {"fdtd_coef": {"vector_map": False, "writes": (3, 12), "reach": ((1, 0), (0, 1))},
+            "fdtd_coef__bf16": {"vector_map": False, "writes": None, "reach": None},
+            "writes_only": {"vector_map": False, "writes": (3, 12), "reach": None},
+            "hotspot": {"vector_map": True, "writes": None, "reach": None}}
+    monkeypatch.setattr(tp, "op_info", info.__getitem__)
+    for counter in ("launches", "vector_launches", "inplace_launches", "reach_launches"):
+        monkeypatch.setattr(tp, counter, 0)
+    assert [tp.count_launch(op) for op in ("fdtd_coef", "hotspot", "writes_only", "fdtd_coef__bf16", "fdtd_coef")] == [
+        "inplace", "vec4", "inplace", "scalar", "inplace"]
+    assert (tp.launches, tp.vector_launches, tp.inplace_launches, tp.reach_launches) == (5, 1, 3, 2)
+
+
+@pytest.mark.parametrize("resolver", ["coef", "lut", "render"])
+def test_fdtd_declares_its_one_sided_reach(resolver):
+    """FDTD's sub-steps read one-sided: the pass's halo is p, not r*p*k = 2p;
+    narrow storage's functor declares no reach and keeps 2p."""
+    cell, tf, _, _ = _case(f"fdtd_{resolver}", (2, 2), 0, "cpu")
+    assert cuda_lib.tile_reach(tf) == ((1, 0), (0, 1))
+    assert [tp.pass_halo(1, p, 2, cuda_lib.tile_reach(tf)) for p in (1, 4, 8)] == [1, 4, 8]
+    _, narrow, _, _ = _case("fdtd_coef__bf16", (2, 2), 0, "cpu")
+    assert cuda_lib.tile_reach(narrow) is None and tp.pass_halo(1, 4, 2, cuda_lib.tile_reach(narrow)) == 8
+
+
+def test_fdtds_reach_twin_is_its_functors_declaration():
+    """The reach the CPU side sizes the halo from (``cuda_reach``) is the one
+    ``FdtdT`` declares to the kernel (``csrc/ops/fdtd.cuh``: ``kReach``)."""
+    source = (cuda_lib.CSRC / "ops" / "fdtd.cuh").read_text()
+    declared = re.search(r"Reach kReach\[kSubiterations\] = \{(.*)\};", source)
+    pairs = tuple(tuple(int(v) for v in pair) for pair in re.findall(r"\{(\d+), (\d+)\}", declared.group(1)))
+    for op in ("fdtd_coef", "fdtd_lut", "fdtd_render"):
+        assert cuda_lib.tile_reach(_case(op, (2, 2), 0, "cpu")[1]) == pairs == ((1, 0), (0, 1))
+
+
+@pytest.mark.parametrize("op", ALL_OPS)
+def test_cpu_tile_pass_runs_the_kernels_geometry(op):
+    """On the CPU the tile pass computes each 8x32 tile from its own window,
+    each sub-step narrowed as the kernel narrows it (by the functor's reach,
+    or r a side), edge tiles and a partial pass included; its cells are the
+    whole-block plain pass's exactly, and nothing launches."""
+    cell, tf, halo, _ = _case(op, (37, 70), 1, "cpu", iteration=2)
+    kw = dict(i_start=2, offset=1, n_iterations=3, iters_per_pass=3)
+    before = tp.launches
+    got = tp.tile_pass(cell, tf, halo, tile=(8, 32), **kw)
+    assert tp.launches == before
+    assert _max_err(got, tp.tile_pass_plain(cell, tf, halo, **kw)) == 0
+
+
+@pytest.mark.parametrize("op", ["hotspot", "probe_radius2", "fdtd_coef"])
+def test_cpu_tile_pass_with_a_halo_one_short_is_not_the_plain_pass(monkeypatch, op):
+    """With the halo of a full pass one short, each sub-step still narrows
+    the window as far, so the tiles' edge cells keep values from before the
+    pass's last sub-steps and the cells differ from the whole-block plain
+    pass."""
+    cell, tf, halo, _ = _case(op, (37, 70), 1, "cpu", iteration=2)
+    kw = dict(i_start=2, offset=1, n_iterations=4, iters_per_pass=3)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    real = tp.pass_halo
+    monkeypatch.setattr(tp, "pass_halo", lambda *a: real(*a) - 1)
+    assert _max_err(tp.tile_pass(cell, tf, halo, tile=(8, 32), **kw), want) > 0
 
 
 def test_bool_fields_reach_the_kernels_as_uint8_views():
@@ -375,9 +442,10 @@ PING_PONG_GEOMETRY = {
     ("convection_folded_pt_lean_f32", (3072, 1024)): (12, 64, 1),
     ("convection_folded_pt_lean_f64", (3072, 1024)): (8, 32, 1),
 }
-#: FDTD's cells, which the tile pass updates in place: their law's geometry.
+#: FDTD's cells, which the tile pass updates in place with the halo of
+#: their one-sided reach: their law's geometry (tiling.REACH_LAW).
 IN_PLACE_GEOMETRY = {
-    (op, (side, side)): (32, 128 if op == "fdtd_coef" else 96, 4)
+    (op, (side, side)): {"fdtd_coef": (40, 112, 8), "fdtd_lut": (32, 88, 4), "fdtd_render": (56, 80, 8)}[op]
     for op in ("fdtd_coef", "fdtd_lut", "fdtd_render") for side in (1024, 2048)
 }
 
@@ -389,7 +457,8 @@ def _tiling_geometry(op, shape):
 
     cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
     return pick_config(*shape, tf.stencil_radius, tf.n_subiterations, 200, cuda_lib.tile_cell_smem_bytes(cell, tf),
-                       cuda_lib.H100_SXM, in_place=cuda_lib.tile_writes(tf) is not None)
+                       cuda_lib.H100_SXM, in_place=cuda_lib.tile_writes(tf) is not None,
+                       reach=cuda_lib.tile_reach(tf))
 
 
 def test_every_functor_has_a_tiling_geometry_here():
@@ -401,18 +470,45 @@ def test_every_functor_has_a_tiling_geometry_here():
 @pytest.mark.parametrize("op,shape", list(PING_PONG_GEOMETRY), ids=lambda v: str(v))
 def test_functors_without_a_write_mask_keep_their_tile_geometry(op, shape):
     cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
-    assert cuda_lib.tile_writes(tf) is None
+    assert cuda_lib.tile_writes(tf) is None and cuda_lib.tile_reach(tf) is None
     assert cuda_lib.tile_cell_smem_bytes(cell, tf) == cuda_lib.cell_smem_bytes(cell, tf)
     assert _tiling_geometry(op, shape) == PING_PONG_GEOMETRY[op, shape]
 
 
 @pytest.mark.parametrize("op,shape", list(IN_PLACE_GEOMETRY), ids=lambda v: str(v))
 def test_in_place_cells_take_their_own_law(op, shape):
+    """FDTD's cells, in place with a declared reach, take the reach law's
+    entry, whose halo is p (the reach summed over a pass, 1 an iteration)."""
     from stencilstream_tpu_torch.backends.tiling import law_entry
 
     cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
-    (th, tw), halo, _ = law_entry(cuda_lib.tile_cell_smem_bytes(cell, tf), in_place=True)
-    assert _tiling_geometry(op, shape) == IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo // 2)
+    (th, tw), halo, _ = law_entry(cuda_lib.tile_cell_smem_bytes(cell, tf), in_place=True, reach=True)
+    assert tp.pass_halo(1, 1, 2, cuda_lib.tile_reach(tf)) == 1
+    assert _tiling_geometry(op, shape) == IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo)
+
+
+#: FDTD's geometry on the multi-device paths, which keep their stored halo
+#: r*p*k and size their tiles by it (IN_PLACE_LAW): the tile at the p they
+#: are given, as before the functors declared their reach.
+MULTI_DEVICE_FDTD_GEOMETRY = {
+    ("fdtd_coef", "distributed"): (32, 128), ("fdtd_lut", "distributed"): (32, 96),
+    ("fdtd_render", "distributed"): (32, 96), ("fdtd_coef", "ring"): (32, 128),
+    ("fdtd_lut", "ring"): (32, 96), ("fdtd_render", "ring"): (32, 96),
+}
+
+
+@pytest.mark.parametrize("op,backend", list(MULTI_DEVICE_FDTD_GEOMETRY), ids=lambda v: str(v))
+def test_multi_device_fdtd_keeps_its_tile_geometry(op, backend):
+    """``distributed`` ((2, 2) shards of 2048^2, p=4) and ``ring`` (chunks of
+    256 rows, p=2) pick FDTD's tile as they did before its reach: by the
+    symmetric halo r*p*k and IN_PLACE_LAW."""
+    from stencilstream_tpu_torch.backends.tiling import pick_config
+
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    shape, p = ((1024, 1024), 4) if backend == "distributed" else ((256, 2048), 2)
+    got = pick_config(*shape, 1, 2, 200, cuda_lib.tile_cell_smem_bytes(cell, tf), cuda_lib.H100_SXM, p,
+                      in_place=cuda_lib.tile_writes(tf) is not None)
+    assert got == (*MULTI_DEVICE_FDTD_GEOMETRY[op, backend], p)
 
 
 @pytest.mark.parametrize("resolver,tile_bytes", [("coef", 32), ("lut", 20), ("render", 16)])
@@ -859,29 +955,61 @@ def test_in_place_extended_pass_on_a_shard_of_a_2x2_mesh(cuda, op, shard):
 def test_in_place_launches_count_fdtd_only(cuda, op):
     """A functor's compiled write masks (``op_info``'s ``writes``) are its
     transition function's (``tile_writes``); only FDTD's float32 functors
-    have them, and only their launches count in ``inplace_launches``."""
+    have them, and only their launches count in ``inplace_launches``. So
+    with the reach each sub-step declares (``op_info``'s ``reach``, the
+    transition function's ``tile_reach``) and ``reach_launches``."""
     cell, tf, halo, _ = _case(op, (45, 70), 3, cuda)
     info = cuda_lib.op_info(cuda_lib.require_device_op(tf))
     assert info["writes"] == cuda_lib.tile_writes(tf)
     assert (info["writes"] is not None) == (op in IN_PLACE_OPS)
+    assert info["reach"] == cuda_lib.tile_reach(tf) == (((1, 0), (0, 1)) if op in IN_PLACE_OPS else None)
     tile, p = _fitted((16, 32), 1, cell, tf, cuda_lib.device_limits(cuda))
-    before = tp.inplace_launches
+    before = (tp.inplace_launches, tp.reach_launches)
     tp.tile_pass(cell, tf, halo, tile=tile, i_start=0, offset=0, n_iterations=1, iters_per_pass=p)
-    assert tp.inplace_launches - before == (op in IN_PLACE_OPS)
+    assert (tp.inplace_launches - before[0], tp.reach_launches - before[1]) == ((op in IN_PLACE_OPS),) * 2
 
 
 @pytest.mark.gpu
 def test_every_launch_of_an_fdtd_tiling_call_is_in_place(cuda):
-    """A tiling call at FDTD coef's law geometry (2048^2, n=10: three passes
-    of p=4, the last partial)."""
+    """A tiling call at FDTD coef's law geometry (2048^2, n=17: three passes
+    of p=8, the last partial), each launch in place and with the halo of
+    the functor's declared reach."""
     cell, tf, halo, _ = _case("fdtd_coef", (2048, 2048), 5, cuda)
-    update = create_update(Params(transition_function=tf, n_iterations=10, halo_value=halo, blocking=True),
+    update = create_update(Params(transition_function=tf, n_iterations=17, halo_value=halo, blocking=True),
                            backend="tiling")
-    before = (tp.launches, tp.inplace_launches)
+    before = (tp.launches, tp.inplace_launches, tp.reach_launches)
     update(Grid(cell))
     assert (update.resolved_config["tile_rows"], update.resolved_config["tile_cols"],
             update.resolved_config["iters_per_pass"]) == IN_PLACE_GEOMETRY["fdtd_coef", (2048, 2048)]
-    assert (tp.launches - before[0], tp.inplace_launches - before[1]) == (3, 3)
+    assert (tp.launches - before[0], tp.inplace_launches - before[1], tp.reach_launches - before[2]) == (3, 3, 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("p", [4, None], ids=["p4", "law"])
+@pytest.mark.parametrize("side", [48, 1024, 2048])
+@pytest.mark.parametrize("op", IN_PLACE_OPS)
+def test_fdtd_tiling_at_the_reach_halo_matches_plain_version_bit_for_bit(cuda, op, side, p):
+    """A tiling call of FDTD, whose functor declares its one-sided reach
+    (halo p): 2p + 1 iterations from an offset that crosses the source's
+    cutoff and the detect switch, the last pass partial, equals the plain
+    version exactly; at 48^2 every tile is an edge tile, at 1024^2 and
+    2048^2 most are interior. Every launch counts as a reach launch."""
+    from stencilstream_tpu_torch.backends.tiling import pick_config
+
+    cell, tf, halo, _ = _case(op, (side, side), 23, cuda, iteration=5)
+    _, _, ipp = pick_config(side, side, 1, 2, 0, cuda_lib.tile_cell_smem_bytes(cell, tf),
+                            cuda_lib.device_limits(cuda), p, in_place=True, reach=cuda_lib.tile_reach(tf))
+    params = Params(transition_function=tf, halo_value=halo, iteration_offset=3, n_iterations=2 * ipp + 1,
+                    blocking=True)
+    kw = {} if p is None else {"iters_per_pass": p}
+    before = (tp.launches, tp.reach_launches)
+    update = create_update(params, backend="tiling", **kw)
+    got = update(Grid(cell))
+    want = create_update(params, backend="reference")(Grid(cell))
+    torch.cuda.synchronize()
+    assert update.resolved_config["iters_per_pass"] == ipp
+    assert (tp.launches - before[0], tp.reach_launches - before[1]) == (3, 3)
+    assert _max_err(got.arrays, want.arrays) == 0
 
 
 @pytest.mark.gpu

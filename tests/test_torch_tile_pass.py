@@ -20,7 +20,7 @@ from stencilstream_tpu.models import hotspot as jhs
 from stencilstream_tpu_torch import Params, create_update, interop, probe
 from stencilstream_tpu_torch.backends.cuda_lib import H100_SXM, DeviceLimits, cell_smem_bytes
 from stencilstream_tpu_torch.backends.tile_pass import IN_PLACE_RUN, RUN_ROWS, WARP, tile_pass, tile_smem_bytes
-from stencilstream_tpu_torch.backends.tiling import TILE_LAW, pick_config
+from stencilstream_tpu_torch.backends.tiling import REACH_LAW, TILE_LAW, pick_config
 from stencilstream_tpu_torch.models import conway, jacobi
 from stencilstream_tpu_torch.tdv import step_value, tdv_stream
 from stencilstream_tpu_torch.models import hotspot as hs
@@ -277,6 +277,49 @@ def test_in_place_map_stores_every_narrowed_window_cell_once(tile, halo):
     ping_pong = in_place_map_work(tile, halo, 1, 1, in_place=False)
     assert (ping_pong["uncovered"], ping_pong["outside"]) == (0, 0)
     assert (ping_pong["stored_twice"] > 0) == any((tile[1] + 2 * (halo - s)) % 32 for s in range(1, halo + 1))
+
+
+#: (tile, p) of the in-place map with FDTD's one-sided reach (halo p): the
+#: reach law's tiles and the sweep's one- and two-CTA windows, and cores
+#: whose narrowed windows are not whole warps (widths 100, 212, 2000), at p
+#: from 4 to 8.
+REACH_GEOMETRY = sorted({*[(entry[0], entry[1]) for entry in REACH_LAW.values()],
+                         *[(t, p) for t in ((32, 128), (40, 112), (56, 80), (24, 88), (16, 120)) for p in (4, 7, 8)],
+                         *[((16, w), p) for w in (100, 212, 2000) for p in (4, 5, 6, 7, 8)]})
+
+
+@pytest.mark.parametrize("radius, k, reach, want", [
+    (1, 1, None, [(1, 1), (2, 2), (3, 3)]),
+    (2, 1, None, [(2, 2), (4, 4), (6, 6)]),
+    (1, 2, None, [(1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (6, 6)]),
+    (1, 2, ((1, 0), (0, 1)), [(1, 0), (1, 1), (2, 1), (2, 2), (3, 2), (3, 3)]),
+])
+def test_pass_narrowing_sums_each_sub_steps_reach(radius, k, reach, want):
+    """Sub-step s of a pass of p = 3 narrows the window by the low and the
+    high reaches of sub-steps 0..s, r a side where the functor declares
+    none; the pass's halo is the larger side at its end: r*p*k, or p for
+    FDTD's one-sided reach."""
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+
+    assert tp.pass_narrowing(radius, 3, k, reach) == want
+    assert tp.pass_halo(radius, 3, k, reach) == max(want[-1]) == (3 if reach else radius * 3 * k)
+    assert tp.pass_narrowing(radius, 0, k, reach) == [] and tp.pass_halo(radius, 0, k, reach) == 0
+
+
+@pytest.mark.parametrize("tile, halo", REACH_GEOMETRY, ids=lambda v: str(v))
+def test_in_place_map_narrows_by_the_reach_and_stores_every_cell_once(tile, halo):
+    """With FDTD's reach, sub-step s narrows the window by the low reaches of
+    sub-steps 0..s on the low side and their high reaches on the high side:
+    every cell of each narrowed window is stored by exactly one lane and no
+    lane stores outside it. Over the pass's 2p sub-steps the map computes
+    fewer lane-cells a useful cell-step than the symmetric halo 2p does at
+    the same tile."""
+    from stencilstream_tpu_torch.tile_sweep import in_place_map_work
+
+    reach = ((1, 0), (0, 1))
+    work = in_place_map_work(tile, halo, 1, reach=reach)
+    assert (work["uncovered"], work["stored_twice"], work["outside"]) == (0, 0, 0)
+    assert work["lane_cells_per_cell_step"] < in_place_map_work(tile, 2 * halo, 1)["lane_cells_per_cell_step"]
 
 
 def test_in_place_map_at_fdtds_law_tile():

@@ -71,7 +71,9 @@ def test_a_tiling_call_records_its_passes(mode, kernel):
     assert all(s.parent == 0 for s in spans[1:])
     assert len({s.call for s in spans}) == 1 and call.call is not None
     launches = [s for s in spans if s.name == "kernels.launch"]
-    assert [s.attrs for s in launches] == [{"kernel": kernel, "pass_index": i} for i in range(3)]
+    # A tile pass's span carries its halo: HotSpot declares no reach, so r*p*k = 2.
+    halo = {"halo": 2} if kernel == "tile_pass" else {}
+    assert [s.attrs for s in launches] == [{"kernel": kernel, "pass_index": i, **halo} for i in range(3)]
     assert spans[2].attrs["geometry"]["iters_per_pass"] == 2
     assert spans[3].attrs == {"strategy": "InlineTDV", "offset": 0, "n": 5}
     _check_nesting(spans)

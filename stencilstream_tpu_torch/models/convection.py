@@ -6,7 +6,8 @@ pseudo-transient momentum/pressure update (k=3) and the thermal
 advection/diffusion update (k=2) — a host convergence loop that reads five
 masked maxima after each block of ``nerr`` iterations, and the adaptive
 ``dt`` written into the thermal update's live parameters before each
-thermal step. The reference's cell is 11 doubles; ``float64`` and
+thermal step: one timestep a call of :meth:`Simulation.step`, which
+:func:`run` loops over. The reference's cell is 11 doubles; ``float64`` and
 ``float32`` both run on the CUDA kernels.
 
 The folded variant (``run(folded=True)``, :class:`FoldedConvectionCell`)
@@ -45,6 +46,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..backends import create_update
 from ..core import Grid, Params, cell_type, static_field, transition_function
 from ..core.fma import fma
@@ -66,6 +68,7 @@ __all__ = [
     "init_grid",
     "init_folded_grid",
     "physics_cell",
+    "Simulation",
     "run",
     "main",
     "FLOPS_PER_CELL",
@@ -757,6 +760,97 @@ def _error_maxes(arrays: ThermalConvectionCell, nx: int, ny: int) -> list[float]
     ]).tolist()
 
 
+#: Counters of the timestep loop, kept as ``tdv.evaluations`` is: the
+#: timesteps :meth:`Simulation.step` ran, its convergence blocks, and the
+#: pseudo-transient iterations of those blocks (``nerr`` a block).
+steps = 0
+blocks = 0
+pt_iterations = 0
+
+
+class Simulation:
+    """One timestep of the convection loop (``convection.cpp:399-478``) a
+    call of :meth:`step`, through the port's entry point.
+
+    The three updaters are made once (``pt_update``, ``lean_update``,
+    ``thermal_update``, all on ``backend`` with ``backend_kwargs``). A step
+    runs the convergence loop: blocks of ``nerr - 1`` lean iterations (no
+    Err bookkeeping) and one full one, except on ``reference``, which runs
+    ``nerr`` full ones (both give the same grid), each block followed by the
+    five masked maxima read back to the host, until ``errV`` and ``errP``
+    are both at most ``epsilon`` or ``iterMax`` is reached. Then the
+    adaptive ``dt`` from the largest velocities, written into the thermal
+    update's live parameter, and the thermal step. ``stats`` holds the last
+    step's ``iters``, ``errV``, ``errP``, ``dt`` and ``pt_seconds`` (the
+    convergence loop's host-clock time).
+
+    ``folded=True`` runs :class:`FoldedPseudoTransientKernel` with the
+    lean/full split on every backend (as the JAX package's folded path
+    does); its fields equal the straight run's bit for bit. The thermal step
+    runs the straight thermal kernel on the grid's 11 physics fields (the
+    same tensors), which neither reads nor writes a folded grid's planes.
+    """
+
+    def __init__(self, e: Experiment, dtype=np.float32, folded: bool = False, backend: str = "auto",
+                 **backend_kwargs):
+        self.e = e
+        self.dtype = dtype = np.dtype(dtype).type
+        halo = folded_zero_cell() if folded else zero_cell()
+        use_lean = e.nerr > 1 and (folded or backend != "reference")
+        make_pt = make_folded_pseudo_transient_kernel if folded else make_pseudo_transient_kernel
+
+        def update(tf, n, halo, **params):
+            return create_update(
+                Params(transition_function=tf, halo_value=halo, n_iterations=n, **params),
+                backend=backend, **backend_kwargs,
+            )
+
+        self.pt_update = update(make_pt(e, dtype, with_err=True), 1 if use_lean else e.nerr, halo, blocking=True)
+        self.lean_update = (
+            update(make_pt(e, dtype, with_err=False), e.nerr - 1, halo, blocking=True) if use_lean else None
+        )
+        self.thermal_update = update(make_thermal_kernel(e, dtype), 1, zero_cell())
+        self.stats = None
+
+    def step(self, grid: Grid) -> Grid:
+        """One timestep from ``grid``; the input grid is never modified."""
+        global steps, blocks, pt_iterations
+        e = self.e
+        with tracing.span("models.step") if tracing.on else tracing.OFF:
+            errV = errP = 2 * e.epsilon
+            max_vals = (0.0,) * 5
+            iters = 0
+            t0 = time.perf_counter()
+            while iters < e.iterMax and (errV > e.epsilon or errP > e.epsilon):
+                with tracing.span("models.block") if tracing.on else tracing.OFF:
+                    if self.lean_update is not None:
+                        grid = self.lean_update(grid)
+                    grid = self.pt_update(grid)
+                iters += e.nerr
+                blocks += 1
+                pt_iterations += e.nerr
+                with tracing.span("models.check") if tracing.on else tracing.OFF:
+                    max_vals = _error_maxes(grid.arrays, e.nx, e.ny)
+                max_ErrV, max_ErrP, _, max_Vy, max_Pt = max_vals
+                errV = max_ErrV / (1e-12 + max_Vy)
+                errP = max_ErrP / (1e-12 + max_Pt)
+            pt_seconds = time.perf_counter() - t0
+
+            with tracing.span("models.thermal") if tracing.on else tracing.OFF:
+                _, _, max_Vx, max_Vy, _ = max_vals
+                dt = min(e.dt_diff, min(e.dx / max(max_Vx, 1e-300), e.dy / max(max_Vy, 1e-300)) / 2.1)
+                # A live parameter: the next launch reads it, nothing rebuilds
+                # (convection.cpp:452-457 rebuilds the whole updater here instead).
+                self.thermal_update.get_params().transition_function.dt = self.dtype(dt)
+                # The thermal step reads and writes the 11 physics fields only, so a
+                # folded grid's planes stay as they are.
+                T = self.thermal_update(Grid(physics_cell(grid.arrays))).arrays.T
+                grid = Grid(dataclasses.replace(grid.arrays, T=T))
+            steps += 1
+        self.stats = {"iters": iters, "errV": errV, "errP": errP, "dt": dt, "pt_seconds": pt_seconds}
+        return grid
+
+
 def run(
     e: Experiment,
     out_dir: str | None = None,
@@ -770,90 +864,45 @@ def run(
 ):
     """Full timestep loop with pseudo-transient convergence
     (``convection.cpp:399-478``) on ``device`` (the card unless it says
-    otherwise). Returns ``(grid, info)``: ``info`` holds the per-timestep
-    ``stats``, the ``total_time``, the pseudo-transient updates' walltime
-    ``pt_walltime`` (the "transient computation time") and the three
-    updaters (``pt_update``, ``lean_update``, ``thermal_update``). ``backend_kwargs`` go to every
-    updater (e.g. ``window_mode="linecache"`` for ``tiling``).
-
-    Each block of the convergence loop runs ``nerr - 1`` lean iterations
-    (no Err bookkeeping) and one full one, except on ``reference``, which
-    runs ``nerr`` full ones; both give the same grid. ``float64`` runs on
-    the CUDA kernels like ``float32``.
-
-    ``folded=True`` runs :class:`FoldedPseudoTransientKernel` over
-    :func:`init_folded_grid`, with the lean/full split on every backend (as
-    the JAX package's folded path does; the JAX package runs float64 and
-    ``reference`` straight, the port runs them folded). Its fields equal the
-    straight run's bit for bit. The thermal step runs the straight thermal
-    kernel on the folded grid's 11 physics fields (the same tensors), which
-    neither reads nor writes the planes.
+    otherwise): ``nt`` steps of a :class:`Simulation` from :func:`init_grid`
+    (:func:`init_folded_grid` with ``folded=True``), printing each step and
+    writing a CSV frame every ``nout`` steps into ``out_dir``. Returns
+    ``(grid, info)``: ``info`` holds the per-timestep ``stats``, the
+    ``total_time``, the pseudo-transient updates' walltime ``pt_walltime``
+    (the "transient computation time") and the three updaters
+    (``pt_update``, ``lean_update``, ``thermal_update``).
+    ``backend_kwargs`` go to every updater (e.g. ``window_mode="linecache"``
+    for ``tiling``). ``float64`` runs on the CUDA kernels like ``float32``;
+    the JAX package runs float64 and ``reference`` straight, the port runs
+    them folded too.
     """
-    dtype = np.dtype(dtype).type
-    halo = folded_zero_cell() if folded else zero_cell()
-    use_lean = e.nerr > 1 and (folded or backend != "reference")
-    make_pt = make_folded_pseudo_transient_kernel if folded else make_pseudo_transient_kernel
-
-    def update(tf, n, halo, **params):
-        return create_update(
-            Params(transition_function=tf, halo_value=halo, n_iterations=n, **params),
-            backend=backend, **backend_kwargs,
-        )
-
-    pt_update = update(make_pt(e, dtype, with_err=True), 1 if use_lean else e.nerr, halo, blocking=True)
-    lean_update = (
-        update(make_pt(e, dtype, with_err=False), e.nerr - 1, halo, blocking=True) if use_lean else None
-    )
-    thermal_update = update(make_thermal_kernel(e, dtype), 1, zero_cell())
-    grid = (init_folded_grid if folded else init_grid)(e, dtype, device=device)
+    sim = Simulation(e, dtype, folded, backend, **backend_kwargs)
+    grid = (init_folded_grid if folded else init_grid)(e, sim.dtype, device=device)
 
     stats = []
     start = time.perf_counter()
     for it in range(1, e.nt + 1):
-        errV = errP = 2 * e.epsilon
-        max_vals = (0.0,) * 5
-        iters = 0
-        t0 = time.perf_counter()
-        while iters < e.iterMax and (errV > e.epsilon or errP > e.epsilon):
-            if lean_update is not None:
-                grid = lean_update(grid)
-            grid = pt_update(grid)
-            iters += e.nerr
-            max_ErrV, max_ErrP, max_Vx, max_Vy, max_Pt = _error_maxes(grid.arrays, e.nx, e.ny)
-            errV = max_ErrV / (1e-12 + max_Vy)
-            errP = max_ErrP / (1e-12 + max_Pt)
-            max_vals = (max_ErrV, max_ErrP, max_Vx, max_Vy, max_Pt)
-        t1 = time.perf_counter()
-
+        grid = sim.step(grid)
+        s = sim.stats
         if verbose:
             print(
-                f"it = {it} (iter = {iters}, time = {t1 - t0:e}), "
-                f"errV={errV:1.3e}, errP={errP:1.3e}"
+                f"it = {it} (iter = {s['iters']}, time = {s['pt_seconds']:e}), "
+                f"errV={s['errV']:1.3e}, errP={s['errP']:1.3e}"
             )
-
-        _, _, max_Vx, max_Vy, _ = max_vals
-        dt = min(e.dt_diff, min(e.dx / max(max_Vx, 1e-300), e.dy / max(max_Vy, 1e-300)) / 2.1)
-        # A live parameter: the next launch reads it, nothing rebuilds
-        # (convection.cpp:452-457 rebuilds the whole updater here instead).
-        thermal_update.get_params().transition_function.dt = dtype(dt)
-        # The thermal step reads and writes the 11 physics fields only, so a
-        # folded grid's planes stay as they are.
-        T = thermal_update(Grid(physics_cell(grid.arrays))).arrays.T
-        grid = Grid(dataclasses.replace(grid.arrays, T=T))
-
-        stats.append({"it": it, "iters": iters, "errV": errV, "errP": errP, "dt": dt})
+        stats.append({"it": it, "iters": s["iters"], "errV": s["errV"], "errP": s["errP"], "dt": s["dt"]})
 
         if out_dir is not None and it % e.nout == 0:
             write_csv_frame(os.path.join(out_dir, f"{it}.csv"), grid.to_numpy().T[: e.nx, : e.ny])
 
     total = time.perf_counter() - start
+    pt_update, lean_update = sim.pt_update, sim.lean_update
     pt_wall = pt_update.get_walltime() + (lean_update.get_walltime() if lean_update is not None else 0.0)
     if verbose:
         print(f"Total time = {total}")
         print(f"Of which transient computation time: {pt_wall} s")
     return grid, {
         "stats": stats, "total_time": total, "pt_walltime": pt_wall, "pt_update": pt_update,
-        "lean_update": lean_update, "thermal_update": thermal_update,
+        "lean_update": lean_update, "thermal_update": sim.thermal_update,
     }
 
 

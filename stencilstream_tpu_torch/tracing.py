@@ -34,6 +34,18 @@ call's id:
 ``kernels.enqueue``         inside ``kernels.launch``, the ``ctypes`` call of
                             the C launcher alone (CUDA tensors only)
 ``entry.sync``              the final synchronize of a blocking call
+``models.step``             one timestep of convection's ``Simulation.step``
+                            (``models/convection.py``): its convergence loop,
+                            ``dt`` and thermal step. It and the three below
+                            open outside any user call, so they belong to
+                            none, and the updates inside them open their own
+``models.block``            inside ``models.step``, one convergence block: the
+                            lean update and the full one
+``models.check``            inside ``models.step``, after each block: the five
+                            masked maxima and their readback to the host
+                            (``_error_maxes``)
+``models.thermal``          inside ``models.step``: the adaptive ``dt``, written
+                            into the thermal update, and that update
 ==========================  ==================================================
 
 Spans are off by default. :func:`enable` turns them on, :func:`disable` off,

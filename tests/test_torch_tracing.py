@@ -11,11 +11,12 @@ import ast
 import statistics
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from stencilstream_tpu_torch import Grid, Params, create_update, tdv, tracing
-from stencilstream_tpu_torch.models import fdtd, hotspot
+from stencilstream_tpu_torch.models import convection, fdtd, hotspot
 
 STAGES = ["entry.call", "entry.check_no_grad", "backends.plan", "backends.tdv"]
 
@@ -208,6 +209,50 @@ def test_no_module_counts_launches_but_the_kernels():
     assert counting == {"backends/tile_pass.py", "backends/line_cache.py", "backends/monotile.py",
                         "experiments/strip.py", "experiments/linecache.py"}
     assert isinstance(tdv.evaluations, int) and not hasattr(tdv, "launches")
+
+
+def _convection_step():
+    """A convection ``Simulation`` at res 8 (a 24x8 grid), nerr 5, iterMax
+    20 and an epsilon no timestep reaches, and its initial grid."""
+    e = convection.Experiment(lx=3.0, ly=1.0, px=1.5, py=0.5, eta0=1.0, DcT=1.0, deltaT=1.0, Ra=1e7, Pra=1e3,
+                              res=8, iterMax=20, nt=1, nout=1, nerr=5, epsilon=1e-12, dmp=2.0)
+    return convection.Simulation(e, np.float64), convection.init_grid(e, np.float64, device="cpu")
+
+
+def _counters():
+    return convection.steps, convection.blocks, convection.pt_iterations
+
+
+def test_a_convection_step_records_its_blocks_checks_and_thermal_step():
+    """One step: one ``models.step``; iterMax / nerr ``models.block`` and
+    ``models.check`` spans in turns and one ``models.thermal``, all nested
+    under it; each block's two updates and the thermal one open their own
+    calls inside them. The counters advance by 1, iterMax / nerr, iterMax."""
+    sim, grid = _convection_step()
+    before = _counters()
+    _, spans = _traced(sim.step, grid)
+    assert tuple(b - a for a, b in zip(before, _counters())) == (1, 4, 20)
+    models = [(i, s) for i, s in enumerate(spans) if s.name.startswith("models.")]
+    assert [s.name for _, s in models] == (["models.step"] + ["models.block", "models.check"] * 4
+                                           + ["models.thermal"])
+    step = models[0][1]
+    assert step.parent is None and step.call is None
+    for i, s in models[1:]:
+        assert s.parent == 0 and s.call is None
+        assert step.start_ns <= s.start_ns <= s.end_ns <= step.end_ns
+    calls = [s for s in spans if s.name == "entry.call"]
+    assert [spans[s.parent].name for s in calls] == ["models.block"] * 8 + ["models.thermal"]
+    assert len({s.call for s in calls}) == 9 and all(spans[s.parent].start_ns <= s.start_ns for s in calls)
+    checks = {i for i, s in models if s.name == "models.check"}
+    assert not any(s.parent in checks for s in spans)  # the maxima run outside the port's calls
+
+
+def test_a_convection_step_with_spans_off_records_nothing():
+    sim, grid = _convection_step()
+    before = _counters()
+    sim.step(grid)
+    assert tracing.collect() == []
+    assert tuple(b - a for a, b in zip(before, _counters())) == (1, 4, 20)
 
 
 @pytest.mark.gpu

@@ -57,7 +57,7 @@ from .fused import fused_substep, mask_out_of_grid
 __all__ = [
     "bound_tile_pass", "check_block", "count_launch", "tile_pass", "tile_pass_plain", "tile_pass_residency",
     "tile_smem_bytes", "pass_halo", "pass_narrowing", "launches", "vector_launches", "inplace_launches",
-    "reach_launches",
+    "reach_launches", "in_place_run_rows",
 ]
 
 #: Kernel launches made by :func:`bound_tile_pass`, so by :func:`tile_pass` (CUDA
@@ -85,9 +85,22 @@ RUN_ROWS = 8
 #: Rows of one thread's run in the vector thread map (``csrc/tile_pass.cu``:
 #: ``kQuadRun``), whose lanes take 4 adjacent columns each.
 QUAD_RUN = 8
-#: Rows of one thread's run in the in-place sub-steps (``csrc/tile_pass.cu``:
-#: ``kInPlaceRun``), whose last run is not shifted back inside the window.
+#: Most rows of one thread's run in the in-place sub-steps
+#: (``csrc/tile_pass.cu``: ``kInPlaceRun``), whose last run is not shifted
+#: back inside the window, and the bytes of variant fields a run's outputs
+#: may hold (``kInPlaceRunBytes``): :func:`in_place_run_rows`.
 IN_PLACE_RUN = 4
+IN_PLACE_RUN_BYTES = 64
+
+
+def in_place_run_rows(variant_bytes: int) -> int:
+    """Rows of one thread's run in the in-place sub-steps of a cell of
+    ``variant_bytes`` bytes of variant fields (``csrc/tile_pass.cu``:
+    ``in_place_run_rows``): as many as keep the run's outputs within
+    :data:`IN_PLACE_RUN_BYTES`, at most :data:`IN_PLACE_RUN`, at least one.
+    FDTD's 16 B take 4, convection's float64 64 and 80 B 1, its float32 32
+    and 40 B 2 and 1."""
+    return max(1, min(IN_PLACE_RUN, IN_PLACE_RUN_BYTES // variant_bytes))
 
 
 def pass_narrowing(radius: int, iters_per_pass: int, n_subiterations: int,

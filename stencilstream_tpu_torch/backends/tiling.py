@@ -76,8 +76,10 @@ TILE_LAW = {
 #: variant field: :func:`.cuda_lib.tile_writes`), by the same bytes
 #: (:func:`.cuda_lib.tile_cell_smem_bytes`), apart from :data:`TILE_LAW`, so
 #: that no other cell's geometry moves. Since FDTD's functors declare their
-#: reach (:data:`REACH_LAW`) only ``distributed`` and ``ring`` take it, with
-#: their stored halo r*p*k. FDTD at 2048^2 (``tile_sweep.py --ops
+#: reach (:data:`REACH_LAW`) only ``distributed`` and ``ring`` take its
+#: entries for FDTD's cells (16, 32 B), with their stored halo r*p*k;
+#: convection's straight pseudo-transient cells (44, 88 B) take theirs in
+#: ``tiling`` too. FDTD at 2048^2 (``tile_sweep.py --ops
 #: fdtd,fdtd_lut,fdtd_render --passes 4,5,6 --size 2048``; PERF.md),
 #: profiler device time a pass of p=4 with the halo r*p*k = 8: the coef
 #: cell, 32 B, 32x128 (209.3 us; 16x192 220.9, 32x96 239.4, 16x128 282.3,
@@ -88,9 +90,23 @@ TILE_LAW = {
 #: 28x32 1424.4); at 1024^2 the fastest for both (lut 109.3 us, 140.3 at
 #: 32x128, 177.7 at 28x32; render 110.7, 125.7, 365.0). p stays 4 or more:
 #: a launch costs the host ~0.1-0.15 ms.
+#: Convection at 3072x1024 (``tile_sweep.py --ops convection_pt_lean_f64,
+#: convection_pt_f64,convection_pt_lean_f32,convection_pt_f32 --passes
+#: 1,2,3``, 34 tiles; PERF.md), profiler device time an iteration, one CTA
+#: an SM: the float64 cells, 88 B, 28x52 at p=2 (lean 205.5 us, full 226.2;
+#: 24x52 222.8, 20x54 236.7, 16x64 239.0, 24x48 246.5, 32x32 292.1; the best
+#: p=1, 20x90, 281.1, p=3, 20x46, 286.4, two CTAs, 8x52 at p=2, 279.0; the
+#: ping-pong law's 16x32 in place 389.0, where ping-pong it read 401.7 in an
+#: earlier run, PERF.md); the float32 cells, 44 B, 32x86 at p=2 (lean 126.6
+#: us, full 149.4; 28x116 132.5, 40x84 141.2, 16x128, where the 32 B entry
+#: would shrink to, 150.2; the best p=3, 32x78, 143.0). The full update runs
+#: one iteration a call, so p=1 at the same tile (float64 389.1 us; the
+#: ping-pong law's 8x64 read 584.0 before).
 IN_PLACE_LAW = {
     16: ((32, 96), 8, 2),
     32: ((32, 128), 8, 1),
+    44: ((32, 86), 6, 1),
+    88: ((28, 52), 6, 1),
 }
 
 #: The law of in-place cells whose functor declares its sub-steps' reach

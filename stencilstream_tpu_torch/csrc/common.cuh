@@ -21,7 +21,8 @@
 //   using Tdv                 the TDV's type (float for FDTD's source
 //                             amplitude, int for the probe's iteration),
 // and, if each sub-step changes only some variant fields and reads those
-// only at the cell itself (FDTD's leapfrog),
+// only at the cell itself, or at cells the sub-step leaves bit-unchanged
+// (FDTD's leapfrog; convection's pseudo-transient update: ops/convection.cuh),
 //   kWrites[kSubiterations]   sub-step s's changed fields, bit f for field f
 //                             (the tile pass then updates them in place).
 // Its runtime parameters travel by value as a kernel argument on every

@@ -28,6 +28,20 @@
 //     unfused, T = fma(dT, dt, T).
 // Scalar reciprocals and quotients arrive as parameters computed on the host
 // in T, as JAX computes them on its traced scalars.
+//
+// The straight pseudo-transient functors run in place in the tile pass
+// (tile_pass.cu: in_place), as FDTD's do: each sub-step declares the fields
+// it changes (kWrites) and reads a changed field only at the cell itself,
+// with one exception. Sub-step 2 reads Vx at (0, +-1) in columns 0 and
+// ny - 1 and Vy at (+-1, 0) in rows 0 and nx - 1, fields it changes, but
+// only in those columns and rows: with nx >= 3 and ny >= 3 the cells it
+// reads there (columns 1 and ny - 2, rows 1 and nx - 2) keep their bits
+// through the sub-step, so a lane reads the same value whether or not the
+// lane that owns that cell has stored it. Smaller active regions would race:
+// the transition function refuses them (models/convection.py:
+// PseudoTransientKernel.cuda_params). The thermal functor reads T at its
+// neighbours in the sub-step that changes T, and the folded functors run on
+// no cell: both keep the ping-pong map.
 #pragma once
 
 #include "../common.cuh"
@@ -60,6 +74,15 @@ struct ConvectionPtOp {
   static constexpr int kInvariant = kWithErr ? 1 : 3;
   static constexpr int kParams = 14;
   enum { kPt, kVx, kVy, kTauXX, kTauYY, kSigmaXY, kDVx, kDVy, kErrV, kErrP };
+  static constexpr unsigned kErr = kWithErr ? 1u << kErrV | 1u << kErrP : 0u;
+  // The fields each sub-step changes (the top of this file: in place):
+  // Pt and the stresses, with ErrV and ErrP's snapshots; the velocities and
+  // their pseudo-time derivatives; the boundary velocities, with the errors.
+  static constexpr unsigned kWrites[kSubiterations] = {
+      1u << kPt | 1u << kTauXX | 1u << kTauYY | 1u << kSigmaXY | kErr,
+      1u << kVx | 1u << kVy | 1u << kDVx | 1u << kDVy,
+      1u << kVx | 1u << kVy | kErr,
+  };
 
   int nx, ny;
   T inv_dx, inv_dy, third, dtau_beta, dedT, eta0, half_deltaT, inv_rho, dtau, dampX, dampY, g;

@@ -48,15 +48,19 @@
 //   shuffles and the outputs go in one 16-byte store. Every other functor,
 //   and edge tiles, keep the map above.
 // * In-place sub-steps for functors that declare which variant fields each
-//   sub-step changes (Op::kWrites: FDTD's leapfrog, which reads a changed
-//   field only at the cell itself). Such a functor's window holds one plane
-//   per variant field, not two; sub-step s updates it in place, each cell
-//   by exactly one lane (the last chunk and run are not shifted back: the
-//   lanes and rows past the window skip), a lane a run of 4 rows, and
-//   stores only the fields of kWrites[s]. Sub-step s is a compile-time
-//   constant there, so the functor's tests of it fold and the other
-//   sub-step's loads go. The same arithmetic, the same bits. The freed
-//   memory buys a taller tile (backends/tiling.py: IN_PLACE_LAW).
+//   sub-step changes (Op::kWrites: FDTD's leapfrog and convection's straight
+//   pseudo-transient functors, which read a changed field only at the cell
+//   itself; convection's sub-step 2 also reads boundary velocities next to
+//   the cell, cells the sub-step leaves bit-unchanged: ops/convection.cuh).
+//   Such a functor's window holds one plane per variant field, not two;
+//   sub-step s updates it in place, each cell by exactly one lane (the last
+//   chunk and run are not shifted back: the lanes and rows past the window
+//   skip), a lane a run of up to 4 rows (in_place_run_rows: as many as keep
+//   its outputs within 64 bytes), and stores only the fields of kWrites[s].
+//   Sub-step s is a compile-time constant there, so the functor's tests of
+//   it fold and the loads of fields the sub-step neither reads nor stores
+//   go. The same arithmetic, the same bits. The freed memory buys a larger
+//   tile (backends/tiling.py: IN_PLACE_LAW).
 // * Edge-free interior tiles. One CTA-uniform test decides whether the whole
 //   window (compound halo included) lies inside the grid; such tiles run the
 //   sub-steps with no out-of-grid test. Edge tiles write the halo value into
@@ -116,10 +120,12 @@ namespace ss {
 constexpr int kTileWarps = 16;  // warps per CTA
 constexpr int kTileThreads = 32 * kTileWarps;
 constexpr int kMinBlocks = 2;    // CTAs per SM the register budget is cut for
-// Rows of a thread's run in the in-place sub-steps (PERF.md: of 1, 2, 4 and
-// 8 within 64 registers, 4 measured fastest for FDTD's cells at 2048^2; 8
-// spills, and more registers at one CTA an SM ran no faster).
+// Most rows of a thread's run in the in-place sub-steps (PERF.md: of 1, 2, 4
+// and 8 within 64 registers, 4 measured fastest for FDTD's cells at 2048^2;
+// 8 spills, and more registers at one CTA an SM ran no faster), and the
+// bytes of variant fields a run's outputs may hold (in_place_run_rows).
 constexpr int kInPlaceRun = 4;
+constexpr int kInPlaceRunBytes = 64;
 // Cells of at least this many bytes are staged out of line
 // (common.cuh: stage_block_outlined): inlined, the block arguments cost the
 // HotSpot and Jacobi5 8192^2 passes 2-5% in their sub-steps (PERF.md).
@@ -145,6 +151,18 @@ struct DeclaresWrites<Op, std::void_t<decltype(Op::kWrites)>> : std::true_type {
 template <class Op>
 __host__ __device__ constexpr bool in_place() {
   return DeclaresWrites<Op>::value;
+}
+
+// Rows of a thread's run in a functor's in-place sub-steps: as many as keep
+// the run's outputs within kInPlaceRunBytes (16 registers), at most
+// kInPlaceRun, at least one. FDTD's 16 B of variant fields take 4;
+// convection's 64 and 80 B of float64 fields take 1, where 4 rows would
+// hold 128-160 registers of outputs against the 64 that kMinBlocks leaves a
+// thread; its float32 32 and 40 B take 2 and 1.
+template <class Op>
+__host__ __device__ constexpr int in_place_run_rows() {
+  constexpr int rows = kInPlaceRunBytes / static_cast<int>(Op::kVariant * sizeof(typename Op::T));
+  return rows < 1 ? 1 : rows > kInPlaceRun ? kInPlaceRun : rows;
 }
 
 // Op::kWrites[s] as a scalar constant, which device code can read (an
@@ -302,12 +320,12 @@ __device__ __forceinline__ void substep(const TilePassArgs<Op>& a, const G& g, c
   }
 }
 
-// A run of kInPlaceRun cells down one column of sub-step kSub of an
-// in-place functor, at window row r and column c of the planes at `var`:
-// computed, then the fields of kWritten<Op, kSub> stored. kMasked: only its
-// first n rows lie in the narrowed window; the others skip. A run wholly
-// inside it takes the body without those tests, so the compiler loads each
-// tap that its cells share once.
+// A run of in_place_run_rows<Op>() cells down one column of sub-step kSub
+// of an in-place functor, at window row r and column c of the planes at
+// `var`: computed, then the fields of kWritten<Op, kSub> stored. kMasked:
+// only its first n rows lie in the narrowed window; the others skip. A run
+// wholly inside it takes the body without those tests, so the compiler
+// loads each tap that its cells share once.
 template <class Op, bool kEdge, int kSub, bool kMasked, class G>
 __device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G& g, const Op& op,
                                              typename Op::T* var, const typename Op::T* inv, int r, int c,
@@ -315,7 +333,7 @@ __device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G&
                                              tdv_t<Op> tdv) {
   using T = typename Op::T;
   constexpr int NV = Op::kVariant;
-  constexpr int V = kInPlaceRun;
+  constexpr int V = in_place_run_rows<Op>();
   constexpr unsigned kStored = kWritten<Op, kSub>;
   // The sub-step's own reach below and above the cell.
   constexpr int kLo = kReachLo<Op, kSub>, kHi = kReachHi<Op, kSub>;
@@ -356,10 +374,11 @@ __device__ __forceinline__ void in_place_run(const TilePassArgs<Op>& a, const G&
 // hi on the high side of both axes (r*(s+1) each for a functor that declares
 // no reach). Each sub-step is its own instantiation (kSub), chosen by a
 // branch that is uniform across the CTA. The thread map is substep's with
-// runs of kInPlaceRun rows, but each cell of the narrowed window is computed
-// by exactly one lane: neither the last chunk nor the last run is shifted
-// back inside the window (a shifted lane would read a cell another lane has
-// already updated); the lanes and rows past the window skip.
+// runs of in_place_run_rows<Op>() rows, but each cell of the narrowed window
+// is computed by exactly one lane: neither the last chunk nor the last run
+// is shifted back inside the window (a shifted lane would read a cell
+// another lane has already updated); the lanes and rows past the window
+// skip.
 template <class Op, bool kEdge, int kSub = 0, class G>
 __device__ __forceinline__ void substep_in_place(const TilePassArgs<Op>& a, const G& g, const Op& op,
                                                  typename Op::T* var, const typename Op::T* inv, int j,
@@ -372,7 +391,7 @@ __device__ __forceinline__ void substep_in_place(const TilePassArgs<Op>& a, cons
       return;
     }
   }
-  constexpr int V = kInPlaceRun;
+  constexpr int V = in_place_run_rows<Op>();
   const int lo = j * kLoSum<Op, K - 1> + kLoSum<Op, kSub>;
   const int hi = j * kHiSum<Op, K - 1> + kHiSum<Op, kSub>;
   const int WH = a.tile_h + 2 * a.halo;

@@ -207,6 +207,15 @@ class PseudoTransientKernel:
         """Every field but T; lean also leaves ErrV and ErrP invariant."""
         return FIELDS[1:] if self.with_err else FIELDS[1:-2]
 
+    @property
+    def cuda_writes(self) -> tuple:
+        """The fields each sub-step changes, as the functor declares them
+        (``kWrites``), so the tile pass updates the cells in place: Pt and
+        the stresses; the velocities and their pseudo-time derivatives; the
+        boundary velocities; with ErrV and ErrP in sub-steps 0 and 2."""
+        err = ("ErrV", "ErrP") if self.with_err else ()
+        return (("Pt", "tau_xx", "tau_yy", "sigma_xy", *err), ("Vx", "Vy", "dVxd_tau", "dVyd_tau"), ("Vx", "Vy", *err))
+
     def get_time_dependent_value(self, i):
         return None
 
@@ -226,8 +235,14 @@ class PseudoTransientKernel:
 
     def cuda_params(self) -> tuple:
         """The functor's parameters, in its order: nx, ny, then
-        :meth:`scalars`."""
-        return (int(self.nx), int(self.ny), *self.scalars().values())
+        :meth:`scalars`. Raises ``ValueError`` for an active region under
+        3x3: the tile pass updates the cells in place, and sub-step 2's
+        boundary copies would then read cells that other lanes change
+        (``csrc/ops/convection.cuh``)."""
+        nx, ny = int(self.nx), int(self.ny)
+        if nx < 3 or ny < 3:
+            raise ValueError(f"the device functor takes an active region of at least 3x3 (got nx={nx}, ny={ny})")
+        return (nx, ny, *self.scalars().values())
 
     def __call__(self, s):
         c = s[0, 0]

@@ -108,9 +108,15 @@ FDTD_TILES = [(8, 64), (8, 128), (16, 64), (16, 96), (16, 128), (16, 192), (24, 
               (56, 80), (56, 96), (64, 80), (24, 112), (16, 112)]
 #: Core tiles of the convection functors' geometry sweep: their 48-168 B
 #: cells (k=3 for the pseudo-transient ones) leave room for windows of 1.4k
-#: to 4.8k cells; one cell a thread for ten variant fields.
+#: to 4.8k cells; one cell a thread for ten variant fields. Then tiles near
+#: the largest windows of the cells updated in place (88 B in float64, 44 B
+#: in float32) at p = 1-3, one CTA an SM or two, whose narrowing windows
+#: fill their 32-lane chunks best (``in_place_map_work``).
 CONVECTION_TILES = [(8, 32), (8, 64), (8, 96), (8, 128), (16, 32), (16, 64), (16, 96), (16, 128), (24, 32),
-                    (24, 64), (32, 32), (32, 64), (48, 32)]
+                    (24, 64), (32, 32), (32, 64), (48, 32),
+                    (24, 48), (24, 52), (28, 52), (20, 54), (8, 52), (20, 46), (16, 46), (32, 58), (24, 60),
+                    (20, 90), (12, 58), (8, 60), (40, 84), (32, 86), (28, 116), (48, 54), (32, 78), (64, 46),
+                    (40, 92), (56, 60), (48, 90)]
 #: The convection functors' grid: the JAX bench's 3072x1024 (res 1024).
 CONVECTION_SHAPE = (3072, 1024)
 #: Iterations per pass of the geometry sweep.
@@ -130,7 +136,10 @@ WINDOWS = [64, 96, 128, 160, 192, 256]
 MONO_SIZES = {"hotspot": 1024, "jacobi5": 1024, "probe": 600, "fdtd": 512, "convection": (384, 128)}
 #: Device functor of each swept case, as ptxas names its instantiation.
 FUNCTORS = {"hotspot": "HotspotOp", "jacobi5": "Jacobi5GeneralOp", "conway": "ConwayOp", "probe": "ProbeOp",
-            "fdtd": "FdtdCoefOp", "fdtd_lut": "FdtdLutOp", "fdtd_render": "FdtdRenderOp"}
+            "fdtd": "FdtdCoefOp", "fdtd_lut": "FdtdLutOp", "fdtd_render": "FdtdRenderOp",
+            **{f"convection_{kind}_{width}": f"Convection{name}{width.upper()}Op"
+               for kind, name in (("pt", "Pt"), ("pt_lean", "PtLean"), ("thermal", "Thermal"))
+               for width in ("f32", "f64")}}
 
 
 def fdtd_case(device, size, resolver="coef"):
@@ -606,7 +615,9 @@ def main(argv=None) -> int:
             cell, tf, halo = work[op]
             cell_bytes = cuda_lib.tile_cell_smem_bytes(cell, tf)
             info = cuda_lib.op_info(tf.cuda_op)
-            run = tp.RUN_ROWS if info["n_variant"] == 1 else tp.IN_PLACE_RUN if info["writes"] else 1
+            variant_bytes = info["n_variant"] * info["dtype"].itemsize
+            run = (tp.RUN_ROWS if info["n_variant"] == 1 else tp.in_place_run_rows(variant_bytes) if info["writes"]
+                   else 1)
             for p in map(int, args.passes.split(",")):
                 stream = tdv_stream(tf, 0, p, device)
                 tiles = FDTD_TILES if op.startswith("fdtd") else CONVECTION_TILES if op.startswith("convection") else TILES
@@ -623,7 +634,7 @@ def main(argv=None) -> int:
                     lanes, window = thread_map_work(tile, hp, tf.stencil_radius, run)
                     if info["vector_map"]:
                         lanes = vector_map_work(tile, hp, tf.stencil_radius)["lane_cells_per_cell_step"]
-                    elif info["reach"]:
+                    elif info["writes"]:
                         lanes = in_place_map_work(tile, hp, tf.stencil_radius, run,
                                                   reach=info["reach"])["lane_cells_per_cell_step"]
                     emit(dict(part="grid", op=op, size=list(cell_leaves(cell)[0].shape), cell_bytes=cell_bytes,
@@ -678,7 +689,9 @@ def main(argv=None) -> int:
                 continue
             info = cuda_lib.op_info(work[op][1].cuda_op)
             # Fields a cell-step stores: every variant one, or in the tile
-            # pass those its sub-step writes in place (as many in each).
+            # pass those its sub-step writes in place (sub-step 0's: as many
+            # in each for FDTD, not for convection, whose loops' own LDS and
+            # STS words are in run_loops).
             stored = info["n_variant"]
             if info["writes"] and kernel == "tile_pass_kernel":
                 stored = bin(info["writes"][0]).count("1")

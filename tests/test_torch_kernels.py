@@ -435,8 +435,6 @@ PING_PONG_GEOMETRY = {
     ("hotspot__bf16", (8192, 8192)): (32, 240, 8), ("jacobi5_general__bf16", (8192, 8192)): (64, 240, 8),
     ("jacobi5_general__e4m3", (8192, 8192)): (64, 240, 8),
     ("fdtd_coef__bf16", (1024, 1024)): (28, 32, 4), ("fdtd_coef__bf16", (2048, 2048)): (28, 32, 4),
-    ("convection_pt_f32", (3072, 1024)): (8, 128, 1), ("convection_pt_f64", (3072, 1024)): (8, 64, 1),
-    ("convection_pt_lean_f32", (3072, 1024)): (24, 64, 2), ("convection_pt_lean_f64", (3072, 1024)): (16, 32, 2),
     ("convection_thermal_f32", (3072, 1024)): (16, 128, 4), ("convection_thermal_f64", (3072, 1024)): (24, 64, 1),
     ("convection_folded_pt_f32", (3072, 1024)): (12, 64, 1), ("convection_folded_pt_f64", (3072, 1024)): (8, 32, 1),
     ("convection_folded_pt_lean_f32", (3072, 1024)): (12, 64, 1),
@@ -447,6 +445,17 @@ PING_PONG_GEOMETRY = {
 IN_PLACE_GEOMETRY = {
     (op, (side, side)): {"fdtd_coef": (40, 112, 8), "fdtd_lut": (32, 88, 4), "fdtd_render": (56, 80, 8)}[op]
     for op in ("fdtd_coef", "fdtd_lut", "fdtd_render") for side in (1024, 2048)
+}
+
+
+#: Convection's straight pseudo-transient cells, which the tile pass updates
+#: in place without a declared reach: their in-place law's geometry
+#: (tiling.IN_PLACE_LAW, 88 B in float64, 44 B in float32), the same for the
+#: lean and the full functor; before it, 16x32 (lean) and 8x64 (full) at
+#: p=2 in float64, 24x64 and 8x128 in float32.
+CONVECTION_IN_PLACE_GEOMETRY = {
+    (f"convection_{kind}_{width}", (3072, 1024)): {"f64": (28, 52, 2), "f32": (32, 86, 2)}[width]
+    for kind in ("pt", "pt_lean") for width in ("f32", "f64")
 }
 
 
@@ -463,7 +472,8 @@ def _tiling_geometry(op, shape):
 
 def test_every_functor_has_a_tiling_geometry_here():
     """The two tables name every functor at the sizes tile_sweep.py uses."""
-    named = {op for op, _ in PING_PONG_GEOMETRY} | {op for op, _ in IN_PLACE_GEOMETRY}
+    named = {op for op, _ in PING_PONG_GEOMETRY} | {op for op, _ in IN_PLACE_GEOMETRY} | {
+        op for op, _ in CONVECTION_IN_PLACE_GEOMETRY}
     assert named == set(ALL_OPS + CONVECTION_OPS)
 
 
@@ -485,6 +495,35 @@ def test_in_place_cells_take_their_own_law(op, shape):
     (th, tw), halo, _ = law_entry(cuda_lib.tile_cell_smem_bytes(cell, tf), in_place=True, reach=True)
     assert tp.pass_halo(1, 1, 2, cuda_lib.tile_reach(tf)) == 1
     assert _tiling_geometry(op, shape) == IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo)
+
+
+@pytest.mark.parametrize("op,shape", list(CONVECTION_IN_PLACE_GEOMETRY), ids=lambda v: str(v))
+def test_convection_in_place_cells_take_the_in_place_law(op, shape):
+    """Convection's straight pseudo-transient cells, in place without a
+    declared reach, hold one plane per field (88 B in float64, 44 B in
+    float32) and take the in-place law's entry for those bytes, whose halo
+    6 is p=2 at k=3; a call of one iteration (the full update's) runs the
+    same tile at p=1."""
+    from stencilstream_tpu_torch.backends.tiling import IN_PLACE_LAW, law_entry, pick_config
+
+    cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
+    cell_bytes = cuda_lib.tile_cell_smem_bytes(cell, tf)
+    assert cell_bytes == (88 if op.endswith("f64") else 44) and cuda_lib.tile_reach(tf) is None
+    assert law_entry(cell_bytes, in_place=True) == IN_PLACE_LAW[cell_bytes]
+    (th, tw), halo, _ = IN_PLACE_LAW[cell_bytes]
+    assert _tiling_geometry(op, shape) == CONVECTION_IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo // 3)
+    assert pick_config(*shape, 1, 3, 1, cell_bytes, cuda_lib.H100_SXM, in_place=True) == (th, tw, 1)
+
+
+def test_fdtds_in_place_and_reach_laws_keep_their_entries():
+    """The in-place law's new entries for convection (44 B, 88 B) leave
+    FDTD's cells (16, 20 and 32 B) the entries they had, in both laws."""
+    from stencilstream_tpu_torch.backends.tiling import law_entry
+
+    assert [law_entry(b, in_place=True) for b in (16, 20, 32)] == [((32, 96), 8, 2), ((32, 96), 8, 2),
+                                                                     ((32, 128), 8, 1)]
+    assert [law_entry(b, in_place=True, reach=True) for b in (16, 20, 32)] == [((56, 80), 8, 2), ((32, 88), 4, 2),
+                                                                                 ((40, 112), 8, 1)]
 
 
 #: FDTD's geometry on the multi-device paths, which keep their stored halo
@@ -525,6 +564,74 @@ def test_fdtd_tile_pass_holds_one_plane_per_field(resolver, tile_bytes):
     if resolver == "coef":
         cell, tf, _, _ = _case("fdtd_coef__bf16", (2, 2), 0, "cpu")
         assert cuda_lib.tile_writes(tf) is None and cuda_lib.tile_cell_smem_bytes(cell, tf) == 24
+
+
+#: The straight pseudo-transient functors, which the tile pass runs in place
+#: (their transition function's ``cuda_writes``; the functor's ``kWrites``).
+IN_PLACE_CONVECTION_OPS = [f"convection_{kind}_{width}" for kind in ("pt", "pt_lean") for width in ("f32", "f64")]
+#: The masks of their sub-steps, bit j for ``cuda_variant[j]`` (Pt, Vx, Vy,
+#: tau_xx, tau_yy, sigma_xy, dVxd_tau, dVyd_tau, then ErrV, ErrP).
+CONVECTION_WRITES = {"pt": (0b1100111001, 0b0011000110, 0b1100000110), "pt_lean": (0b111001, 0b11000110, 0b110)}
+#: (grid shape, active region (nx, ny)) of the twins' sub-step checks: the
+#: grid less its last row and column, a region smaller than the grid, and
+#: the smallest region the functor takes.
+CONTRACT_REGIONS = [((12, 17), (11, 16)), ((14, 13), (9, 7)), ((6, 7), (3, 3))]
+
+
+@pytest.mark.parametrize("shape,active", CONTRACT_REGIONS, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_convection_sub_steps_change_their_writes_and_read_them_at_the_cell(op, shape, active):
+    """The contract of the in-place map, on the Python twin one sub-step at
+    a time over random fields: sub-step s changes exactly the fields of
+    ``cuda_writes[s]``, and reads a field it changes only at the cell
+    itself, but for sub-step 2's boundary copies (Vx from column 1 into
+    column 0 and from ny - 2 into ny - 1, Vy from row 1 into row 0 and from
+    nx - 2 into nx - 1), which read cells the sub-step leaves unchanged.
+    Each written field is moved at every third row and column in turn: a
+    cell off that lattice whose outputs move reads the moved cell of its
+    3x3 neighbourhood."""
+    from stencilstream_tpu_torch.backends.reference import single_subiteration
+
+    cell, tf, halo = convection_case(op, shape, np.random.default_rng(41), "cpu", active)
+    nx, ny = active
+    assert cuda_lib.tile_writes(tf) == CONVECTION_WRITES[op[len("convection_"):-len("_f32")]]
+    rows, cols = np.indices(shape)
+    allowed = {("Vx", 0, 1): cols == 0, ("Vx", 0, -1): cols == ny - 1,
+               ("Vy", 1, 0): rows == 0, ("Vy", -1, 0): rows == nx - 1}
+    for sub, written in enumerate(tf.cuda_writes):
+        def step(c):
+            return single_subiteration(c, tf, halo, 0, sub, None, radius=1)
+
+        new = step(cell)
+        changed = {f for f in convection.FIELDS if not torch.equal(getattr(new, f), getattr(cell, f))}
+        assert changed == set(written), sub
+        for f in written:
+            for a, b in np.ndindex(3, 3):
+                lattice = (rows % 3 == a) & (cols % 3 == b)
+                moved = dataclasses.replace(cell, **{f: getattr(cell, f) + torch.tensor(lattice)})
+                out = step(moved)
+                reads = ~lattice & np.any([(getattr(out, g) != getattr(new, g)).numpy()
+                                           for g in convection.FIELDS], axis=0)
+                # The offset of the moved cell in each reading cell's neighbourhood.
+                dr, dc = (a - rows + 1) % 3 - 1, (b - cols + 1) % 3 - 1
+                for x, y in zip(*np.nonzero(reads)):
+                    key = (f, int(dr[x, y]), int(dc[x, y]))
+                    assert sub == 2 and key in allowed and allowed[key][x, y], (sub, key, (x, y))
+                    read = (x + key[1], y + key[2])
+                    assert getattr(new, f)[read] == getattr(cell, f)[read], (sub, key, (x, y))
+
+
+@pytest.mark.parametrize("active", [(2, 5), (5, 2), (1, 1)], ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("op", ["convection_pt_f64", "convection_pt_lean_f32"])
+def test_convection_functor_refuses_an_active_region_under_3x3(op, active):
+    """Sub-step 2's boundary copies would read cells that other lanes of the
+    in-place map change: the transition function gives its functor no such
+    region."""
+    _, tf, _ = convection_case(op, (6, 7), np.random.default_rng(42), "cpu", active)
+    with pytest.raises(ValueError, match="3x3"):
+        tf.cuda_params()
+    _, tf, _ = convection_case(op, (6, 7), np.random.default_rng(42), "cpu", (3, 3))
+    assert tf.cuda_params()[:2] == (3, 3)
 
 
 def test_cell_smem_bytes_counts_variant_fields_twice():
@@ -955,18 +1062,20 @@ def test_in_place_extended_pass_on_a_shard_of_a_2x2_mesh(cuda, op, shard):
 def test_in_place_launches_count_fdtd_only(cuda, op):
     """A functor's compiled write masks (``op_info``'s ``writes``) are its
     transition function's (``tile_writes``); only FDTD's float32 functors
-    have them, and only their launches count in ``inplace_launches``. So
-    with the reach each sub-step declares (``op_info``'s ``reach``, the
-    transition function's ``tile_reach``) and ``reach_launches``."""
+    and convection's straight pseudo-transient ones have them, and only
+    their launches count in ``inplace_launches``. The reach each sub-step
+    declares (``op_info``'s ``reach``, the transition function's
+    ``tile_reach``), and ``reach_launches``, are FDTD's alone."""
     cell, tf, halo, _ = _case(op, (45, 70), 3, cuda)
     info = cuda_lib.op_info(cuda_lib.require_device_op(tf))
+    in_place = op in IN_PLACE_OPS + IN_PLACE_CONVECTION_OPS
     assert info["writes"] == cuda_lib.tile_writes(tf)
-    assert (info["writes"] is not None) == (op in IN_PLACE_OPS)
+    assert (info["writes"] is not None) == in_place
     assert info["reach"] == cuda_lib.tile_reach(tf) == (((1, 0), (0, 1)) if op in IN_PLACE_OPS else None)
     tile, p = _fitted((16, 32), 1, cell, tf, cuda_lib.device_limits(cuda))
     before = (tp.inplace_launches, tp.reach_launches)
     tp.tile_pass(cell, tf, halo, tile=tile, i_start=0, offset=0, n_iterations=1, iters_per_pass=p)
-    assert (tp.inplace_launches - before[0], tp.reach_launches - before[1]) == ((op in IN_PLACE_OPS),) * 2
+    assert (tp.inplace_launches - before[0], tp.reach_launches - before[1]) == (in_place, op in IN_PLACE_OPS)
 
 
 @pytest.mark.gpu
@@ -982,6 +1091,90 @@ def test_every_launch_of_an_fdtd_tiling_call_is_in_place(cuda):
     assert (update.resolved_config["tile_rows"], update.resolved_config["tile_cols"],
             update.resolved_config["iters_per_pass"]) == IN_PLACE_GEOMETRY["fdtd_coef", (2048, 2048)]
     assert (tp.launches - before[0], tp.inplace_launches - before[1], tp.reach_launches - before[2]) == (3, 3, 3)
+
+
+#: (shape, active region (nx, ny), tile, p, n) of convection's in-place
+#: sub-steps, one pass of p from iteration 2 (n < p: a partial pass): at
+#: 384x128 (res 128) tiles of the in-place law's shapes and p = 1-3, whose
+#: last rows and columns hold the boundaries nx - 1, nx and ny - 1, ny;
+#: tiles whose edges fall on those boundaries (rows 31 | 32 and columns 63 |
+#: 64 at 16x32 cores, both sides); every tile an edge tile; the smallest
+#: active region, 3x3, inside a larger grid.
+IN_PLACE_CONVECTION_CASES = [
+    ((384, 128), None, (24, 52), 2, 2), ((384, 128), None, (28, 52), 1, 1), ((384, 128), None, (16, 46), 3, 3),
+    ((384, 128), None, (16, 46), 3, 2),
+    ((33, 65), (32, 64), (16, 32), 2, 2), ((40, 72), (32, 64), (16, 32), 3, 3), ((40, 72), (33, 65), (16, 32), 1, 1),
+    ((45, 70), (44, 69), (8, 32), 2, 2), ((9, 11), (3, 3), (16, 32), 3, 3), ((9, 11), (3, 3), (8, 32), 1, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", IN_PLACE_CONVECTION_CASES,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-a{c[1]}-t{c[2][0]}x{c[2][1]}-p{c[3]}-n{c[4]}")
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_in_place_convection_equals_resident_grid_and_plain_bit_for_bit(cuda, op, case):
+    """Convection's straight pseudo-transient functors through the in-place
+    sub-steps equal the plain version and the resident-grid kernel, which
+    keeps the ping-pong map, exactly; the launch counts as an in-place one."""
+    shape, active, tile, p, n = case
+    cell, tf, halo = convection_case(op, shape, np.random.default_rng(43), cuda, active)
+    kw = dict(i_start=2, offset=2, n_iterations=n, iters_per_pass=p)
+    before = (tp.launches, tp.inplace_launches)
+    got = tp.tile_pass(cell, tf, halo, tile=tile, **kw)
+    assert (tp.launches, tp.inplace_launches) == (before[0] + 1, before[1] + 1)
+    want = tp.tile_pass_plain(cell, tf, halo, **kw)
+    resident = mt.monotile(cell, tf, halo, offset=2, n_iterations=n)
+    torch.cuda.synchronize()
+    assert _max_err(got, want) == 0
+    assert _max_err(got, resident) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_in_place_convection_on_a_2x1_mesh(cuda, op):
+    """``distributed`` on a (2, 1) mesh of the one card, 200x96, n = 5 from
+    3 at p = 2 (a partial last pass): every shard's pass in place, with the
+    stored halo r*p*k, exactly as ``reference``."""
+    cell, tf, halo = convection_case(op, (200, 96), np.random.default_rng(44), cuda)
+    params = Params(tf, halo_value=halo, iteration_offset=3, n_iterations=5)
+    before = (tp.launches, tp.inplace_launches)
+    got = create_update(params, backend="distributed", mesh=_mesh((2, 1), cuda), iters_per_pass=2)(Grid(cell))
+    launched = (tp.launches - before[0], tp.inplace_launches - before[1])
+    want = create_update(params, backend="reference")(Grid(cell))
+    torch.cuda.synchronize()
+    assert launched[0] > 0 and launched[1] == launched[0]
+    assert _max_err(got.arrays, want.arrays) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("active", [(2, 5), (5, 2)], ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_in_place_convection_refuses_an_active_region_under_3x3(cuda, op, active):
+    cell, tf, halo = convection_case(op, (9, 11), np.random.default_rng(45), cuda, active)
+    before = tp.launches
+    with pytest.raises(ValueError, match="3x3"):
+        tp.tile_pass(cell, tf, halo, tile=(8, 32), i_start=0, offset=0, n_iterations=1, iters_per_pass=1)
+    assert tp.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_every_launch_of_a_convection_tiling_call_is_in_place(cuda, op):
+    """A tiling call at the in-place law's geometry for 3072x1024 (res 1024),
+    n = 2p + 1 from 7 (the last pass partial): each launch in place, the
+    result exactly ``reference``'s."""
+    cell, tf, halo = convection_case(op, (3072, 1024), np.random.default_rng(46), cuda)
+    th, tw, p = CONVECTION_IN_PLACE_GEOMETRY[op, (3072, 1024)]
+    params = Params(tf, halo_value=halo, iteration_offset=7, n_iterations=2 * p + 1, blocking=True)
+    update = create_update(params, backend="tiling")
+    before = (tp.launches, tp.inplace_launches)
+    got = update(Grid(cell))
+    assert (update.resolved_config["tile_rows"], update.resolved_config["tile_cols"],
+            update.resolved_config["iters_per_pass"]) == (th, tw, p)
+    assert (tp.launches - before[0], tp.inplace_launches - before[1]) == (3, 3)
+    want = create_update(params, backend="reference")(Grid(cell))
+    torch.cuda.synchronize()
+    assert _max_err(got.arrays, want.arrays) == 0
 
 
 @pytest.mark.gpu

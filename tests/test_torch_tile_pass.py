@@ -20,7 +20,7 @@ from stencilstream_tpu.models import hotspot as jhs
 from stencilstream_tpu_torch import Params, create_update, interop, probe
 from stencilstream_tpu_torch.backends.cuda_lib import H100_SXM, DeviceLimits, cell_smem_bytes
 from stencilstream_tpu_torch.backends.tile_pass import IN_PLACE_RUN, RUN_ROWS, WARP, tile_pass, tile_smem_bytes
-from stencilstream_tpu_torch.backends.tiling import REACH_LAW, TILE_LAW, pick_config
+from stencilstream_tpu_torch.backends.tiling import IN_PLACE_LAW, REACH_LAW, TILE_LAW, pick_config
 from stencilstream_tpu_torch.models import conway, jacobi
 from stencilstream_tpu_torch.tdv import step_value, tdv_stream
 from stencilstream_tpu_torch.models import hotspot as hs
@@ -332,6 +332,43 @@ def test_in_place_map_at_fdtds_law_tile():
     assert in_place_map_work((32, 128), 8, 1, 1)["lane_cells_per_cell_step"] == pytest.approx(48896 / 32768)
     assert in_place_map_work((16, 128), 8, 1, 1, in_place=False)["lane_cells_per_cell_step"] == pytest.approx(
         28928 / 16384)
+
+
+@pytest.mark.parametrize("variant_bytes,rows", [(16, 4), (20, 3), (32, 2), (40, 1), (64, 1), (80, 1), (4, 4)])
+def test_in_place_run_holds_at_most_64_bytes_of_outputs(variant_bytes, rows):
+    """A lane's in-place run holds as many rows as keep its outputs within 64
+    bytes, at most 4, at least one: FDTD's 16 B keep their 4 rows, the
+    float64 convection cells (64, 80 B) take one, the float32 ones (32, 40
+    B) two and one."""
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+
+    assert tp.in_place_run_rows(variant_bytes) == rows
+
+
+#: (tile, halo, run) of convection's in-place map: runs of 1 (its float64
+#: cells, its float32 full cell) and 2 rows (its float32 lean cell); the
+#: in-place law's tiles for its 88 B and 44 B cells and the sweep's, and
+#: cores whose narrowed windows are not whole warps (width 100), at p = 1-3
+#: (k = 3: halos 3, 6, 9).
+CONVECTION_MAP_GEOMETRY = sorted({
+    (tile, 3 * p, run)
+    for tile in (IN_PLACE_LAW[88][0], IN_PLACE_LAW[44][0], (16, 46), (24, 52), (32, 32), (24, 48), (12, 58),
+                 (16, 100))
+    for p in (1, 2, 3) for run in (1, 2)
+})
+
+
+@pytest.mark.parametrize("tile, halo, run", CONVECTION_MAP_GEOMETRY, ids=lambda v: str(v))
+def test_in_place_map_at_convections_runs_stores_every_cell_once(tile, halo, run):
+    """At convection's run lengths every cell of each of a pass's 3p
+    narrowed windows is stored by exactly one lane and no lane stores
+    outside it, and the map computes what whole chunks and runs of that
+    length cover."""
+    from stencilstream_tpu_torch.tile_sweep import in_place_map_work, thread_map_work
+
+    work = in_place_map_work(tile, halo, 1, run)
+    assert (work["uncovered"], work["stored_twice"], work["outside"]) == (0, 0, 0)
+    assert work["lane_cells_per_cell_step"] == pytest.approx(thread_map_work(tile, halo, 1, run)[0])
 
 
 @pytest.mark.parametrize("seen,want", [(5, 0.8), (4, 0.8), (10, 1.6), (9, 1.6)])

@@ -1,4 +1,4 @@
-"""The whole call's share of the card's peak, in %: the least time a call's
+"""The whole call's share of the peak of the cell's cards, in %: the least time a call's
 work needs (the same bound as ``kernels_roofline``) times the traced calls,
 over the traced window on the profiler's host clock. It bounds the kernels'
 share: work moved out of the port's kernels still counts against it."""

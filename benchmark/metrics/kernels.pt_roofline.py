@@ -1,7 +1,7 @@
 """The pseudo-transient kernels' share of the call's roofline, in %: the
 least time a call's work needs (``roofline.bound_s``, from the
 configuration's frozen counts and the data-sheet peaks) over the device
-time a traced call of the kernels whose names carry one of the
+time a traced call and card of the kernels whose names carry one of the
 configuration's ``pt_op_types`` (the lean and the full pseudo-transient
 functors). The thermal kernel, one launch a call, counts in
 ``kernels_roofline`` only. None where the configuration names no such
@@ -15,4 +15,4 @@ def read(record):
     us = sum(v["us"] for name, v in trace["kernels"].items() if any(t in name for t in types))
     if not us:
         return None
-    return record["bound_s"] * 1e6 / (us / trace["calls"]) * 100.0
+    return record["bound_s"] * 1e6 / (us / trace["calls"] / record.get("chips", 1)) * 100.0

@@ -1,4 +1,4 @@
-"""Device time a traced call of the convergence loop's checks, in us: the
+"""Device time a traced call and card of the convergence loop's checks, in us: the
 profiler's device kernels inside the calls that are not a
 ``<module>_kernel`` of the port's kernel modules, nor copies or fills
 (``Memcpy ...``, ``Memset ...``): the five masked maxima after each block
@@ -15,4 +15,4 @@ def read(record):
     port = [f"{module}_kernel" for module in trace["launches"]]
     us = sum(v["us"] for name, v in trace["kernels"].items()
              if not name.startswith(COPIES) and not any(k in name for k in port))
-    return us / trace["calls"]
+    return us / trace["calls"] / record.get("chips", 1)

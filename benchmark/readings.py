@@ -16,11 +16,16 @@ import argparse
 import json
 import sys
 
-import torch
+if __name__ == "__main__":  # before torch is imported: the runs see their cell's cards alone
+    from .pin import pin
 
-from .faults import FAULTS, control
-from .run import run_cell
-from .spec import Spec
+    pin(sys.argv[1:])
+
+import torch  # noqa: E402
+
+from .faults import FAULTS, control  # noqa: E402
+from .run import run_cell  # noqa: E402
+from .spec import Spec  # noqa: E402
 
 
 def _seeds(text: str) -> list[int]:
@@ -45,7 +50,8 @@ def main(argv=None) -> int:
     runs += [(name, s, fault, args.control_seconds)
              for s in _seeds(args.fault_seeds) for name, fault in FAULTS.items()]
     for what, seed, wrap, seconds in runs:
-        torch.cuda.reset_peak_memory_stats()
+        for card in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(card)
         result = run_cell(spec, args.workload, seed, seconds, False, wrap=wrap)
         line = {"workload": args.workload, "run": what, "seed": seed, "correct": result["correct"],
                 "calls": result["attempted"], "checks": result["checks"],

@@ -16,10 +16,15 @@ import argparse
 import json
 import sys
 
-import torch
+if __name__ == "__main__":  # before torch is imported: the runs see their cell's cards alone
+    from .pin import pin
 
-from .run import run_cell
-from .spec import Spec
+    pin(sys.argv[1:])
+
+import torch  # noqa: E402
+
+from .run import run_cell  # noqa: E402
+from .spec import Spec  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -36,7 +41,8 @@ def main(argv=None) -> int:
         print(f"the app of {cell['config']!r} gives no path below its precision", file=sys.stderr)
         return 1
     for seed in (int(s) for s in args.seeds.split(",") if s):
-        torch.cuda.reset_peak_memory_stats()
+        for card in range(torch.cuda.device_count()):
+            torch.cuda.reset_peak_memory_stats(card)
         result = run_cell(spec, args.workload, seed, args.seconds, False,
                           wrap=app.precision_below(config, traffic))
         line = {"workload": args.workload, "run": "port_below", "seed": seed, "correct": result["correct"],

@@ -12,6 +12,13 @@ edge neighbour replaced by the centre temperature::
 
 Every operation runs in ``dtype``: float64 for the comparison, bfloat16 for
 the control.
+
+A block of a larger grid runs with ``origin``, its first row and column in
+the grid, and ``extent``, the grid's size: the coefficients come from the
+extent. The update does not depend on where a cell lies, so the origin only
+places the block, which must lie inside the extent; the block's own edges
+are clamped as the grid's are, and the cells within ``n`` of an edge that
+is not the grid's are the caller's to discard.
 """
 
 from __future__ import annotations
@@ -37,11 +44,17 @@ def coefficients(config: dict, height: int, width: int) -> dict[str, float]:
             "Cap_1": f32(step / cap), "amb": f32(k["amb_temp"])}
 
 
-def run(fields: dict[str, torch.Tensor], n: int, config: dict, dtype=torch.float64) -> dict[str, torch.Tensor]:
-    """``n`` iterations from ``fields`` (``temp``, ``power``), in ``dtype``."""
+def run(fields: dict[str, torch.Tensor], n: int, config: dict, dtype=torch.float64,
+        origin: tuple[int, int] = (0, 0), extent: tuple[int, int] | None = None) -> dict[str, torch.Tensor]:
+    """``n`` iterations from ``fields`` (``temp``, ``power``), in ``dtype``:
+    the grid itself, or the block at ``origin`` of a grid of ``extent``."""
     temp = fields["temp"].to(dtype, copy=True)
     power = fields["power"].to(dtype, copy=True)
-    c = coefficients(config, *temp.shape)
+    extent = tuple(temp.shape) if extent is None else tuple(extent)
+    if not (0 <= origin[0] and origin[0] + temp.shape[0] <= extent[0]
+            and 0 <= origin[1] and origin[1] + temp.shape[1] <= extent[1]):
+        raise ValueError(f"a {tuple(temp.shape)} block at {tuple(origin)} does not lie in a {extent} grid")
+    c = coefficients(config, *extent)
     for _ in range(n):
         dy = torch.zeros_like(temp)
         dy[1:] += temp[:-1] - temp[1:]  # top - old; the top row's top is itself

@@ -21,6 +21,14 @@ freed, and the kept grids compared with the plain reference
 as one JSON object; the numbers compared and their limits are the last
 lines of standard error. Without a CUDA card, or with JAX or the JAX
 package loaded, the run exits with 1 and prints no result.
+
+A run sees its cell's ``chips`` cards and no others (:mod:`benchmark.pin`).
+A cell whose traffic gives a ``mesh`` of more than one block keeps its grid
+in blocks over them (:mod:`benchmark.layout`): the kept grids and the
+inputs are made block by block on each block's card, a call's time is the
+longest of its cards' event pairs, ``peak_mem_gib`` the largest over the
+cards of the card's peak less its kept grids, and the check runs block by
+block.
 """
 
 from __future__ import annotations
@@ -36,12 +44,20 @@ import math  # noqa: E402
 import random  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import types  # noqa: E402
 import warnings  # noqa: E402
+from collections import defaultdict  # noqa: E402
+
+if __name__ == "__main__":  # before torch is imported: the run sees its cell's cards alone
+    from .pin import pin
+
+    pin(sys.argv[1:])
 
 import torch  # noqa: E402
 
 from . import trace as tracing  # noqa: E402
-from .check import run_checks  # noqa: E402
+from .check import require_blocks, run_checks  # noqa: E402
+from .layout import Layout, mesh_of  # noqa: E402
 from .roofline import bound_s, peak_for  # noqa: E402
 from .spec import Spec  # noqa: E402
 
@@ -85,7 +101,11 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
              device: str = "cuda", wrap=None) -> dict:
     """One run; returns the result object. ``wrap(update, app)``, when
     given, puts another updater in the program's place (the control and
-    the faults); ``device="cpu"`` runs the port's plain versions (tests)."""
+    the faults; in a cell of several blocks ``app`` converts between the
+    grid and its blocks); ``device="cpu"`` runs the port's plain versions
+    (tests). A cell of several blocks puts block ``k`` on card ``k`` of
+    ``"cuda"``, and every block on a device that names one (``"cpu"``,
+    ``"cuda:0"``)."""
     t_begin = time.perf_counter()
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -96,15 +116,51 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
     calls_per_run = traffic.get("calls_per_run", 0)
     if calls_per_run and calls_per_run < CHAIN_CALLS:
         raise ValueError(f"calls_per_run must be 0 or at least {CHAIN_CALLS}")
+    ny, nx = mesh_of(traffic, cell["chips"])
+    if ny * nx == 1:
+        devices = [dev]
+    elif on_card and dev.index is None:
+        devices = [torch.device("cuda", k) for k in range(ny * nx)]
+    else:
+        devices = [dev] * (ny * nx)
+    layout = Layout(H, W, (ny, nx), devices)
+    cards = layout.devices()
+    if layout.whole:
+        (only,) = layout.blocks
+
+        def inputs(key):
+            return app.make_inputs(H, W, seed, dev)
+
+        def to_grid(blocks):
+            return app.to_grid(blocks[only])
+
+        def from_grid(grid):
+            return {only: app.from_grid(grid)}
+    else:
+        require_blocks(reference, config)
+
+        def inputs(key):
+            rows, cols, device = layout.blocks[key]
+            return app.make_block_inputs(H, W, seed, rows, cols, device)
+
+        def to_grid(blocks):
+            return app.to_grid(blocks)
+
+        def from_grid(grid):
+            return app.from_grid(grid, layout)
 
     # The kept grids come first, so that the peak is theirs plus the rest.
     dtype = getattr(torch, config["dtype"])
 
     def grid_buffers():
-        return {f: torch.empty(H, W, dtype=dtype, device=dev) for f in config["fields"]}
+        return {key: {f: torch.empty(len(rows), len(cols), dtype=dtype, device=device) for f in config["fields"]}
+                for key, (rows, cols, device) in layout.blocks.items()}
 
     kept = {"chain": grid_buffers(), "sample_in": grid_buffers(), "sample_out": grid_buffers()}
-    kept_bytes = sum(t.numel() * t.element_size() for bufs in kept.values() for t in bufs.values())
+    kept_bytes = defaultdict(int)
+    for bufs in kept.values():
+        for key, fields in bufs.items():
+            kept_bytes[layout.blocks[key][2]] += sum(t.numel() * t.element_size() for t in fields.values())
     kept["chain_calls"] = CHAIN_CALLS
 
     card = card_line() if on_card else "cpu: the port's plain versions, host clock"
@@ -116,10 +172,10 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
         builds = False
 
     t_inputs = time.perf_counter()
-    grid = app.to_grid(app.make_inputs(H, W, seed, dev))
+    grid = to_grid({key: inputs(key) for key in layout.blocks})
     update = app.make_update(config, traffic)
     if wrap is not None:
-        update = wrap(update, app)
+        update = wrap(update, app if layout.whole else types.SimpleNamespace(to_grid=to_grid, from_grid=from_grid))
     t_warm = time.perf_counter()
     for _ in range(WARMUP_CALLS):
         update(grid)
@@ -131,15 +187,18 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
     initial = grid if calls_per_run else None
 
     def keep(name, g):
-        for field, t in app.from_grid(g).items():
-            kept[name][field].copy_(t)
+        for key, fields in from_grid(g).items():
+            for field, t in fields.items():
+                kept[name][key][field].copy_(t)
         if on_card:
-            torch.cuda.synchronize(dev)
+            for d in cards:
+                torch.cuda.synchronize(d)
 
     rng = random.Random(seed)
     events = []
     starts, ends = [], []
     prof = trace = segment_start = None
+    streams = [torch.cuda.current_stream(d) for d in cards] if on_card else []
     segments = 0
 
     def start_profiler():
@@ -164,8 +223,9 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
             counters_before = tracing.launch_counters()
             segment_start = time.perf_counter()
         if on_card:
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
+            pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in streams]
+            for (e0, _), stream in zip(pairs, streams):
+                e0.record(stream)
         s = time.perf_counter()
         if tracing_call:
             with torch.profiler.record_function(tracing.CALL_SPAN):
@@ -174,8 +234,9 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
             out = update(grid)
         e = time.perf_counter()
         if on_card:
-            e1.record()
-            events.append((e0, e1))
+            for (_, e1), stream in zip(pairs, streams):
+                e1.record(stream)
+            events.append(pairs)
         starts.append(s)
         ends.append(e)
         if take:
@@ -187,7 +248,7 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
         done = e - t_window >= seconds and i >= CHAIN_CALLS
         if tracing_call and (done or e - segment_start >= TRACE_SECONDS):
             prof.stop()
-            segment = tracing.reduce(prof, counters_before, tracing.launch_counters())
+            segment = tracing.reduce(prof, counters_before, tracing.launch_counters(), [d.index for d in cards])
             prof = segment_start = None
             segments += 1
             if segment["complete"]:
@@ -202,28 +263,31 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
     if prof is not None:  # the window closed before a call was traced
         prof.stop()
     if on_card:
-        torch.cuda.synchronize(dev)
-        call_ms = [a.elapsed_time(b) for a, b in events]
-        peak = torch.cuda.max_memory_allocated(dev)
+        for d in cards:
+            torch.cuda.synchronize(d)
+        call_ms = [max(a.elapsed_time(b) for a, b in pairs) for pairs in events]
+        peaks = [torch.cuda.max_memory_allocated(d) for d in cards]
     else:
         call_ms = [(e - s) * 1e3 for s, e in zip(starts, ends)]
-        peak = 0
+        peaks = []
     setup_s = t_window - T_START
+    if len(peaks) > 1:
+        log("peak / kept bytes by card:", json.dumps({str(d): [p, kept_bytes[d]] for d, p in zip(cards, peaks)}))
     if traced and trace is None:
         raise RuntimeError(f"no complete trace: {segments} traced segment(s), the profiler missed launches "
                            "in each, or the window closed before a call was traced")
-    del grid, out, initial, update, events, prof
+    del grid, out, initial, update, events, streams, prof
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
 
     kind = torch.cuda.get_device_name(dev) if on_card else "cpu"
     peak_entry = peak_for(spec.peaks(), kind)
-    bound = bound_s(config, traffic, peak_entry) if peak_entry else (None, None)
+    bound = bound_s(config, traffic, peak_entry, cell["chips"]) if peak_entry else (None, None)
     record = {
-        "config": config, "traffic": traffic, "cells_per_call": H * W * n,
+        "config": config, "traffic": traffic, "chips": cell["chips"], "cells_per_call": H * W * n,
         "calls": len(starts), "window_s": ends[-1] - starts[0], "call_ms": call_ms,
-        "setup_s": setup_s, "peak_bytes": peak, "kept_bytes": kept_bytes,
+        "setup_s": setup_s, "peak_bytes": peaks, "kept_bytes": [kept_bytes[d] for d in cards] if peaks else [],
         "bound_s": bound[0], "bound_by": bound[1], "trace": trace,
     }
     metrics = {}
@@ -238,13 +302,13 @@ def run_cell(spec: Spec, cell_name: str, seed: int, seconds: float, traced: bool
             json.dumps({k: [v, trace["launches_seen"][k]] for k, v in trace["launches"].items() if v}))
 
     t_check = time.perf_counter()
-    numbers = run_checks(reference, app, config, traffic, seed, kept, dev)
+    numbers = run_checks(reference, config, traffic, kept, layout, inputs)
     del kept
     log(f"the reference check took {time.perf_counter() - t_check:.2f} s")
     checks = {k: {"value": _json_number(v), "limit": limits[k]} for k, v in numbers.items()}
     failed = [k for k, v in numbers.items() if not v <= limits[k]]
     device_info = {"platform": "gpu" if on_card else "cpu", "kind": kind, "count": cell["chips"],
-                   "memory_peak_bytes": peak}
+                   "memory_peak_bytes": max(peaks, default=0)}
     result = {"correct": not failed, "attempted": len(starts), "failed": len(failed),
               "metrics": metrics, "device": device_info}
     if trace is not None:

@@ -47,11 +47,16 @@ import statistics
 import sys
 from collections import defaultdict
 
-import torch
+if __name__ == "__main__":  # before torch is imported: the run sees its cell's cards alone
+    from .pin import pin
 
-from . import run
-from . import trace as bench_trace
-from .spec import Spec
+    pin(sys.argv[1:])
+
+import torch  # noqa: E402
+
+from . import run  # noqa: E402
+from . import trace as bench_trace  # noqa: E402
+from .spec import Spec  # noqa: E402
 
 __all__ = ["READERS", "idle_by_span", "main", "profile_segment", "reduce", "run_with_spans"]
 
@@ -217,8 +222,8 @@ def run_with_spans(spec: Spec, cell: str, seed: int, seconds: float, *, device: 
     segments = []
     reduce_segment = bench_trace.reduce
 
-    def reduce_and_keep(prof, before, after):
-        out = reduce_segment(prof, before, after)
+    def reduce_and_keep(prof, before, after, cards=None):
+        out = reduce_segment(prof, before, after, cards)
         segments.append((profile_segment(prof), out["complete"]))
         return out
 

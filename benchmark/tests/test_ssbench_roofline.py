@@ -64,7 +64,7 @@ def _profile(device_events, spans=((0.0, 100.0),)):
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
 
     def event(kind, s, e, name):
-        return SimpleNamespace(device_type=kind, name=name, time_range=SimpleNamespace(start=s, end=e))
+        return SimpleNamespace(device_type=kind, name=name, device_index=0, time_range=SimpleNamespace(start=s, end=e))
 
     events = [event(cpu, s, e, tracing.CALL_SPAN) for s, e in spans]
     events += [event(cuda, s, e, name) for s, e, name in device_events]

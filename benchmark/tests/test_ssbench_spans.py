@@ -76,7 +76,7 @@ def test_no_complete_segment_reads_no_idle():
 def _event(name, start_us, end_us, device):
     kind = torch.autograd.DeviceType.CUDA if device else torch.autograd.DeviceType.CPU
     return SimpleNamespace(name=name, device_type=kind, time_range=SimpleNamespace(start=start_us, end=end_us),
-                           is_user_annotation=False)
+                           is_user_annotation=False, device_index=0)
 
 
 def test_a_segment_is_read_as_the_trace_reads_it():

@@ -14,6 +14,7 @@ package imports ``torch`` and numpy, never JAX.
 
 from .core import (
     BaseTransitionFunction,
+    BlockGrid,
     Grid,
     Params,
     Stencil,
@@ -33,6 +34,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "BaseTransitionFunction",
+    "BlockGrid",
     "Grid",
     "InlineTDV",
     "Params",

@@ -79,8 +79,8 @@ def check_no_grad(grid: Grid, tf: Any, backend: str) -> None:
     asked for, and nothing is checked."""
     if not torch.is_grad_enabled():
         return
-    names = cell_field_names(grid.arrays) or ("",)
-    fields = [n for n, t in zip(names, cell_leaves(grid.arrays)) if _grad_tensors(t)]
+    names = cell_field_names(grid.cells()[0]) or ("",)
+    fields = [n for j, n in enumerate(names) if any(_grad_tensors(cell_leaves(c)[j]) for c in grid.cells())]
     what = [f"field {n!r}" if n else "the grid" for n in fields]
     if _grad_tensors(tf):
         what.append(f"a parameter of {type(tf).__name__}")

@@ -6,7 +6,7 @@ from .cell import (
     cell_type,
     cell_zeros,
 )
-from .grid import Grid
+from .grid import BlockGrid, Grid
 from .params import Params
 from .stencil import Stencil
 from .transition import (
@@ -18,6 +18,7 @@ from .transition import (
 
 __all__ = [
     "BaseTransitionFunction",
+    "BlockGrid",
     "Grid",
     "Params",
     "Stencil",

@@ -27,6 +27,7 @@ __all__ = [
     "Mesh",
     "make_mesh",
     "mesh_factor",
+    "exchange_frames",
     "exchange_halo",
     "exchange_halo_rows",
 ]
@@ -109,33 +110,56 @@ def _framed(block: Any, halo_r: int, halo_c: int) -> Any:
     return cell_map(frame, block)
 
 
-def _fill_axis(ext: Sequence[Any], src: Sequence[Any], axis: int, halo: int) -> None:
+def _fill_axis(line: Sequence[Any], axis: int, halo: int, across: int) -> tuple[int, int]:
     """One phase of the exchange along one line of mesh positions: write
-    into the two ``halo``-wide frame strips of each framed block ``ext[i]``
-    along ``axis`` its neighbours' boundary strips of ``src`` (the cores for
-    rows, the row-extended blocks for columns), copied to its device, and
-    zeros at the line's ends. Row strips span the core's columns, column
-    strips every row, so that the column phase carries the corners."""
+    into the two ``halo``-wide frame strips of each framed block ``line[i]``
+    along ``axis`` the boundary strips of its neighbours' cores, read from
+    their framed blocks (each with ``across`` frame cells on either side of
+    the other axis), copied to its device, and zeros at the line's ends. Row
+    strips span the core's columns, column strips every row, so that the
+    column phase carries the corners. Returns the strips copied from a
+    neighbour and their bytes."""
+    strips = nbytes = 0
     if not halo:
-        return
-    for i, e in enumerate(ext):
-        for dst, *srcs in zip(cell_leaves(e), *(cell_leaves(b) for b in src)):
-            h, w = dst.shape
-            if axis == 0:
-                c0 = (w - srcs[0].shape[1]) // 2  # the core's first column
-                lo, hi = dst[:halo, c0 : w - c0], dst[h - halo :, c0 : w - c0]
-            else:
-                lo, hi = dst[:, :halo], dst[:, w - halo :]
-            for strip, j, take_last in ((lo, i - 1, True), (hi, i + 1, False)):
-                if not 0 <= j < len(ext):
+        return strips, nbytes
+    for i, e in enumerate(line):
+        for j, dst in enumerate(cell_leaves(e)):
+            n = dst.shape[axis]
+            for side, k in ((slice(0, halo), i - 1), (slice(n - halo, n), i + 1)):
+                strip = dst[side, across : dst.shape[1] - across] if axis == 0 else dst[:, side]
+                if not 0 <= k < len(line):
                     strip.zero_()
                     continue
-                a = srcs[j]
-                n = a.shape[axis]
-                if axis == 0:
-                    strip.copy_(a[n - halo :] if take_last else a[:halo])
-                else:  # the neighbour's core columns, beside its own frame
-                    strip.copy_(a[:, n - 2 * halo : n - halo] if take_last else a[:, halo : 2 * halo])
+                src = cell_leaves(line[k])[j]
+                m = src.shape[axis]
+                # the neighbour's core strip beside its own frame
+                cut = slice(m - 2 * halo, m - halo) if k < i else slice(halo, 2 * halo)
+                strip.copy_(src[cut, across : src.shape[1] - across] if axis == 0 else src[:, cut])
+                strips += 1
+                nbytes += strip.numel() * strip.element_size()
+    return strips, nbytes
+
+
+def exchange_frames(framed: Sequence[Sequence[Any]], halo: tuple[int, int]) -> tuple[int, int]:
+    """Fill the frames of framed blocks in place from their mesh neighbours.
+
+    ``framed[iy][ix]`` is the cell at mesh position ``(iy, ix)``, each field
+    a buffer of its core with ``halo = (rows, cols)`` frame cells on every
+    side, on that position's device. Each frame strip takes the neighbour's
+    boundary strip of the same width from the neighbour's core; rows move
+    first and columns after, the columns taken over every row of the
+    row-filled blocks, so corners arrive from the diagonal neighbours.
+    Mesh-edge frames receive zeros (callers mask them against the grid's
+    bounds). Only the strips move, each one copy to the receiving
+    position's device: a peer copy between two cards, which PyTorch orders
+    after the work queued on both cards' current streams by CUDA events and
+    before any work queued there later, so no host synchronize is needed.
+    Returns the strips copied from a neighbour and their bytes."""
+    ny, nx = len(framed), len(framed[0])
+    halo_r, halo_c = halo
+    rows = [_fill_axis([framed[iy][ix] for iy in range(ny)], 0, halo_r, halo_c) for ix in range(nx)]
+    cols = [_fill_axis(framed[iy], 1, halo_c, 0) for iy in range(ny)]
+    return sum(s for s, _ in rows + cols), sum(b for _, b in rows + cols)
 
 
 def exchange_halo_rows(blocks: Sequence[Any], halo: int) -> list[Any]:
@@ -144,7 +168,7 @@ def exchange_halo_rows(blocks: Sequence[Any], halo: int) -> list[Any]:
     rows; ranks at the axis's ends receive zeros there. The row phase of
     :func:`exchange_halo`."""
     ext = [_framed(b, halo, 0) for b in blocks]
-    _fill_axis(ext, blocks, 0, halo)
+    _fill_axis(ext, 0, halo, 0)
     return ext
 
 
@@ -155,19 +179,12 @@ def exchange_halo(blocks: Sequence[Sequence[Any]], halo: int | tuple[int, int], 
     ``blocks[iy][ix]`` is the cell of ``(h, w)`` fields at mesh position
     ``(iy, ix)``, on that position's device; the result holds
     ``(h + 2*halo_rows, w + 2*halo_cols)`` fields there, ``halo`` one int for
-    both axes or a ``(rows, cols)`` pair. Rows move first and columns after,
-    the columns taken from the row-extended blocks, so corners arrive from
-    the diagonal neighbours. Mesh-edge positions receive zeros (callers
-    mask them against the grid's bounds). Each extended field is one new
-    buffer: the core copied in once, each frame strip written once (the JAX
-    package's lane packing has no counterpart: a copy of a strided slice
-    moves only its bytes).
+    both axes or a ``(rows, cols)`` pair. Each extended field is one new
+    buffer, the core copied in once and each frame strip written once by
+    :func:`exchange_frames` (the JAX package's lane packing has no
+    counterpart: a copy of a strided slice moves only its bytes).
     """
-    ny, nx = mesh.shape
-    halo_r, halo_c = halo if isinstance(halo, tuple) else (halo, halo)
-    ext = [[_framed(b, halo_r, halo_c) for b in row] for row in blocks]
-    for ix in range(nx):
-        _fill_axis([ext[iy][ix] for iy in range(ny)], [blocks[iy][ix] for iy in range(ny)], 0, halo_r)
-    for iy in range(ny):
-        _fill_axis(ext[iy], ext[iy], 1, halo_c)
+    halo = halo if isinstance(halo, tuple) else (halo, halo)
+    ext = [[_framed(b, *halo) for b in row] for row in blocks]
+    exchange_frames(ext, halo)
     return ext

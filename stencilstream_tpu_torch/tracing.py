@@ -17,11 +17,22 @@ call's id:
                             ``pick_linecache_config`` and its binding of the
                             call's cell to the functor, ``cuda_lib.Binding``;
                             ``monotile``'s ``require_plan``, or the plan
-                            ``auto`` made); attribute ``geometry``
+                            ``auto`` made; ``distributed``'s framed buffers
+                            and its binding a block); attribute ``geometry``
 ``backends.tdv``            the call's time-dependent value stream
                             (``StencilUpdateBase._tdv_stream``); attributes
                             ``strategy``, ``offset`` (the call's
                             ``iteration_offset``), ``n`` (its iterations)
+``backends.shard``          ``distributed`` given a whole grid: the grid
+                            padded and cut into blocks, each moved to its
+                            mesh position's device
+``backends.exchange``       ``distributed``, one a pass: the frame strips
+                            copied between the blocks' buffers
+                            (``parallel.exchange_frames``); attributes
+                            ``pass_index``, ``strips`` (copies from a
+                            neighbour), ``bytes`` (theirs)
+``backends.gather``         ``distributed`` given a whole grid: the blocks
+                            joined on the grid's device
 ``kernels.launch``          one pass of a kernel, entry to return
                             (``bound_tile_pass``, ``bound_line_cache_pass``:
                             the geometry, the launch from the call's binding

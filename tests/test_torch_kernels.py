@@ -1680,6 +1680,36 @@ def test_multi_device_tdv_functors_on_one_card(cuda, backend, kw):
             probe.check_probe_grid(got, 10)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 2)], ids=["4x1", "2x2"])
+def test_resident_blocks_equal_tiling(cuda, mesh_shape):
+    """Jacobi5 and HotSpot 520x300 as a BlockGrid on four cards where there
+    are four, else on four positions of the one card: three chained calls of
+    n = 21 at p = 8 equal one `tiling` call of 63 bit for bit, each call
+    leaves its input alone and launches one tile pass a block a pass, and
+    the blocks stay on their devices."""
+    from stencilstream_tpu_torch import BlockGrid
+    from stencilstream_tpu_torch.backends import distributed
+    from stencilstream_tpu_torch.parallel import make_mesh
+
+    devices = [torch.device("cuda", k) for k in range(4)] if torch.cuda.device_count() >= 4 else [cuda] * 4
+    mesh = make_mesh(shape=mesh_shape, devices=devices)
+    for op in ("jacobi5_general", "hotspot"):
+        cell, tf, halo, _ = _case(op, (520, 300), 31, cuda)
+        update = create_update(Params(tf, halo_value=halo, n_iterations=21, blocking=True), backend="distributed",
+                               mesh=mesh, iters_per_pass=8)
+        grid = BlockGrid.shard(Grid(cell), mesh.devices)
+        first = [t.clone() for b in grid.cells() for t in cell_leaves(b)]
+        before, exchanged = tp.launches, distributed.exchanges
+        out = update(grid)
+        assert tp.launches - before == 3 * 4 and distributed.exchanges - exchanged == 3
+        assert all(torch.equal(a, b) for a, b in zip(first, [t for b in grid.cells() for t in cell_leaves(b)]))
+        assert list(out.devices.flat) == list(mesh.devices.flat)
+        out = update(update(out))
+        want = create_update(Params(tf, halo_value=halo, n_iterations=63), backend="tiling")(Grid(cell))
+        assert _max_err(out.gather(cuda).arrays, want.arrays) == 0, op
+
+
 # -- the experiments/ microbenchmark kernels ----------------------------------
 # csrc/micro_strip.cu (experiments/strip.py) and csrc/micro_linecache.cu
 # (experiments/linecache.py): every variant equals its plain version exactly

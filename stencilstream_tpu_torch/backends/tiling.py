@@ -75,11 +75,11 @@ TILE_LAW = {
 #: The law of cells the tile pass updates in place (one shared plane per
 #: variant field: :func:`.cuda_lib.tile_writes`), by the same bytes
 #: (:func:`.cuda_lib.tile_cell_smem_bytes`), apart from :data:`TILE_LAW`, so
-#: that no other cell's geometry moves. Since FDTD's functors declare their
-#: reach (:data:`REACH_LAW`) only ``distributed`` and ``ring`` take its
-#: entries for FDTD's cells (16, 32 B), with their stored halo r*p*k;
-#: convection's straight pseudo-transient cells (44, 88 B) take theirs in
-#: ``tiling`` too. FDTD at 2048^2 (``tile_sweep.py --ops
+#: that no other cell's geometry moves. Since FDTD's functors and
+#: convection's straight pseudo-transient ones declare their reach
+#: (:data:`REACH_LAW`) only ``distributed`` and ``ring`` take its entries,
+#: for FDTD's cells (16, 32 B) and convection's (44, 88 B), with their
+#: stored halo r*p*k. FDTD at 2048^2 (``tile_sweep.py --ops
 #: fdtd,fdtd_lut,fdtd_render --passes 4,5,6 --size 2048``; PERF.md),
 #: profiler device time a pass of p=4 with the halo r*p*k = 8: the coef
 #: cell, 32 B, 32x128 (209.3 us; 16x192 220.9, 32x96 239.4, 16x128 282.3,
@@ -112,7 +112,8 @@ IN_PLACE_LAW = {
 #: The law of in-place cells whose functor declares its sub-steps' reach
 #: (:func:`.cuda_lib.tile_reach`), by the same bytes; its halo is the reach
 #: summed over a pass (:func:`.tile_pass.pass_halo`: p for FDTD, whose
-#: sub-steps read one-sided), so an entry's halo 8 is p=8. The ``tiling``
+#: sub-steps read one-sided, 2p for convection's pseudo-transient ones), so
+#: an entry's halo 8 is p=8 for FDTD and p=4 for convection. The ``tiling``
 #: backend's alone: ``distributed`` and ``ring`` keep :data:`IN_PLACE_LAW`.
 #: FDTD at 2048^2 (``tile_sweep.py --ops fdtd,fdtd_lut,fdtd_render --size
 #: 2048 --passes 4,5,6,7,8``, 35 tiles, then the best again at p=4 and 8;
@@ -124,10 +125,26 @@ IN_PLACE_LAW = {
 #: p=4, two CTAs (67.54, 66.86 us; 24x112 67.6-68.2; 32x192 at p=8 read
 #: 63.06 once and 81.57 again), the render cell, 16 B, 56x80 at p=8, two
 #: CTAs (65.49, 63.37 us; 40x112 65.1-65.8). p stays 4 or more.
+#: Convection at 3072x1024 (``tile_sweep.py --ops convection_pt_lean_f64
+#: --passes 2,3,4``, then ``convection_pt_f64 --passes 1``; the same for
+#: float32; on 20 cores of ``CONVECTION_TILES`` of one and two CTAs an SM
+#: near the largest windows, 15 in float32; PERF.md),
+#: ranked by profiler device time of a 49-iteration lean update (upstream's
+#: nerr = 50 block; its last pass partial): the float64 cell, 88 B, 28x52 at
+#: p=3, one CTA an SM, 8.641 ms (29x52 at p=3 8.624; 32x56 at p=2 8.942,
+#: 24x52 p=3 9.004, 24x72 p=2 9.127, 25x48 p=4 9.263, 12x56 p=2 two CTAs
+#: 9.520; 28x52 p=2 10.057; the in-place law's 28x52, p=2, halo 6, 10.157 in
+#: the same call), its full update at p=1 there 0.3137 ms (0.3869 at the
+#: in-place law's halo 3; the best, 12x56 two CTAs, 0.2798). The float32
+#: cell, 44 B, 38x80 at p=4, 4.808 ms (28x80 p=4 5.151, 32x86 p=3 5.197,
+#: 24x108 p=4 5.207, 46x88 p=2 5.375; the in-place law's 32x86, p=2, halo 6,
+#: 6.132), its full update 0.2242 ms (the best, 40x92, 0.2005).
 REACH_LAW = {
     16: ((56, 80), 8, 2),
     20: ((32, 88), 4, 2),
     32: ((40, 112), 8, 1),
+    44: ((38, 80), 8, 1),
+    88: ((28, 52), 6, 1),
 }
 
 

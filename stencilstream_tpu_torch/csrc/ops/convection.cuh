@@ -39,9 +39,11 @@
 // through the sub-step, so a lane reads the same value whether or not the
 // lane that owns that cell has stored it. Smaller active regions would race:
 // the transition function refuses them (models/convection.py:
-// PseudoTransientKernel.cuda_params). The thermal functor reads T at its
-// neighbours in the sub-step that changes T, and the folded functors run on
-// no cell: both keep the ping-pong map.
+// PseudoTransientKernel.cuda_params). Sub-step 2's reach (kReach below)
+// stays 1 on both sides although only those boundary rows and columns take
+// its taps, since the taps lie next to the cell. The thermal functor reads
+// T at its neighbours in the sub-step that changes T, and the folded
+// functors run on no cell: both keep the ping-pong map.
 #pragma once
 
 #include "../common.cuh"
@@ -83,6 +85,14 @@ struct ConvectionPtOp {
       1u << kVx | 1u << kVy | 1u << kDVx | 1u << kDVy,
       1u << kVx | 1u << kVy | kErr,
   };
+  // Each sub-step's reach, {lo, hi}: sub-step 0 reads only above and right
+  // of the cell (Vx at (+1, 0) and (+1, +1), Vy at (0, +1) and (+1, +1));
+  // sub-step 1 only below and left (tau_xx at (-1, 0), sigma_xy at (-1, 0),
+  // (-1, -1) and (0, -1), Pt at (-1, 0) and (0, -1), tau_yy and T at
+  // (0, -1)); sub-step 2 both sides (the boundary velocities). An iteration
+  // widens the dependency cone by 2 a side, so the tile pass stages a halo
+  // of 2p, not r*p*k = 3p (tile_pass.cu: pass_halo).
+  static constexpr Reach kReach[kSubiterations] = {{0, 1}, {1, 0}, {1, 1}};
 
   int nx, ny;
   T inv_dx, inv_dy, third, dtau_beta, dedT, eta0, half_deltaT, inv_rho, dtau, dampX, dampY, g;

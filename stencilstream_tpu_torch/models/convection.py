@@ -216,6 +216,13 @@ class PseudoTransientKernel:
         err = ("ErrV", "ErrP") if self.with_err else ()
         return (("Pt", "tau_xx", "tau_yy", "sigma_xy", *err), ("Vx", "Vy", "dVxd_tau", "dVyd_tau"), ("Vx", "Vy", *err))
 
+    #: The rows and columns each sub-step reads below and above a cell,
+    #: ``(lo, hi)``, as the functor declares them (``kReach``): sub-step 0
+    #: reads the velocities above, sub-step 1 the stresses, Pt and T below,
+    #: sub-step 2 the boundary velocities on both sides; the tile pass's halo
+    #: is then 2p, not r*p*k = 3p (``backends/tile_pass.py``: ``pass_halo``).
+    cuda_reach = ((0, 1), (1, 0), (1, 1))
+
     def get_time_dependent_value(self, i):
         return None
 

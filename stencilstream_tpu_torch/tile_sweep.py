@@ -25,6 +25,11 @@ Five parts, each printing one JSON line per measurement:
   Compare ``ms_per_iteration``; ``device_ms`` is the kernel's own device
   time (``torch.profiler``), which a pass shorter than its host call
   (FDTD's) needs, since back-to-back calls then leave the card idle.
+  Convection's straight pseudo-transient functors are ranked instead by
+  ``update_device_ms``: the device time of one update as a convergence
+  block runs it (:data:`CONVECTION_UPDATE`: 49 lean iterations in passes of
+  p, the last one partial, or the full update's one iteration), so a p
+  that leaves a long partial pass pays for it.
 * ``sass``: the kernel library disassembled with ``cuobjdump -sass``: for
   each functor, the loops of the tile-pass kernel that load and store
   shared memory and hold no other such loop (the run loops of the interior
@@ -111,12 +116,23 @@ FDTD_TILES = [(8, 64), (8, 128), (16, 64), (16, 96), (16, 128), (16, 192), (24, 
 #: to 4.8k cells; one cell a thread for ten variant fields. Then tiles near
 #: the largest windows of the cells updated in place (88 B in float64, 44 B
 #: in float32) at p = 1-3, one CTA an SM or two, whose narrowing windows
-#: fill their 32-lane chunks best (``in_place_map_work``).
+#: fill their 32-lane chunks best (``in_place_map_work``); and those of the
+#: halo 2p of their declared reach at p = 2-4 (windows 40-54 rows by 48-80
+#: columns in float64, up to 54 by 96-128 in float32).
 CONVECTION_TILES = [(8, 32), (8, 64), (8, 96), (8, 128), (16, 32), (16, 64), (16, 96), (16, 128), (24, 32),
                     (24, 64), (32, 32), (32, 64), (48, 32),
                     (24, 48), (24, 52), (28, 52), (20, 54), (8, 52), (20, 46), (16, 46), (32, 58), (24, 60),
                     (20, 90), (12, 58), (8, 60), (40, 84), (32, 86), (28, 116), (48, 54), (32, 78), (64, 46),
-                    (40, 92), (56, 60), (48, 90)]
+                    (40, 92), (56, 60), (48, 90),
+                    (29, 52), (32, 56), (24, 72), (44, 40), (12, 56), (18, 40), (20, 68), (42, 36), (14, 36),
+                    (25, 48), (38, 32), (20, 48), (36, 88), (46, 88), (28, 80), (38, 80), (44, 52), (60, 52),
+                    (60, 56), (60, 48), (28, 82), (24, 108)]
+#: Iterations of one update of convection's straight pseudo-transient
+#: functors, by functor: upstream's convergence block of nerr = 50 runs 49
+#: lean iterations, then one full one (``models/convection.py``:
+#: ``Simulation``), each a call of its own.
+CONVECTION_UPDATE = {f"convection_{kind}_{width}": n for kind, n in (("pt_lean", 49), ("pt", 1))
+                     for width in ("f32", "f64")}
 #: The convection functors' grid: the JAX bench's 3072x1024 (res 1024).
 CONVECTION_SHAPE = (3072, 1024)
 #: Iterations per pass of the geometry sweep.
@@ -522,6 +538,15 @@ def run_pass(cell, tf, halo, tile, p, n=None, tdv=None):
                         iters_per_pass=p, tile=tile, tdv=tdv)
 
 
+def run_update(cell, tf, halo, tile, p, n, tdv=None):
+    """One call of ``n`` iterations in passes of p at ``tile``, the last
+    pass partial where p does not divide n, as ``tiling`` runs it."""
+    for i_start in range(0, n, p):
+        cell = tp.tile_pass(cell, tf, halo, i_start=i_start, offset=0, n_iterations=n, iters_per_pass=p,
+                            tile=tile, tdv=tdv)
+    return cell
+
+
 def run_line_cache(cell, tf, halo, strip, panel, segment, p, n=None, tdv=None):
     """One line-cache pass of p iterations; with ``n=0`` no step is active,
     so the kernel only stages and stores. ``tdv``: the call's TDV stream."""
@@ -533,7 +558,9 @@ def run_line_cache(cell, tf, halo, strip, panel, segment, p, n=None, tdv=None):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="tile_sweep", description=__doc__.splitlines()[0])
     parser.add_argument("--out", help="also write the JSON lines to this file")
-    parser.add_argument("--passes", default=",".join(map(str, PASSES)), help="p values of the geometry sweep")
+    parser.add_argument("--passes", default=",".join(map(str, PASSES)),
+                        help="p values of the geometry sweep (convection's straight pseudo-transient functors: rank "
+                             "by update_device_ms, a 49-iteration lean update or the full update's one iteration)")
     parser.add_argument("--parts", default="grid,sass",
                         help="comma-separated: grid, sass, linecache, linecache-sass, monotile")
     parser.add_argument("--ops", default="hotspot,jacobi5,conway,probe",
@@ -603,7 +630,8 @@ def main(argv=None) -> int:
 
     def plain(op, p):
         if (op, p) not in plain_cache:
-            plain_cache.clear()
+            for key in [k for k in plain_cache if k[0] != op]:
+                del plain_cache[key]
             cell, tf, halo = work[op]
             plain_cache[(op, p)] = tp.tile_pass_plain(cell, tf, halo, i_start=0, offset=0,
                                                       n_iterations=p, iters_per_pass=p)
@@ -621,6 +649,8 @@ def main(argv=None) -> int:
             for p in map(int, args.passes.split(",")):
                 stream = tdv_stream(tf, 0, p, device)
                 tiles = FDTD_TILES if op.startswith("fdtd") else CONVECTION_TILES if op.startswith("convection") else TILES
+                n_update = CONVECTION_UPDATE.get(op, 0)
+                update_stream = tdv_stream(tf, 0, n_update, device) if n_update else None
                 for tile in tiles:
                     hp = tp.pass_halo(tf.stencil_radius, p, tf.n_subiterations, info["reach"])
                     smem = tp.tile_smem_bytes(*tile, hp, cell_bytes)
@@ -637,12 +667,17 @@ def main(argv=None) -> int:
                     elif info["writes"]:
                         lanes = in_place_map_work(tile, hp, tf.stencil_radius, run,
                                                   reach=info["reach"])["lane_cells_per_cell_step"]
+                    update = {}
+                    if p <= n_update:
+                        fn = lambda: run_update(cell, tf, halo, tile, p, n_update, update_stream)  # noqa: E731
+                        update = dict(update_iterations=n_update, update_device_ms=device_ms(fn, 3),
+                                      update_max_abs_err=max_err(fn(), plain(op, n_update)))
                     emit(dict(part="grid", op=op, size=list(cell_leaves(cell)[0].shape), cell_bytes=cell_bytes,
                               tile=list(tile), p=p, halo=hp, ms=ms, device_ms=dev_ms, ms_per_iteration=ms / p,
                               device_ms_per_iteration=dev_ms / p, copy_ms=copy_ms, smem=smem,
                               ctas_per_sm=tp.tile_pass_residency(tf, tile, p, device),
                               lane_cells_per_cell_step=lanes, window_cells_per_cell_step=window,
-                              max_abs_err=e))
+                              max_abs_err=e, **update))
     if "linecache" in parts:
         emit(dict(part="linecache-build", ptxas=kernel_report(cuda_lib.build()[2], "line_cache_kernel")))
         for op in args.ops.split(","):

@@ -449,12 +449,13 @@ IN_PLACE_GEOMETRY = {
 
 
 #: Convection's straight pseudo-transient cells, which the tile pass updates
-#: in place without a declared reach: their in-place law's geometry
-#: (tiling.IN_PLACE_LAW, 88 B in float64, 44 B in float32), the same for the
-#: lean and the full functor; before it, 16x32 (lean) and 8x64 (full) at
-#: p=2 in float64, 24x64 and 8x128 in float32.
+#: in place with the halo of their declared reach (2p): their reach law's
+#: geometry (tiling.REACH_LAW, 88 B in float64, 44 B in float32), the same
+#: for the lean and the full functor; before it, the in-place law's 28x52
+#: and 32x86 at p=2 (halo 3p), and before that 16x32 (lean) and 8x64 (full)
+#: at p=2 in float64, 24x64 and 8x128 in float32, ping-pong.
 CONVECTION_IN_PLACE_GEOMETRY = {
-    (f"convection_{kind}_{width}", (3072, 1024)): {"f64": (28, 52, 2), "f32": (32, 86, 2)}[width]
+    (f"convection_{kind}_{width}", (3072, 1024)): {"f64": (28, 52, 3), "f32": (38, 80, 4)}[width]
     for kind in ("pt", "pt_lean") for width in ("f32", "f64")
 }
 
@@ -499,31 +500,38 @@ def test_in_place_cells_take_their_own_law(op, shape):
 
 @pytest.mark.parametrize("op,shape", list(CONVECTION_IN_PLACE_GEOMETRY), ids=lambda v: str(v))
 def test_convection_in_place_cells_take_the_in_place_law(op, shape):
-    """Convection's straight pseudo-transient cells, in place without a
+    """Convection's straight pseudo-transient cells, in place with a
     declared reach, hold one plane per field (88 B in float64, 44 B in
-    float32) and take the in-place law's entry for those bytes, whose halo
-    6 is p=2 at k=3; a call of one iteration (the full update's) runs the
-    same tile at p=1."""
-    from stencilstream_tpu_torch.backends.tiling import IN_PLACE_LAW, law_entry, pick_config
+    float32) and take the reach law's entry for those bytes (the in-place
+    law of cells with a declared reach), whose halo is 2p at k=3; a call of
+    one iteration (the full update's) runs the same tile at p=1, halo 2."""
+    from stencilstream_tpu_torch.backends.tiling import REACH_LAW, law_entry, pick_config
 
     cell, tf, _, _ = _case(op, (2, 2), 0, "cpu")
     cell_bytes = cuda_lib.tile_cell_smem_bytes(cell, tf)
-    assert cell_bytes == (88 if op.endswith("f64") else 44) and cuda_lib.tile_reach(tf) is None
-    assert law_entry(cell_bytes, in_place=True) == IN_PLACE_LAW[cell_bytes]
-    (th, tw), halo, _ = IN_PLACE_LAW[cell_bytes]
-    assert _tiling_geometry(op, shape) == CONVECTION_IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo // 3)
-    assert pick_config(*shape, 1, 3, 1, cell_bytes, cuda_lib.H100_SXM, in_place=True) == (th, tw, 1)
+    reach = cuda_lib.tile_reach(tf)
+    assert cell_bytes == (88 if op.endswith("f64") else 44) and reach == ((0, 1), (1, 0), (1, 1))
+    assert law_entry(cell_bytes, in_place=True, reach=True) == REACH_LAW[cell_bytes]
+    (th, tw), halo, _ = REACH_LAW[cell_bytes]
+    assert _tiling_geometry(op, shape) == CONVECTION_IN_PLACE_GEOMETRY[op, shape] == (th, tw, halo // 2)
+    assert tp.pass_halo(1, halo // 2, 3, reach) == halo
+    assert pick_config(*shape, 1, 3, 1, cell_bytes, cuda_lib.H100_SXM, in_place=True, reach=reach) == (th, tw, 1)
 
 
 def test_fdtds_in_place_and_reach_laws_keep_their_entries():
-    """The in-place law's new entries for convection (44 B, 88 B) leave
-    FDTD's cells (16, 20 and 32 B) the entries they had, in both laws."""
-    from stencilstream_tpu_torch.backends.tiling import law_entry
+    """Convection's entries (44 B, 88 B) in the in-place law, which
+    ``distributed`` and ``ring`` keep for its cells, and in the reach law,
+    which ``tiling`` takes, leave FDTD's cells (16, 20 and 32 B) the entries
+    they had, in both laws."""
+    from stencilstream_tpu_torch.backends.tiling import REACH_LAW, law_entry
 
     assert [law_entry(b, in_place=True) for b in (16, 20, 32)] == [((32, 96), 8, 2), ((32, 96), 8, 2),
                                                                      ((32, 128), 8, 1)]
     assert [law_entry(b, in_place=True, reach=True) for b in (16, 20, 32)] == [((56, 80), 8, 2), ((32, 88), 4, 2),
                                                                                  ((40, 112), 8, 1)]
+    assert [law_entry(b, in_place=True) for b in (44, 88)] == [((32, 86), 6, 1), ((28, 52), 6, 1)]
+    assert [law_entry(b, in_place=True, reach=True) for b in (44, 88)] == [REACH_LAW[44], REACH_LAW[88]]
+    assert sorted(REACH_LAW) == [16, 20, 32, 44, 88]
 
 
 #: FDTD's geometry on the multi-device paths, which keep their stored halo
@@ -619,6 +627,55 @@ def test_convection_sub_steps_change_their_writes_and_read_them_at_the_cell(op, 
                     assert sub == 2 and key in allowed and allowed[key][x, y], (sub, key, (x, y))
                     read = (x + key[1], y + key[2])
                     assert getattr(new, f)[read] == getattr(cell, f)[read], (sub, key, (x, y))
+
+
+@pytest.mark.parametrize("shape,active", CONTRACT_REGIONS, ids=lambda v: "x".join(map(str, v)))
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_convection_sub_steps_read_within_their_declared_reach(op, shape, active):
+    """The contract of the reach halo, on the Python twin one sub-step at a
+    time over random fields: every field, T included, is moved at every
+    third row and column in turn, and a cell off that lattice whose outputs
+    move reads the moved cell of its 3x3 neighbourhood, which lies within
+    the sub-step's declared reach (``cuda_reach``: lo rows and columns below
+    the cell, hi above). The reach is no wider than the reads: sub-step 0
+    reads above the cell, sub-step 1 below, sub-step 2 on both sides."""
+    from stencilstream_tpu_torch.backends.reference import single_subiteration
+
+    cell, tf, halo = convection_case(op, shape, np.random.default_rng(48), "cpu", active)
+    rows, cols = np.indices(shape)
+    read = [set() for _ in range(tf.n_subiterations)]
+    for sub in range(tf.n_subiterations):
+        def step(c):
+            return single_subiteration(c, tf, halo, 0, sub, None, radius=1)
+
+        new = step(cell)
+        for a, b in np.ndindex(3, 3):
+            lattice = (rows % 3 == a) & (cols % 3 == b)
+            out = step(dataclasses.replace(cell, **{f: getattr(cell, f) + torch.tensor(lattice)
+                                                    for f in convection.FIELDS}))
+            reads = ~lattice & np.any([(getattr(out, g) != getattr(new, g)).numpy() for g in convection.FIELDS],
+                                      axis=0)
+            dr, dc = (a - rows + 1) % 3 - 1, (b - cols + 1) % 3 - 1
+            read[sub] |= {(int(dr[x, y]), int(dc[x, y])) for x, y in zip(*np.nonzero(reads))}
+    offsets = [{d for pair in sub for d in pair} for sub in read]
+    assert cuda_lib.tile_reach(tf) == tuple((max(0, -min(o)), max(0, max(o))) for o in offsets)
+    assert cuda_lib.tile_reach(tf) == ((0, 1), (1, 0), (1, 1))
+
+
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_convections_reach_twin_is_its_functors_declaration(op):
+    """Convection's straight pseudo-transient sub-steps read one-sided but
+    for sub-step 2: the reach the CPU side sizes the halo from
+    (``cuda_reach``) is the one ``ConvectionPtOp`` declares to the kernel
+    (``csrc/ops/convection.cuh``: ``kReach``), so the pass's halo is 2p,
+    not r*p*k = 3p."""
+    source = (cuda_lib.CSRC / "ops" / "convection.cuh").read_text()
+    declared = re.search(r"Reach kReach\[kSubiterations\] = \{(.*)\};", source)
+    pairs = tuple(tuple(int(v) for v in pair) for pair in re.findall(r"\{(\d+), (\d+)\}", declared.group(1)))
+    _, tf, _ = convection_case(op, (8, 8), np.random.default_rng(0), "cpu")
+    reach = cuda_lib.tile_reach(tf)
+    assert reach == pairs == ((0, 1), (1, 0), (1, 1))
+    assert [tp.pass_halo(1, p, 3, reach) for p in (1, 2, 3, 4)] == [2, 4, 6, 8]
 
 
 @pytest.mark.parametrize("active", [(2, 5), (5, 2), (1, 1)], ids=lambda v: "x".join(map(str, v)))
@@ -1065,17 +1122,18 @@ def test_in_place_launches_count_fdtd_only(cuda, op):
     and convection's straight pseudo-transient ones have them, and only
     their launches count in ``inplace_launches``. The reach each sub-step
     declares (``op_info``'s ``reach``, the transition function's
-    ``tile_reach``), and ``reach_launches``, are FDTD's alone."""
+    ``tile_reach``), and ``reach_launches``, are theirs alone too."""
     cell, tf, halo, _ = _case(op, (45, 70), 3, cuda)
     info = cuda_lib.op_info(cuda_lib.require_device_op(tf))
     in_place = op in IN_PLACE_OPS + IN_PLACE_CONVECTION_OPS
     assert info["writes"] == cuda_lib.tile_writes(tf)
     assert (info["writes"] is not None) == in_place
-    assert info["reach"] == cuda_lib.tile_reach(tf) == (((1, 0), (0, 1)) if op in IN_PLACE_OPS else None)
+    reach = ((1, 0), (0, 1)) if op in IN_PLACE_OPS else ((0, 1), (1, 0), (1, 1)) if in_place else None
+    assert info["reach"] == cuda_lib.tile_reach(tf) == reach
     tile, p = _fitted((16, 32), 1, cell, tf, cuda_lib.device_limits(cuda))
     before = (tp.inplace_launches, tp.reach_launches)
     tp.tile_pass(cell, tf, halo, tile=tile, i_start=0, offset=0, n_iterations=1, iters_per_pass=p)
-    assert (tp.inplace_launches - before[0], tp.reach_launches - before[1]) == (in_place, op in IN_PLACE_OPS)
+    assert (tp.inplace_launches - before[0], tp.reach_launches - before[1]) == (in_place, in_place)
 
 
 @pytest.mark.gpu
@@ -1094,16 +1152,21 @@ def test_every_launch_of_an_fdtd_tiling_call_is_in_place(cuda):
 
 
 #: (shape, active region (nx, ny), tile, p, n) of convection's in-place
-#: sub-steps, one pass of p from iteration 2 (n < p: a partial pass): at
-#: 384x128 (res 128) tiles of the in-place law's shapes and p = 1-3, whose
-#: last rows and columns hold the boundaries nx - 1, nx and ny - 1, ny;
-#: tiles whose edges fall on those boundaries (rows 31 | 32 and columns 63 |
-#: 64 at 16x32 cores, both sides); every tile an edge tile; the smallest
-#: active region, 3x3, inside a larger grid.
+#: sub-steps, one pass of p from iteration 2 (n < p: a partial pass), each
+#: with the halo of the declared reach, 2p: at 384x128 (res 128) tiles of
+#: the in-place and reach laws' shapes and p = 1-4, interior tiles among
+#: them, whose last rows and columns hold the boundaries nx - 1, nx and
+#: ny - 1, ny; tiles whose edges fall on those boundaries (rows 31 | 32 and
+#: columns 63 | 64 at 16x32 cores, both sides), and boundary rows and
+#: columns nx - 1 = 16 and ny - 1 = 32 that open a core (sub-step 2 reads
+#: below and left of them); every tile an edge tile; the smallest active
+#: region, 3x3, inside a larger grid.
 IN_PLACE_CONVECTION_CASES = [
     ((384, 128), None, (24, 52), 2, 2), ((384, 128), None, (28, 52), 1, 1), ((384, 128), None, (16, 46), 3, 3),
-    ((384, 128), None, (16, 46), 3, 2),
+    ((384, 128), None, (16, 46), 3, 2), ((384, 128), None, (28, 52), 3, 3), ((384, 128), None, (28, 52), 3, 1),
+    ((384, 128), None, (24, 48), 4, 4),
     ((33, 65), (32, 64), (16, 32), 2, 2), ((40, 72), (32, 64), (16, 32), 3, 3), ((40, 72), (33, 65), (16, 32), 1, 1),
+    ((40, 72), (17, 33), (16, 32), 3, 3), ((40, 72), (17, 33), (8, 32), 2, 1),
     ((45, 70), (44, 69), (8, 32), 2, 2), ((9, 11), (3, 3), (16, 32), 3, 3), ((9, 11), (3, 3), (8, 32), 1, 1),
 ]
 
@@ -1115,13 +1178,14 @@ IN_PLACE_CONVECTION_CASES = [
 def test_in_place_convection_equals_resident_grid_and_plain_bit_for_bit(cuda, op, case):
     """Convection's straight pseudo-transient functors through the in-place
     sub-steps equal the plain version and the resident-grid kernel, which
-    keeps the ping-pong map, exactly; the launch counts as an in-place one."""
+    keeps the ping-pong map, exactly; the launch counts as an in-place one
+    and as one of a declared reach."""
     shape, active, tile, p, n = case
     cell, tf, halo = convection_case(op, shape, np.random.default_rng(43), cuda, active)
     kw = dict(i_start=2, offset=2, n_iterations=n, iters_per_pass=p)
-    before = (tp.launches, tp.inplace_launches)
+    before = (tp.launches, tp.inplace_launches, tp.reach_launches)
     got = tp.tile_pass(cell, tf, halo, tile=tile, **kw)
-    assert (tp.launches, tp.inplace_launches) == (before[0] + 1, before[1] + 1)
+    assert (tp.launches, tp.inplace_launches, tp.reach_launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     want = tp.tile_pass_plain(cell, tf, halo, **kw)
     resident = mt.monotile(cell, tf, halo, offset=2, n_iterations=n)
     torch.cuda.synchronize()
@@ -1147,6 +1211,25 @@ def test_in_place_convection_on_a_2x1_mesh(cuda, op):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("backend,mesh_shape", [("distributed", (2, 1)), ("ring", (2,))], ids=["distributed-2x1", "ring2"])
+@pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
+def test_multi_device_convection_equals_tiling_bit_for_bit(cuda, op, backend, mesh_shape):
+    """``distributed`` on a (2, 1) mesh and ``ring`` over two positions of
+    the one card, 200x96, n = 7 from 3 at p = 3 (a partial last pass): they
+    store the halo r*p*k = 9 and take the in-place law's tile, the kernel
+    reads its reach halo 2p out of the stored one, and the result equals
+    ``tiling``'s, at the reach law's tile and halo, bit for bit."""
+    cell, tf, halo = convection_case(op, (200, 96), np.random.default_rng(47), cuda)
+    params = Params(tf, halo_value=halo, iteration_offset=3, n_iterations=7)
+    before = tp.reach_launches
+    got = create_update(params, backend=backend, mesh=_mesh(mesh_shape, cuda), iters_per_pass=3)(Grid(cell))
+    want = create_update(params, backend="tiling")(Grid(cell))
+    torch.cuda.synchronize()
+    assert tp.reach_launches > before
+    assert _max_err(got.arrays, want.arrays) == 0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("active", [(2, 5), (5, 2)], ids=lambda v: "x".join(map(str, v)))
 @pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
 def test_in_place_convection_refuses_an_active_region_under_3x3(cuda, op, active):
@@ -1160,18 +1243,18 @@ def test_in_place_convection_refuses_an_active_region_under_3x3(cuda, op, active
 @pytest.mark.gpu
 @pytest.mark.parametrize("op", IN_PLACE_CONVECTION_OPS)
 def test_every_launch_of_a_convection_tiling_call_is_in_place(cuda, op):
-    """A tiling call at the in-place law's geometry for 3072x1024 (res 1024),
-    n = 2p + 1 from 7 (the last pass partial): each launch in place, the
-    result exactly ``reference``'s."""
+    """A tiling call at the reach law's geometry for 3072x1024 (res 1024),
+    n = 2p + 1 from 7 (the last pass partial): each launch in place with the
+    halo of the declared reach, the result exactly ``reference``'s."""
     cell, tf, halo = convection_case(op, (3072, 1024), np.random.default_rng(46), cuda)
     th, tw, p = CONVECTION_IN_PLACE_GEOMETRY[op, (3072, 1024)]
     params = Params(tf, halo_value=halo, iteration_offset=7, n_iterations=2 * p + 1, blocking=True)
     update = create_update(params, backend="tiling")
-    before = (tp.launches, tp.inplace_launches)
+    before = (tp.launches, tp.inplace_launches, tp.reach_launches)
     got = update(Grid(cell))
     assert (update.resolved_config["tile_rows"], update.resolved_config["tile_cols"],
             update.resolved_config["iters_per_pass"]) == (th, tw, p)
-    assert (tp.launches - before[0], tp.inplace_launches - before[1]) == (3, 3)
+    assert (tp.launches - before[0], tp.inplace_launches - before[1], tp.reach_launches - before[2]) == (3, 3, 3)
     want = create_update(params, backend="reference")(Grid(cell))
     torch.cuda.synchronize()
     assert _max_err(got.arrays, want.arrays) == 0
@@ -1358,7 +1441,10 @@ def test_convection_functors_on_every_kernel(cuda, op, shape, active):
     8-row runs), panels of 32, segments of 16; the resident grid at q=1 and
     2 on 8-row bands, and the plan's geometry. The float64 folded cells
     (264 and 248 B of shared memory) take the tile pass at 8x32 cores and
-    p=1, and 4-row bands where 8 rows do not fit one block."""
+    p=1, and 4-row bands where 8 rows do not fit one block. The straight
+    pseudo-transient functors, in place with the halo of their reach (2p),
+    also take the tile pass at p=3 on 16x32 cores, every tile an edge tile,
+    the second pass partial."""
     cell, tf, halo = convection_case(op, shape, np.random.default_rng(31), cuda, active)
     limits = cuda_lib.device_limits(cuda)
     tile, p = _fitted((16, 32), 2, cell, tf, limits)
@@ -1373,6 +1459,11 @@ def test_convection_functors_on_every_kernel(cuda, op, shape, active):
         torch.cuda.synchronize()
         assert _max_err(got, want) == 0, ("line_cache", i_start)
         assert (tp.launches, lc.launches) == (before[0] + 1, before[1] + 1)
+    if op in IN_PLACE_CONVECTION_OPS:
+        for i_start in (1, 4):
+            kw = dict(i_start=i_start, offset=1, n_iterations=5, iters_per_pass=3)
+            got = tp.tile_pass(cell, tf, halo, tile=(16, 32), **kw)
+            assert _max_err(got, tp.tile_pass_plain(cell, tf, halo, **kw)) == 0, ("tile_pass p=3", i_start)
     want = mt.monotile_plain(cell, tf, halo, offset=1, n_iterations=3)
     cell_bytes = cuda_lib.cell_smem_bytes(cell, tf)
     bands = [8 if mt.monotile_smem_bytes(8, q, shape[1], 1, cell_bytes) <= limits.smem_per_block else 4
@@ -1389,8 +1480,13 @@ def test_convection_functors_on_every_kernel(cuda, op, shape, active):
 def test_convection_partial_passes_through_tiling(cuda, op):
     """n = nerr - 1 = 49 at p=2 (24 full passes and a partial one; p=1 for
     the float64 folded cells, whose p=2 window fits no tile) through
-    ``tiling`` in both window modes, against the reference backend on the
-    card: exact. 384x128 (res 128), an iteration offset of 7."""
+    ``tiling`` in both window modes, and for the straight pseudo-transient
+    functors at the reach law's geometry too (float64 p=3: 16 full passes
+    and a partial one of one iteration; float32 p=4: 12 and one), against
+    the reference backend on the card: exact. 384x128 (res 128), an
+    iteration offset of 7."""
+    from stencilstream_tpu_torch.backends.tiling import REACH_LAW
+
     cell, tf, halo = convection_case(op, (384, 128), np.random.default_rng(32), cuda)
     grid = Grid(cell)
     p = _fitted((8, 32), 2, cell, tf, cuda_lib.device_limits(cuda))[1]
@@ -1399,11 +1495,15 @@ def test_convection_partial_passes_through_tiling(cuda, op):
         return create_update(Params(tf, halo_value=halo, iteration_offset=7, n_iterations=49), backend=backend, **kw)
 
     want = update("reference")(grid)
-    for kw in ({"iters_per_pass": p}, {"iters_per_pass": p, "window_mode": "linecache"}):
+    kws = [{"iters_per_pass": p}, {"iters_per_pass": p, "window_mode": "linecache"}]
+    for kw in kws + ([{}] if op in IN_PLACE_CONVECTION_OPS else []):
         before = (tp.launches, lc.launches)
-        got = update("tiling", **kw)(grid)
+        tiling = update("tiling", **kw)
+        got = tiling(grid)
+        ipp = tiling.resolved_config["iters_per_pass"]
         launched = (tp.launches - before[0], lc.launches - before[1])
-        assert launched == ((0, -(-49 // p)) if "window_mode" in kw else (-(-49 // p), 0))
+        assert launched == ((0, -(-49 // ipp)) if "window_mode" in kw else (-(-49 // ipp), 0))
+        assert ipp == (kw.get("iters_per_pass") or REACH_LAW[cuda_lib.tile_cell_smem_bytes(cell, tf)][1] // 2)
         assert _max_err(got.arrays, want.arrays) == 0, kw
 
 
@@ -1417,6 +1517,11 @@ def test_convection_refuses_a_grid_of_another_dtype(cuda):
         mt.monotile(wide, tf, halo, offset=0, n_iterations=1)
 
 
+#: Tile-pass launches of a straight convection path at one block and one
+#: thermal step, by dtype: the lean update's 49 iterations at the reach
+#: law's p (4 in float32, 3 in float64; the last pass partial), one full
+#: pass, one thermal pass.
+STRAIGHT_TILE_PASS_LAUNCHES = {np.float32: 13 + 1 + 1, np.float64: 17 + 1 + 1}
 #: The convection paths of chip_smoke.py at one block and one thermal step:
 #: (res, dtype, backend, options, the kernel it must launch).
 CONVECTION_PATHS = [
@@ -1447,6 +1552,8 @@ def test_convection_paths_launch_their_kernel(cuda, res, dtype, backend, kw, exp
     got, info = convection.run(e, backend=backend, dtype=dtype, verbose=False, device=cuda, **kw)
     launched = {k for k, m in counters.items() if m.launches != before[k]}
     assert launched == {expect}
+    if expect == "tile_pass" and not kw.get("folded"):
+        assert tp.launches - before["tile_pass"] == STRAIGHT_TILE_PASS_LAUNCHES[dtype]
     want, want_info = convection.run(e, backend="reference", dtype=dtype, verbose=False, device=cuda)
     assert info["stats"] == want_info["stats"]
     assert _max_err(convection.physics_cell(got.arrays), want.arrays) == 0

@@ -293,16 +293,19 @@ REACH_GEOMETRY = sorted({*[(entry[0], entry[1]) for entry in REACH_LAW.values()]
     (2, 1, None, [(2, 2), (4, 4), (6, 6)]),
     (1, 2, None, [(1, 1), (2, 2), (3, 3), (4, 4), (5, 5), (6, 6)]),
     (1, 2, ((1, 0), (0, 1)), [(1, 0), (1, 1), (2, 1), (2, 2), (3, 2), (3, 3)]),
+    (1, 3, ((0, 1), (1, 0), (1, 1)), [(0, 1), (1, 1), (2, 2), (2, 3), (3, 3), (4, 4), (4, 5), (5, 5), (6, 6)]),
 ])
 def test_pass_narrowing_sums_each_sub_steps_reach(radius, k, reach, want):
     """Sub-step s of a pass of p = 3 narrows the window by the low and the
     high reaches of sub-steps 0..s, r a side where the functor declares
     none; the pass's halo is the larger side at its end: r*p*k, or p for
-    FDTD's one-sided reach."""
+    FDTD's one-sided reach, 2p for convection's pseudo-transient functors,
+    whose sub-steps read above, below, then on both sides."""
     from stencilstream_tpu_torch.backends import tile_pass as tp
 
+    per_iteration = max(sum(lo for lo, _ in reach), sum(hi for _, hi in reach)) if reach else radius * k
     assert tp.pass_narrowing(radius, 3, k, reach) == want
-    assert tp.pass_halo(radius, 3, k, reach) == max(want[-1]) == (3 if reach else radius * 3 * k)
+    assert tp.pass_halo(radius, 3, k, reach) == max(want[-1]) == 3 * per_iteration
     assert tp.pass_narrowing(radius, 0, k, reach) == [] and tp.pass_halo(radius, 0, k, reach) == 0
 
 
@@ -369,6 +372,108 @@ def test_in_place_map_at_convections_runs_stores_every_cell_once(tile, halo, run
     work = in_place_map_work(tile, halo, 1, run)
     assert (work["uncovered"], work["stored_twice"], work["outside"]) == (0, 0, 0)
     assert work["lane_cells_per_cell_step"] == pytest.approx(thread_map_work(tile, halo, 1, run)[0])
+
+
+#: (tile, p, run) of convection's in-place map with its declared reach (halo
+#: 2p): the reach law's tiles for its 88 B and 44 B cells, the sweep's one-
+#: and two-CTA windows, and cores whose narrowed windows are not whole warps
+#: (width 100), at p = 1-4, in runs of 1 and 2 rows.
+CONVECTION_REACH_GEOMETRY = sorted({
+    (tile, p, run)
+    for tile in (REACH_LAW[88][0], REACH_LAW[44][0], (28, 52), (32, 56), (24, 48), (8, 52), (16, 100))
+    for p in (1, 2, 3, 4) for run in (1, 2)
+})
+
+
+@pytest.mark.parametrize("tile, p, run", CONVECTION_REACH_GEOMETRY, ids=lambda v: str(v))
+def test_in_place_map_with_convections_reach_stores_every_cell_once(tile, p, run):
+    """With convection's reach, (0, 1), (1, 0), (1, 1) a sub-step, the 3p
+    narrowed windows of a pass of halo 2p each have every cell stored by
+    exactly one lane and no store outside them; the map computes fewer
+    lane-cells a useful cell-step than the symmetric halo 3p at the same
+    tile."""
+    from stencilstream_tpu_torch.tile_sweep import in_place_map_work
+
+    reach = ((0, 1), (1, 0), (1, 1))
+    work = in_place_map_work(tile, 2 * p, 1, run, reach=reach)
+    assert (work["uncovered"], work["stored_twice"], work["outside"]) == (0, 0, 0)
+    symmetric = in_place_map_work(tile, 3 * p, 1, run)["lane_cells_per_cell_step"]
+    assert work["lane_cells_per_cell_step"] < symmetric if p > 1 else work["lane_cells_per_cell_step"] <= symmetric
+
+
+#: (shape, active region (nx, ny), tile, p, n) of convection's windowed
+#: passes with the halo of its reach, 2p, one pass of p from iteration 2
+#: (n < p: a partial pass): interior tiles (64x112 at 16x32 and 13x40
+#: cores), the active region's last row and column opening a core (rows
+#: 16 and columns 32: sub-step 2 reads below and left of them), odd sizes,
+#: the smallest active region, 3x3, inside a larger grid; every tile an
+#: edge tile but at 64x112.
+CONVECTION_REACH_PASSES = [
+    ((64, 112), None, (16, 32), 2, 2), ((64, 112), None, (13, 40), 3, 2), ((40, 72), (17, 33), (16, 32), 3, 3),
+    ((40, 72), (17, 33), (8, 32), 1, 1), ((45, 70), (44, 69), (8, 32), 4, 4), ((9, 11), (3, 3), (8, 32), 3, 3),
+]
+
+
+@pytest.mark.parametrize("case", CONVECTION_REACH_PASSES,
+                         ids=lambda c: "x".join(map(str, c[0])) + f"-a{c[1]}-t{c[2][0]}x{c[2][1]}-p{c[3]}-n{c[4]}")
+@pytest.mark.parametrize("op", ["convection_pt_lean_f64", "convection_pt_f32"])
+def test_convection_pass_at_the_reach_halo_equals_the_plain_pass(op, case):
+    """A pass in the kernel's geometry (each tile from its own window of
+    halo 2p, each sub-step narrowed by the reaches so far, the cells past
+    the narrowed window keeping their values) equals the whole-block plain
+    pass bit for bit: the declared reach covers every tap. A reach that left
+    out sub-step 2's would change the cells of a core that opens on the
+    active region's last row or column."""
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+    from stencilstream_tpu_torch.backends.cuda_lib import tile_reach
+    from stencilstream_tpu_torch.tile_sweep import convection_case, max_err
+
+    shape, active, tile, p, n = case
+    cell, tf, halo = convection_case(op, shape, np.random.default_rng(51), "cpu", active)
+    kw = dict(i_start=2, offset=2, n_iterations=n, iters_per_pass=p)
+    assert tp.pass_halo(1, p, 3, tile_reach(tf)) == 2 * p
+    assert max_err(tp.tile_pass_plain(cell, tf, halo, tile=tile, **kw), tp.tile_pass_plain(cell, tf, halo, **kw)) == 0
+
+
+@pytest.mark.parametrize("op", ["convection_pt_lean_f64", "convection_pt_lean_f32"])
+def test_convection_update_of_49_through_tiling_equals_reference(op):
+    """A lean update of a convergence block, 49 iterations, through
+    ``tiling`` on the CPU: the reach law's tile and p (3 in float64, 4 in
+    float32; the last pass partial, of one iteration), in the kernel's
+    geometry, equals the reference backend bit for bit, on a grid of 2x2
+    tiles whose active region's last row and column open the second row and
+    column of tiles (sub-step 2 reads below and left of them)."""
+    from stencilstream_tpu_torch.core import Grid
+    from stencilstream_tpu_torch.tile_sweep import convection_case, max_err
+
+    (th, tw), halo_width, _ = REACH_LAW[88 if op.endswith("f64") else 44]
+    cell, tf, halo = convection_case(op, (th + 12, tw + 20), np.random.default_rng(52), "cpu", (th + 1, tw + 1))
+    params = Params(tf, halo_value=halo, iteration_offset=7, n_iterations=49)
+    tiling = create_update(params, backend="tiling")
+    got = tiling(Grid(cell))
+    assert tiling.resolved_config == dict(window_mode="clamped", tile_rows=th, tile_cols=tw,
+                                          iters_per_pass=halo_width // 2)
+    assert max_err(got.arrays, create_update(params, backend="reference")(Grid(cell)).arrays) == 0
+
+
+@pytest.mark.parametrize("p", [2, 3, 4])
+def test_sweeps_update_runs_a_call_in_passes_of_p(p):
+    """``tile_sweep.run_update``, whose device time ranks convection's
+    reach-law geometry, runs a call's n iterations in passes of p, the last
+    partial where p does not divide n: on the CPU, in the kernel's geometry,
+    it equals the whole-block plain version of the n iterations. The lean
+    update it times is a convergence block's 49 iterations, the full one
+    1."""
+    from stencilstream_tpu_torch import tile_sweep
+    from stencilstream_tpu_torch.backends import tile_pass as tp
+
+    cell, tf, halo = tile_sweep.convection_case("convection_pt_lean_f64", (40, 72), np.random.default_rng(53), "cpu",
+                                                (32, 64))
+    got = tile_sweep.run_update(cell, tf, halo, (16, 32), p, 7, tdv_stream(tf, 0, 7, "cpu"))
+    want = tp.tile_pass_plain(cell, tf, halo, i_start=0, offset=0, n_iterations=7, iters_per_pass=7)
+    assert tile_sweep.max_err(got, want) == 0
+    assert tile_sweep.CONVECTION_UPDATE == {"convection_pt_lean_f32": 49, "convection_pt_lean_f64": 49,
+                                            "convection_pt_f32": 1, "convection_pt_f64": 1}
 
 
 @pytest.mark.parametrize("seen,want", [(5, 0.8), (4, 0.8), (10, 1.6), (9, 1.6)])

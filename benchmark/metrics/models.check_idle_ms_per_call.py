@@ -1,0 +1,20 @@
+"""Device idle time a call while the convergence loop checks, in ms: in the
+span segment's profiled calls (``benchmark.span_segment``), the time a card
+ran nothing while ``models.check`` or ``models.readback`` was the innermost
+port span (the five masked maxima, their launches and their blocking
+readback), the mean over the cell's cards, over the calls. Those calls run
+under the profiler, so the reading is higher than an untraced call's would
+be. None where no call checks, and without device operations, as on the
+CPU."""
+
+from benchmark.span_segment import read as segment
+
+SPANS = ("models.check", "models.readback")
+
+
+def read(record):
+    seg = segment(record, __file__)
+    prof = seg and seg["profiled"]
+    if not prof or not prof["device"] or "models.check" not in prof["spans"]:
+        return None
+    return sum(prof["idle_by_span"].get(name, 0) for name in SPANS) / prof["calls"] / 1e6

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..core.cell import cell_field_names, cell_leaves, cell_map
 from ..core.grid import Grid
 from ..parallel import Mesh, make_mesh
@@ -96,30 +97,33 @@ class StencilUpdate(StencilUpdateBase):
         r, k = tf.stencil_radius, tf.n_subiterations
         if n == 0:
             return Grid(grid.arrays)
-        p = max(1, min(self.iters_per_pass, n))
-        look = halo_width(r, p, k)
-        ch = self.chunk_rows or max(look, -(-H // 8))
-        if ch < look:
-            raise ValueError(
-                f"chunk_rows={ch} must be at least the halo r*p*k={look}; raise chunk_rows or lower "
-                f"iters_per_pass"
-            )
         devs = list(self.mesh.devices.flat)
         N = len(devs)
-        n_chunks = -(-H // ch)
+        kernel = self.local_compute == "kernel"
+        with tracing.span("backends.plan") if tracing.on else tracing.OFF as span:
+            p = max(1, min(self.iters_per_pass, n))
+            look = halo_width(r, p, k)
+            ch = self.chunk_rows or max(look, -(-H // 8))
+            if ch < look:
+                raise ValueError(
+                    f"chunk_rows={ch} must be at least the halo r*p*k={look}; raise chunk_rows or lower "
+                    f"iters_per_pass"
+                )
+            n_chunks = -(-H // ch)
+            self.resolved_config = dict(
+                ring=N, local_compute=self.local_compute, iters_per_pass=p, chunk_rows=ch, n_chunks=n_chunks,
+            )
+            if kernel:
+                from .tiling import pick_config
+
+                th, tw, _ = pick_config(ch, W, r, k, n, tile_cell_smem_bytes(grid.arrays, tf),
+                                        device_limits(devs[0]), p, in_place=tile_writes(tf) is not None)
+                self.resolved_config.update(tile_rows=th, tile_cols=tw)
+            if span is not None:
+                span.attrs["geometry"] = dict(self.resolved_config)
         n_ticks = (n_chunks + 1) + 2 * (N - 1) + 1
         lap_iters = N * p
-        kernel = self.local_compute == "kernel"
-        tdv = per_device(self._tdv_strategy().prepare(tf, offset, n, grid.device), self.mesh.device_set())
-        self.resolved_config = dict(
-            ring=N, local_compute=self.local_compute, iters_per_pass=p, chunk_rows=ch, n_chunks=n_chunks,
-        )
-        if kernel:
-            from .tiling import pick_config
-
-            th, tw, _ = pick_config(ch, W, r, k, n, tile_cell_smem_bytes(grid.arrays, tf), device_limits(devs[0]), p,
-                                    in_place=tile_writes(tf) is not None)
-            self.resolved_config.update(tile_rows=th, tile_cols=tw)
+        tdv = per_device(self._tdv_stream(grid), self.mesh.device_set())
 
         # A lap streams through one buffer per position: rows look.. hold
         # the lap's grid as that position receives it (position 0: the
@@ -160,9 +164,19 @@ class StencilUpdate(StencilUpdateBase):
                     lambda step, i_abs: step_value(tdv[devs[d]], i_abs - offset),
                     radius=r, n_subiterations=k, n_steps=p, row_mode="shrink", col_mode="pad",
                 )
-            for jf in moving:
-                got, want = cell_leaves(out)[jf], cell_leaves(dest)[jf]
-                if got.data_ptr() != want.data_ptr():
+            pairs = [(cell_leaves(out)[jf], cell_leaves(dest)[jf]) for jf in moving]
+            copies = [(got, want) for got, want in pairs if got.data_ptr() != want.data_ptr()]
+            if d + 1 < N and devs[d + 1] != devs[d]:
+                exchange(copies, (i_start - offset) // p)
+            else:
+                for got, want in copies:
+                    want.copy_(got)
+
+        def exchange(copies, pass_index):
+            """Copies between two devices, as one ``backends.exchange`` span."""
+            with (tracing.span("backends.exchange", pass_index=pass_index, bytes=sum(
+                    t.numel() * t.element_size() for t, _ in copies)) if tracing.on else tracing.OFF):
+                for got, want in copies:
                     want.copy_(got)
 
         for lap in range(-(-n // lap_iters)):
@@ -175,5 +189,5 @@ class StencilUpdate(StencilUpdateBase):
             if devs[-1] == devs[0]:
                 stream[0], lap_out = lap_out, stream[0]
             else:
-                cell_map(lambda a, b: a.copy_(b), stream[0], lap_out)
+                exchange(list(zip(cell_leaves(lap_out), cell_leaves(stream[0]))), lap * N + N - 1)
         return Grid(cell_map(lambda a: a[look : look + H].to(grid.device).contiguous(), stream[0]))

@@ -772,21 +772,22 @@ def init_grid(e: Experiment, dtype=np.float32, *, device="cuda") -> Grid:
 def _error_maxes(arrays: ThermalConvectionCell, nx: int, ny: int) -> list[float]:
     """Masked |max| reductions the reference scans on the host
     (``convection.cpp:412-436``): on the grid's device, brought to the host
-    in one transfer."""
-    return torch.stack([
+    in one transfer, whose wait is the ``models.readback`` span."""
+    maxes = torch.stack([
         arrays.ErrV[:nx, :].abs().max(),
         arrays.ErrP[:nx, :ny].abs().max(),
         arrays.Vx[:, :ny].abs().max(),
         arrays.Vy[:nx, :ny].abs().max(),
         arrays.Pt[:nx, :ny].abs().max(),
-    ]).tolist()
+    ])
+    with tracing.span("models.readback") if tracing.on else tracing.OFF:
+        return maxes.tolist()
 
 
-#: Counters of the timestep loop, kept as ``tdv.evaluations`` is: the
-#: timesteps :meth:`Simulation.step` ran, its convergence blocks, and the
-#: pseudo-transient iterations of those blocks (``nerr`` a block).
-steps = 0
-blocks = 0
+#: The pseudo-transient iterations :meth:`Simulation.step` ran since the
+#: process started (``nerr`` a convergence block): a caller that needs every
+#: timestep to run ``iterMax`` of them reads it (the spans ``models.step``
+#: and ``models.block`` count timesteps and blocks).
 pt_iterations = 0
 
 
@@ -836,7 +837,7 @@ class Simulation:
 
     def step(self, grid: Grid) -> Grid:
         """One timestep from ``grid``; the input grid is never modified."""
-        global steps, blocks, pt_iterations
+        global pt_iterations
         e = self.e
         with tracing.span("models.step") if tracing.on else tracing.OFF:
             errV = errP = 2 * e.epsilon
@@ -849,7 +850,6 @@ class Simulation:
                         grid = self.lean_update(grid)
                     grid = self.pt_update(grid)
                 iters += e.nerr
-                blocks += 1
                 pt_iterations += e.nerr
                 with tracing.span("models.check") if tracing.on else tracing.OFF:
                     max_vals = _error_maxes(grid.arrays, e.nx, e.ny)
@@ -868,7 +868,6 @@ class Simulation:
                 # folded grid's planes stay as they are.
                 T = self.thermal_update(Grid(physics_cell(grid.arrays))).arrays.T
                 grid = Grid(dataclasses.replace(grid.arrays, T=T))
-            steps += 1
         self.stats = {"iters": iters, "errV": errV, "errP": errP, "dt": dt, "pt_seconds": pt_seconds}
         return grid
 

@@ -25,10 +25,6 @@ alike, so on the card they see the same bits; no kernel evaluates a TDV.
 The CUDA kernels take a stream whose values are one tensor of the type their
 device functor declares (``cuda_tdv``);
 :meth:`~.backends.cuda_lib.Binding.stream_tdv` refuses any other.
-
-Two counters, since the process started: :data:`evaluations`, the streams
-evaluated (one a call of a transition function with a TDV, whatever the
-strategy and backend), and :data:`values`, the TDVs in them.
 """
 
 from __future__ import annotations
@@ -49,20 +45,6 @@ __all__ = [
     "stream_to",
     "tdv_stream",
 ]
-
-
-#: TDV streams evaluated.
-evaluations = 0
-#: TDVs evaluated in those streams.
-values = 0
-
-
-def _counted(stream: Any, n_iterations: int) -> Any:
-    """``stream``, counted as one evaluation of ``n_iterations`` values."""
-    global evaluations, values
-    evaluations += 1
-    values += n_iterations
-    return stream
 
 
 def _tree_map(fn: Callable[..., Any], *xs: Any) -> Any:
@@ -114,7 +96,7 @@ def _batched(tf: Any, offset: int, n_iterations: int, device) -> Any:
         a = torch.as_tensor(a, device=device)
         return a.expand(n_iterations) if a.dim() == 0 else a
 
-    return _counted(_tree_map(along, tf.get_time_dependent_value(idx)), n_iterations)
+    return _tree_map(along, tf.get_time_dependent_value(idx))
 
 
 class InlineTDV(TDVStrategy):
@@ -144,10 +126,10 @@ class PrecomputeOnHostTDV(TDVStrategy):
         values = [tf.get_time_dependent_value(int(offset + i)) for i in range(n_iterations)]
         if values[0] is None:
             return None
-        return _counted(_tree_map(
+        return _tree_map(
             lambda *xs: torch.from_numpy(np.stack([np.asarray(x) for x in xs])).to(device),
             *values,
-        ), n_iterations)
+        )
 
 
 _NAMED = {

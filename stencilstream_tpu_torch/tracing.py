@@ -18,7 +18,8 @@ call's id:
                             call's cell to the functor, ``cuda_lib.Binding``;
                             ``monotile``'s ``require_plan``, or the plan
                             ``auto`` made; ``distributed``'s framed buffers
-                            and its binding a block); attribute ``geometry``
+                            and its binding a block; ``ring``'s halo, chunk
+                            rows and ``pick_config``); attribute ``geometry``
 ``backends.tdv``            the call's time-dependent value stream
                             (``StencilUpdateBase._tdv_stream``); attributes
                             ``strategy``, ``offset`` (the call's
@@ -30,7 +31,12 @@ call's id:
                             copied between the blocks' buffers
                             (``parallel.exchange_frames``); attributes
                             ``pass_index``, ``strips`` (copies from a
-                            neighbour), ``bytes`` (theirs)
+                            neighbour), ``bytes`` (theirs). ``ring``, one a
+                            copy between devices: a computed chunk sent to
+                            the next position on another device, and the
+                            lap's grid taken back by the root; attributes
+                            ``pass_index`` (the pass whose output it
+                            carries), ``bytes``
 ``backends.gather``         ``distributed`` given a whole grid: the blocks
                             joined on the grid's device
 ``kernels.launch``          one pass of a kernel, entry to return
@@ -55,6 +61,8 @@ call's id:
 ``models.check``            inside ``models.step``, after each block: the five
                             masked maxima and their readback to the host
                             (``_error_maxes``)
+``models.readback``         inside ``models.check``, the blocking transfer of
+                            the maxima to the host alone
 ``models.thermal``          inside ``models.step``: the adaptive ``dt``, written
                             into the thermal update, and that update
 ==========================  ==================================================

@@ -29,7 +29,7 @@ from benchmark.faults import FAULTS, control  # noqa: E402
 from benchmark.run import run_cell  # noqa: E402
 from benchmark.spec import Spec, load_module  # noqa: E402
 
-from stencilstream_tpu_torch import Grid, Params, create_update  # noqa: E402
+from stencilstream_tpu_torch import Grid, Params, create_update, tracing  # noqa: E402
 from stencilstream_tpu_torch.models import convection as pc  # noqa: E402
 
 BENCH = ROOT / "benchmark"
@@ -89,9 +89,13 @@ def test_a_grid_that_is_not_three_to_one_takes_its_own_size(shape):
     fields = app.make_inputs(H, W, 2**32 + H, "cpu")
     update = app.make_update(CONFIG, {"height": H, "width": W, "n_iterations": 40, "backend": "auto", "options": {},
                                       "calls_per_run": 0})
-    before = pc.blocks
-    out = app.from_grid(update(app.to_grid(fields)))
-    assert pc.blocks - before == 1
+    tracing.collect()
+    tracing.enable()
+    try:
+        out = app.from_grid(update(app.to_grid(fields)))
+    finally:
+        tracing.disable()
+    assert sum(s.name == "models.block" for s in tracing.collect()) == 1
     assert 0 < rel_err(out, ref.run(fields, 40, CONFIG)) < 40 * 3 * 8 * 2.0**-52
 
 
@@ -252,13 +256,20 @@ def _run(root, wrap=None, seconds=0.4):
 
 
 def test_the_cell_runs_correct_on_the_cpu(small_root):
-    """Chained calls, one timestep each, every one of 20 iterations."""
-    before = (pc.steps, pc.pt_iterations)
-    result = _run(small_root)
+    """Chained calls, one timestep each (one ``models.step`` span), every
+    one of 20 iterations."""
+    before = pc.pt_iterations
+    tracing.collect()
+    tracing.enable()
+    try:
+        result = _run(small_root)
+    finally:
+        tracing.disable()
+    steps = sum(s.name == "models.step" for s in tracing.collect())
     assert result["correct"] is True and result["attempted"] >= 2
     assert all(0 < c["value"] < c["limit"] / 100 for c in result["checks"].values())
     calls = result["attempted"] + 2  # the warm-up's two
-    assert (pc.steps - before[0], pc.pt_iterations - before[1]) == (calls, 20 * calls)
+    assert (steps, pc.pt_iterations - before) == (calls, 20 * calls)
 
 
 @pytest.mark.parametrize("wrong", sorted(FAULTS) + ["control_bf16", "port_float32"])

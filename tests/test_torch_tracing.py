@@ -17,6 +17,7 @@ import torch
 
 from stencilstream_tpu_torch import Grid, Params, create_update, tdv, tracing
 from stencilstream_tpu_torch.models import convection, fdtd, hotspot
+from stencilstream_tpu_torch.parallel import make_mesh
 
 STAGES = ["entry.call", "entry.check_no_grad", "backends.plan", "backends.tdv"]
 
@@ -175,24 +176,26 @@ def _fdtd(n, offset):
 
 @pytest.mark.parametrize("strategy", ["inline", "precompute_on_host"])
 def test_an_fdtd_call_counts_its_tdv_stream(strategy):
-    """One call: one stream evaluated, n values; the span carries both."""
+    """One call: one ``backends.tdv`` span, which carries the stream's offset
+    and its n values; two calls, two spans of 10 values in all."""
     update, grid = _fdtd(5, 3000)
     update.get_params().tdv_strategy = strategy
-    before = (tdv.evaluations, tdv.values)
     _, spans = _traced(update, grid)
-    assert (tdv.evaluations - before[0], tdv.values - before[1]) == (1, 5)
     [span] = [s for s in spans if s.name == "backends.tdv"]
     assert span.attrs["offset"] == 3000 and span.attrs["n"] == 5
-    update(grid)  # spans off: the counters count all the same
-    assert (tdv.evaluations - before[0], tdv.values - before[1]) == (2, 10)
+    assert span.attrs["strategy"] == type(tdv.resolve_tdv_strategy(strategy)).__name__
+    assert update._tdv_stream(grid).shape == (5,)
+    _, more = _traced(update, grid)
+    assert sum(s.attrs["n"] for s in spans + more if s.name == "backends.tdv") == 10
 
 
 def test_a_call_without_a_tdv_counts_none():
+    """The call's span is there, but the strategy evaluates no stream."""
     grid = _grid(32, 64)
-    before = (tdv.evaluations, tdv.values)
-    _, spans = _traced(_update(grid, "auto", 4), grid)
-    assert (tdv.evaluations, tdv.values) == before
+    update = _update(grid, "auto", 4)
+    _, spans = _traced(update, grid)
     assert [s.attrs for s in spans if s.name == "backends.tdv"] == [{"strategy": "InlineTDV", "offset": 0, "n": 4}]
+    assert update._delegate_for(update.resolved_backend)._tdv_stream(grid) is None
 
 
 def test_no_module_counts_launches_but_the_kernels():
@@ -208,7 +211,7 @@ def test_no_module_counts_launches_but_the_kernels():
                 counting.add(str(path.relative_to(package)))
     assert counting == {"backends/tile_pass.py", "backends/line_cache.py", "backends/monotile.py",
                         "experiments/strip.py", "experiments/linecache.py"}
-    assert isinstance(tdv.evaluations, int) and not hasattr(tdv, "launches")
+    assert not hasattr(tdv, "launches")
 
 
 def _convection_step():
@@ -219,40 +222,64 @@ def _convection_step():
     return convection.Simulation(e, np.float64), convection.init_grid(e, np.float64, device="cpu")
 
 
-def _counters():
-    return convection.steps, convection.blocks, convection.pt_iterations
-
-
 def test_a_convection_step_records_its_blocks_checks_and_thermal_step():
     """One step: one ``models.step``; iterMax / nerr ``models.block`` and
-    ``models.check`` spans in turns and one ``models.thermal``, all nested
-    under it; each block's two updates and the thermal one open their own
-    calls inside them. The counters advance by 1, iterMax / nerr, iterMax."""
+    ``models.check`` spans in turns, each check holding one
+    ``models.readback``, and one ``models.thermal``, all nested under it;
+    each block's two updates and the thermal one open their own calls
+    inside them. ``convection.pt_iterations`` advances by iterMax."""
     sim, grid = _convection_step()
-    before = _counters()
+    before = convection.pt_iterations
     _, spans = _traced(sim.step, grid)
-    assert tuple(b - a for a, b in zip(before, _counters())) == (1, 4, 20)
+    assert convection.pt_iterations - before == 20
     models = [(i, s) for i, s in enumerate(spans) if s.name.startswith("models.")]
-    assert [s.name for _, s in models] == (["models.step"] + ["models.block", "models.check"] * 4
+    assert [s.name for _, s in models] == (["models.step"] + ["models.block", "models.check", "models.readback"] * 4
                                            + ["models.thermal"])
     step = models[0][1]
     assert step.parent is None and step.call is None
+    checks = {i for i, s in models if s.name == "models.check"}
     for i, s in models[1:]:
-        assert s.parent == 0 and s.call is None
-        assert step.start_ns <= s.start_ns <= s.end_ns <= step.end_ns
+        assert s.parent in (checks if s.name == "models.readback" else {0}) and s.call is None
+        assert spans[s.parent].start_ns <= s.start_ns <= s.end_ns <= spans[s.parent].end_ns
     calls = [s for s in spans if s.name == "entry.call"]
     assert [spans[s.parent].name for s in calls] == ["models.block"] * 8 + ["models.thermal"]
     assert len({s.call for s in calls}) == 9 and all(spans[s.parent].start_ns <= s.start_ns for s in calls)
-    checks = {i for i, s in models if s.name == "models.check"}
-    assert not any(s.parent in checks for s in spans)  # the maxima run outside the port's calls
+    # the maxima run outside the port's calls: a check holds its readback alone
+    assert [spans[s.parent].name for s in spans if s.parent in checks] == ["models.check"] * 4
+    assert all(s.name == "models.readback" for s in spans if s.parent in checks)
 
 
 def test_a_convection_step_with_spans_off_records_nothing():
     sim, grid = _convection_step()
-    before = _counters()
+    before = convection.pt_iterations
     sim.step(grid)
     assert tracing.collect() == []
-    assert tuple(b - a for a, b in zip(before, _counters())) == (1, 4, 20)
+    assert convection.pt_iterations - before == 20
+
+
+@pytest.mark.parametrize("devices, exchanges", [(["cpu"] * 4, 0), ([f"cpu:{i}" for i in range(4)], 25)])
+def test_a_ring_call_records_its_plan_and_each_exchange(devices, exchanges):
+    """A ring of four positions, p = 2, two laps of 8 chunks of 6 rows: one
+    ``backends.plan`` a call with its geometry; between positions on
+    different devices, a lap's ``backends.exchange`` spans are each chunk
+    sent on by positions 0-2 (passes 4 lap + 0..2, one field) and the root
+    taking the lap back (pass 4 lap + 3, both fields and the 2 * 2 look
+    rows). On one device nothing is exchanged."""
+    grid = _grid(48, 32)
+    update = _update(grid, "ring", 16, mesh=make_mesh(shape=(4,), devices=devices), iters_per_pass=2)
+    out, spans = _traced(update, grid)
+    [plan] = [s for s in spans if s.name == "backends.plan"]
+    assert plan.attrs["geometry"] == update.resolved_config and plan.attrs["geometry"]["chunk_rows"] == 6
+    found = [s.attrs for s in spans if s.name == "backends.exchange"]
+    assert len(found) == 2 * exchanges
+    for lap in range(2 if exchanges else 0):
+        mine = [a for a in found if a["pass_index"] // 4 == lap]
+        assert sorted(a["pass_index"] % 4 for a in mine) == [0] * 8 + [1] * 8 + [2] * 8 + [3]
+        assert {a["bytes"] for a in mine if a["pass_index"] % 4 < 3} == {6 * 32 * 4}
+        assert [a["bytes"] for a in mine if a["pass_index"] % 4 == 3] == [2 * (48 + 4) * 32 * 4]
+    _check_nesting(spans)
+    plain = _update(grid, "reference", 16)(grid)
+    assert torch.equal(out.arrays.temp, plain.arrays.temp)
 
 
 @pytest.mark.gpu
